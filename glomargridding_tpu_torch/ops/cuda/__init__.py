@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+PyTorch twin. Sources live in ``csrc/`` and are built with nvcc at first
+use (``build.py``); importing this package builds nothing."""
+
+from .pairwise import (
+    DISTANCES,
+    TILE_N,
+    matern_covariance_cuda,
+    pairwise_covariance,
+    pairwise_covariance_torch,
+)
+
+__all__ = [
+    "DISTANCES",
+    "TILE_N",
+    "matern_covariance_cuda",
+    "pairwise_covariance",
+    "pairwise_covariance_torch",
+]
