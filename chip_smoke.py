@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (glomargridding_tpu_torch).
 
-Drives the port's main path on one NVIDIA GPU: ordinary kriging of the
-1-degree global grid (64,800 cells) from 5,000 observations, Matern
-nu = 0.5 (sklearn convention), psill 1.2, range 1200 km, haversine
-distance and a diagonal error covariance, through
-``kriging_from_kernel(variogram_kernel(MaternVariogram(...)), ...)``.
-It builds the path's kernel (the pairwise covariance tile) from the
-sources in this checkout, holds it against its plain PyTorch twin,
-checks the kriging outputs against the same call in float64 on the card,
-runs the 100-member ensemble and the 259,200-cell grid, and times them.
+Drives the port's two paths on one NVIDIA GPU and builds every kernel
+they run from the sources in this checkout (``pairwise_tile.cu`` and
+``ellipse_tile.cu``, compiled in parallel):
+
+- phases 1-7, the stationary path: ordinary kriging of the 1-degree
+  global grid (64,800 cells) from 5,000 observations, Matern nu = 0.5
+  (sklearn convention), psill 1.2, range 1200 km, haversine distance and
+  a diagonal error covariance, through ``kriging_from_kernel``; its tile
+  kernel (K1) against its plain twin, the outputs against the same call
+  in float64 on the card, the 100-member ensemble, the 259,200-cell grid
+  and their times;
+- phases 8-12, the non-stationary path: the ellipse kernels K2, K3 and K4
+  against their plain twins; ``EllipseCovarianceBuilder`` on all 64,800
+  cells (nu = 1.5, f32, 16.8 GB) with ``OrdinaryKriging``,
+  ``SimpleKriging`` and ``crossval_from_covariance`` against an f64
+  oracle; the bf16 operator at 64,800; the banded stream operator at
+  259,200 cells (3,000 km cutoff); and their times. The ellipse fields
+  are the JAX benchmark's ``realistic_ellipse_params`` (seed 42).
 
 Usage, from the repository root, with no arguments:
 
@@ -18,7 +27,7 @@ Usage, from the repository root, with no arguments:
 One line per phase. Any failure raises and the script exits non-zero
 without the final line. The final line is one JSON object with the
 device; the line before it lists each kernel with its launch count on
-the main path, its error against the plain twin and its time.
+its path, its error against the plain twin and its time.
 """
 
 import json
@@ -26,6 +35,8 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from itertools import product
 
 import numpy as np
 import torch
@@ -54,6 +65,46 @@ KRIGING_TOL = 1e-3
 ENSEMBLE_FIELD_TOL = KRIGING_TOL
 # small f64 problem, card (kernel) vs CPU (plain twin)
 SMALL_RTOL = 1e-10
+
+# --- the non-stationary path
+NU_NS = 1.5
+MAX_DIST_KM = 3000.0
+N_SYM = 16384  # bench.py:511-524's K2 size (seed 1 inputs)
+N_RAGGED = 16421  # not a multiple of the 64-point tile
+BAND_ROWS = slice(30000, 32048)  # a 2,048 x 64,800 row band of the 1 deg grid
+STREAM_GRID = (360, 720)  # bench.py:835-839, 259,200 cells
+WIDE_COLS = 1024
+# K2/K4 against their plain twins, max |kernel - plain| / max |plain|:
+# the same formula in the same order; the kernel's exp/rsqrt/sin/cos are
+# not torch's (a few ulp) and nvcc contracts some products into FMAs.
+ELLIPSE_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# K3 against its twin (relative to max |y|): f32 tiles summed with
+# atomics in no fixed order; against the dense f64 product: the JAX
+# test's bound (test_ellipse.py:1578-1582)
+K3_TWIN_TOL = 1e-5
+K3_DENSE_TOL = 1e-4
+# the f32 builder's matrix against K4 in f64, relative to max |C|, off
+# the pairs 180 degrees apart in longitude: the f32 pair function's own
+# rounding (measured ~1.5e-6 on the H100)
+COVARIANCE_TOL = 1e-4
+# f32 dense kriging against f64 solves on the same matrix, by order. At
+# nu = 0.5 the system is positive definite (cond ~1e3): KRIGING_TOL. At
+# nu = 1.5 it is indefinite (lambda_min -0.54, cond 1.3e5 on the 1 degree
+# fields, H100): f32 LU reads up to 4.0e-3 (the constraint mask), so the
+# bound is a fixed 1e-2 until the PSD repair lands. Each order's bound
+# must also reject the negative controls (DENSE_FAULTS).
+DENSE_KRIGING_TOL = {0.5: KRIGING_TOL, 1.5: 1e-2}
+# faults a dense kriging check must catch, read in f64 against the f64
+# oracle: simple kriging where ordinary was asked for, and the
+# observations' error variances 10% too large
+DENSE_FAULTS = ("simple_for_ordinary", "error_cov_x1.1")
+# the bf16 store's matvec against the dense f32 product, relative to
+# max |y| (test_ellipse.py:713-716): bf16 keeps 8 bits of mantissa
+BF16_TOL = 2e-2
+# two f32 applications of one stream operator that differ only in the
+# order they sum (K3's atomics against the GEMM; a GEMM over the band
+# window against one over all columns), relative to max |y|
+STREAM_ORDER_TOL = 1e-5
 
 
 def sync():
@@ -145,6 +196,115 @@ def check_kriging(res, oracle, variance, label):
     return errs
 
 
+def check(label, value, bound):
+    if not value <= bound:
+        raise AssertionError(f"{label}: {value:.3e} > {bound}")
+    return value
+
+
+def require_launches(label, count):
+    if count == 0:
+        raise AssertionError(f"the path launched no {label}")
+    return count
+
+
+def realistic_ellipse_params(glat, glon):
+    """bench.py:574-608 (seed 42), as float32 numpy (Lx, Ly, theta,
+    stdev): base scales ~900-1800 km with ~30% spatially correlated
+    log-variation, rotated ellipses, and a rough stdev field."""
+    rng = np.random.default_rng(42)
+    la = np.radians(np.asarray(glat))
+    lo = np.radians(np.asarray(glon))
+
+    def rough(ncomp, scale):
+        out = np.zeros_like(la)
+        for _ in range(ncomp):
+            k1, k2 = rng.integers(1, 7, size=2)
+            s1, s2 = rng.choice([-1.0, 1.0], size=2)
+            ph = rng.uniform(0, 2 * np.pi)
+            amp = rng.normal()
+            out += amp * np.sin(s1 * k1 * la + s2 * k2 * lo + ph)
+        out /= np.sqrt(ncomp)
+        return scale * out
+
+    coslat = np.cos(la)
+    Lx = (900.0 + 600.0 * coslat**2) * np.exp(0.35 * rough(12, 1.0))
+    Ly = (600.0 + 300.0 * coslat) * np.exp(0.35 * rough(12, 1.0))
+    theta = 0.4 * rough(12, 1.0)
+    stdev = (0.8 + 0.4 * coslat) * np.exp(0.25 * rough(12, 1.0))
+    return tuple(np.asarray(a, np.float32) for a in (Lx, Ly, theta, stdev))
+
+
+def bench_fields(n):
+    """bench.py:511-524's K2 inputs (seed 1), sorted by latitude (the
+    grid compression order, so that a cutoff bands the matvec)."""
+    rng = np.random.default_rng(1)
+    lats = rng.uniform(-60.0, 60.0, n).astype(np.float32)
+    lons = rng.uniform(-180.0, 180.0, n).astype(np.float32)
+    Lx = rng.uniform(800.0, 1600.0, n).astype(np.float32)
+    Ly = rng.uniform(400.0, 900.0, n).astype(np.float32)
+    theta = rng.uniform(-0.6, 0.6, n).astype(np.float32)
+    stdev = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    order = np.argsort(lats, kind="stable")
+    return lats[order], lons[order], tuple(
+        a[order] for a in (Lx, Ly, theta, stdev))
+
+
+def ellipse_args(lats, lons, fields, dtype, dev):
+    """(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs) on the card."""
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+
+    def on_card(a):
+        return torch.as_tensor(a, device=dev).to(dtype)
+
+    return tcov._ellipse_inputs(
+        *(on_card(a) for a in fields),
+        torch.deg2rad(on_card(lats)), torch.deg2rad(on_card(lons)))
+
+
+def k3_band(P, max_dist):
+    """K3's per-row-block band limits for lat-sorted points."""
+    from glomargridding_tpu_torch.models.ellipse.covariance import (
+        _stream_band_plan,
+    )
+    from glomargridding_tpu_torch.ops.cuda.ellipse import TILE
+
+    lat = np.asarray(P[:, 0].cpu(), np.float64)
+    n = lat.size
+    return _stream_band_plan(lat, lat, n, n, max_dist, TILE, TILE)[2]
+
+
+def builder_points(builder):
+    """The packed points ``EllipseCovarianceBuilder`` hands K2."""
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+    from glomargridding_tpu_torch.ops.cuda.ellipse import pack_points
+
+    return pack_points(*tcov._ellipse_inputs(*builder._device_inputs()))
+
+
+def core_outputs(core):
+    """(field, uncertainty, mask) of a ``_simple_core``/``_ordinary_core``
+    result, the uncertainty as the classes give it."""
+    field, unc2, cmask = core[:3]
+    return field, torch.sqrt(torch.clamp(unc2, min=0.0)), cmask
+
+
+def kriging_errs(got, want, sd_scale):
+    """(field, uncertainty, mask) against the same, as in phase 4: field
+    relative to max |field|, uncertainty to sd_scale, mask absolute."""
+    return {"field": max_rel(got[0], want[0]),
+            "uncertainty": max_rel(got[1], want[1], sd_scale),
+            "constraint_mask": max_rel(got[2], want[2], 1.0)}
+
+
+def reset_ellipse_counts():
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    te.ellipse_sym.launches = 0
+    te.ellipse_tile.launches = 0
+    te.ellipse_matvec.launches = 0
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -177,11 +337,14 @@ def main():
     phase(1, "device", torch=torch.__version__, cuda=torch.version.cuda,
           gpu=torch.cuda.get_device_name(0), matmul_precision=precision)
 
-    # 2. build K1 from the sources in this checkout
+    # 2. build K1-K4 from the sources in this checkout, one nvcc each,
+    # all started together
     t0 = time.perf_counter()
-    build.load_library("pairwise_tile")
+    libraries = ("pairwise_tile", "ellipse_tile")
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        list(pool.map(build.load_library, libraries))
     phase(2, "build", seconds=f"{time.perf_counter() - t0:.1f}",
-          library=build.library_path("pairwise_tile").name)
+          libraries="|".join(build.library_path(n).name for n in libraries))
 
     # 3. K1 against its plain twin at the main path's tile shapes
     glat, glon = grid_1deg()
@@ -340,7 +503,7 @@ def main():
           **{k: f"{v:.4f}" for k, v in walls.items()},
           kriging_64800_peak_gb=f"{peak_gb:.3f}")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "pairwise_tile",
         "route": "cuda",
         "source": "glomargridding_tpu_torch/ops/cuda/csrc/pairwise_tile.cu",
@@ -349,12 +512,461 @@ def main():
         "max_abs_err": main_abs_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
-    }]}), flush=True)
+    }]
+    kernels += nonstationary(dev, glat, glon, (idx, y, err))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def phase8_parity(dev, glat, glon):
+    """K2, K3 and K4 against their plain twins over the orders, both
+    displacement methods, with and without the cutoff, at ragged sizes."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    lats, lons, fields = bench_fields(N_RAGGED)
+    pts = {}
+    for dtype in (torch.float64, torch.float32):
+        pts[dtype] = {
+            n: te.pack_points(*ellipse_args(lats[:n], lons[:n],
+                                            [f[:n] for f in fields], dtype,
+                                            dev))
+            for n in (N_SYM, N_RAGGED)
+        }
+    grid = {
+        dtype: te.pack_points(*ellipse_args(
+            glat, glon, realistic_ellipse_params(glat, glon), dtype, dev))
+        for dtype in (torch.float64, torch.float32)
+    }
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((N_RAGGED, te.MV_W), generator=gen, device=dev)
+    worst = {k: 0.0 for k in ("k2_f64", "k2_f32", "k4_f64", "k4_f32",
+                              "k3_twin", "k3_dense")}
+    cases = list(product((0.5, 1.5, 2.5, 3.5), te.DELTA_X_METHODS,
+                         (None, MAX_DIST_KM)))
+    for dtype, (nu, method, md) in product((torch.float64, torch.float32),
+                                           cases):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        label = f"{tag} nu={nu} {method} max_dist={md}"
+        args = (nu, method, md)
+        for n, P in pts[dtype].items():
+            k2 = te.ellipse_sym(P, *args)
+            k4 = te.ellipse_tile(P, P, *args)
+            k4.diagonal().add_(P[:, 6] * P[:, 6])
+            sync()
+            if not torch.equal(k2, k4):
+                raise AssertionError(f"K2 != K4 bitwise, n={n}, {label}")
+            if not torch.equal(k4, k4.T):
+                raise AssertionError(f"K4 != K4' bitwise, n={n}, {label}")
+            if n == N_RAGGED:
+                rel = max_rel(k2, te.ellipse_sym_torch(P, *args))
+                worst["k2_" + tag] = max(worst["k2_" + tag], check(
+                    f"K2 {label}", rel, ELLIPSE_RTOL[dtype]))
+            del k2, k4
+        band = grid[dtype][BAND_ROWS]
+        rel = max_rel(te.ellipse_tile(band, grid[dtype], *args),
+                      te.ellipse_tile_torch(band, grid[dtype], *args))
+        worst["k4_" + tag] = max(worst["k4_" + tag], check(
+            f"K4 2048x64800 {label}", rel, ELLIPSE_RTOL[dtype]))
+        if dtype == torch.float32:
+            P = pts[dtype][N_RAGGED]
+            hi = None if md is None else k3_band(P, md)
+            yk = te.ellipse_matvec(P, x, hi, *args)
+            yp = te.ellipse_matvec_torch(P, x, hi, *args)
+            dense = te.ellipse_sym(pts[torch.float64][N_RAGGED], *args)
+            want = dense @ x.double()
+            del dense
+            diag_x = (P[:, 6] * P[:, 6])[:, None] * x
+            worst["k3_twin"] = max(worst["k3_twin"], check(
+                f"K3 twin {label}", max_rel(yk, yp), K3_TWIN_TOL))
+            worst["k3_dense"] = max(worst["k3_dense"], check(
+                f"K3 dense {label}", max_rel(yk + diag_x, want),
+                K3_DENSE_TOL))
+
+    # the bf16 store is the f32 tile rounded once; padding is exact zeros
+    P = pts[torch.float32][N_RAGGED]
+    for md in (None, MAX_DIST_KM):
+        kw = dict(add_diag=False, keep_pad=True)
+        b16 = te.ellipse_sym(P, NU_NS, max_dist=md, out_dtype=torch.bfloat16,
+                             **kw)
+        f32 = te.ellipse_sym(P, NU_NS, max_dist=md, **kw)
+        if not torch.equal(b16, f32.to(torch.bfloat16)):
+            raise AssertionError("K2 bf16 is not the f32 tile rounded once")
+        if bool(f32[N_RAGGED:].any()) or bool(f32[:, N_RAGGED:].any()):
+            raise AssertionError("K2 keep_pad: nonzero padding")
+        del b16, f32
+    # an order without a kernel raises before any launch
+    before = te.ellipse_sym.launches
+    try:
+        te.ellipse_sym(P, 1.2)
+    except ValueError as exc:
+        if "half-integer" not in str(exc):
+            raise
+    else:
+        raise AssertionError("nu = 1.2 did not raise")
+    if te.ellipse_sym.launches != before:
+        raise AssertionError("a refused order launched")
+    phase(8, "ellipse_kernels_parity", cases=len(cases) * 2,
+          sizes=f"{N_SYM}|{N_RAGGED}|2048x{glat.size}",
+          k2_eq_k4="bitwise", k2_symmetric="bitwise", bf16="rounded_once",
+          **{k: f"{v:.3e}" for k, v in worst.items()},
+          bounds=f"f64:{ELLIPSE_RTOL[torch.float64]}"
+                 f"|f32:{ELLIPSE_RTOL[torch.float32]}"
+                 f"|k3_twin:{K3_TWIN_TOL}|k3_dense:{K3_DENSE_TOL}")
+
+
+def krige_nonstationary(dev, glat, glon, obs, nu):
+    """EllipseCovarianceBuilder (K2) + dense kriging at 1 degree for one
+    order, held against its plain twin and two f64 oracles:
+
+    - K2 at the builder's size: a row band of the matrix against the
+      plain tile of the builder's own points, to ELLIPSE_RTOL;
+    - the matrix: the blocks kriging reads, C[idx, :] (C[idx, idx] is
+      inside it), against K4 in f64. Every entry must agree to
+      COVARIANCE_TOL except at pairs exactly 180 degrees apart in
+      longitude: there the reference's +-pi wrap of dx is a step, and
+      f32 and f64 may land on its two sides (dx = +pi or -pi flips the
+      sign of the quadratic form's cross term);
+    - the solves: the same solves in f64 on the builder's own matrix, to
+      DENSE_KRIGING_TOL[nu]; the faults of DENSE_FAULTS, read the same
+      way, must exceed it. Cross-validation is held where K is positive
+      definite (an indefinite K has negative LOO variances).
+    """
+    from glomargridding_tpu_torch import (
+        EllipseCovarianceBuilder,
+        OrdinaryKriging,
+        SimpleKriging,
+        crossval_from_covariance,
+    )
+    from glomargridding_tpu_torch.models.kernel_kriging import _loo_from_K
+    from glomargridding_tpu_torch.models.kriging import (
+        _ordinary_core,
+        _simple_core,
+        _solve_sym,
+    )
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    idx, y, err = obs
+    fields = realistic_ellipse_params(glat, glon)
+    lat_axis, lon_axis = np.unique(glat), np.unique(glon)
+    shape = (lat_axis.size, lon_axis.size)
+
+    reset_ellipse_counts()
+    _solve_sym.branches.update(cholesky=0, lu=0)
+    torch.cuda.reset_peak_memory_stats()
+    builder = EllipseCovarianceBuilder(
+        *(f.reshape(shape) for f in fields), lat_axis, lon_axis, v=nu,
+        device=dev,
+    )
+    cov = builder.cov_ns
+    ok = OrdinaryKriging(cov, idx, y, err)
+    res = {"ordinary": (ok.solve(), ok.get_uncertainty(),
+                        ok.constraint_mask())}
+    sk = SimpleKriging(cov, idx, y, err)
+    res["simple"] = (sk.solve(), sk.get_uncertainty(), sk.constraint_mask())
+    cv = crossval_from_covariance(cov, idx, y, err)
+    sync()
+    out = {"k2_launches": require_launches("K2 (builder)",
+                                           te.ellipse_sym.launches),
+           "branches": dict(_solve_sym.branches),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cov.shape != (glat.size, glat.size) or cov.dtype != torch.float32:
+        raise AssertionError(f"covariance {tuple(cov.shape)} {cov.dtype}")
+    for method, outs in res.items():
+        for got in outs:
+            if got.shape != (glat.size,) or not bool(
+                    torch.isfinite(got).all()):
+                raise AssertionError(f"{method}: malformed output")
+    # K2 at 64,800 against its plain twin on a row band
+    P = builder_points(builder)
+    band = P[BAND_ROWS]
+    plain = te.ellipse_tile_torch(band, P, nu)
+    plain[torch.arange(band.shape[0], device=dev),
+          torch.arange(BAND_ROWS.start, BAND_ROWS.stop, device=dev)] += (
+        band[:, 6] * band[:, 6])
+    errs = {"k2_band_vs_plain": max_rel(cov[BAND_ROWS], plain)}
+    del P, band, plain
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out["x8"] = torch.randn((glat.size, 8), generator=gen, device=dev)
+    out["y_dense"] = cov @ out["x8"]
+    Cc = cov[idx, :].double()
+    C_diag = torch.diagonal(cov).double()
+    del builder, cov, ok, sk
+
+    # the matrix against K4 in f64 (zero self-pairs, then stdev^2)
+    P = te.pack_points(*ellipse_args(glat, glon, fields, torch.float64, dev))
+    Cc64 = te.ellipse_tile(P[idx], P, nu)
+    Cc64[torch.arange(idx.numel(), device=dev), idx] += P[idx, 6] ** 2
+    lon = torch.as_tensor(glon, device=dev).double()
+    antimeridian = torch.abs(lon[idx][:, None] - lon[None, :]) == 180.0
+    scale = torch.max(torch.abs(Cc64)).item()
+    dev_rel = torch.abs(Cc - Cc64) / scale
+    errs["covariance"] = torch.max(dev_rel[~antimeridian]).item()
+    errs["covariance_antimeridian"] = torch.max(dev_rel[antimeridian]).item()
+    del Cc64, P, dev_rel, antimeridian
+    # the solves in f64 on the builder's own matrix
+    err64 = err.double()
+    K = Cc[:, idx] + err64
+    eig = torch.linalg.eigvalsh(K)
+    cond = (eig.abs().max() / eig.abs().min()).item()
+    y64 = y.double()
+    oracle = {
+        "ordinary": core_outputs(_ordinary_core(K, Cc, C_diag, y64)),
+        "simple": core_outputs(_simple_core(K, Cc, C_diag, y64, 0.0)),
+    }
+    sd_scale = float(torch.sqrt(C_diag.max()))
+    for method, got in res.items():
+        for k, v in kriging_errs(got, oracle[method], sd_scale).items():
+            errs[f"{method}_{k}"] = v
+    spd = eig[0].item() > 0.0
+    if spd:
+        cv64 = _loo_from_K(K, y64, 0.0, "ordinary")
+        for name, got, want in zip(cv._fields, cv, cv64):
+            errs[f"crossval_{name}"] = max_rel(got, want)
+    # negative controls: each fault's largest reading on the same scales
+    wrong = {
+        "simple_for_ordinary": oracle["simple"],
+        "error_cov_x1.1": core_outputs(_ordinary_core(
+            Cc[:, idx] + 1.1 * err64, Cc, C_diag, y64)),
+    }
+    faults = {name: max(kriging_errs(got, oracle["ordinary"],
+                                     sd_scale).values())
+              for name, got in wrong.items()}
+    out.update(errs=errs, faults=faults, eig_min=eig[0].item(),
+               eig_max=eig[-1].item(), cond=cond, spd=spd)
+    return out
+
+
+def phase9_dense_kriging(dev, glat, glon, obs):
+    """Non-stationary dense kriging at 1 degree: nu = 1.5 (the slice's
+    configuration; its K is indefinite) and nu = 0.5 (HadSST4's order;
+    positive definite)."""
+    runs = {}
+    for nu in (0.5, NU_NS):  # the nu = 1.5 run's tensors feed phase 10
+        r = krige_nonstationary(dev, glat, glon, obs, nu)
+        runs[nu] = r
+        br = r["branches"]
+        phase(9, f"ellipse_dense_kriging_64800x5000_nu{nu}",
+              covariance_gb=f"{glat.size**2 * 4 / 1e9:.1f}",
+              k2_launches=r["k2_launches"],
+              solve_branches=f"cholesky:{br['cholesky']}|lu:{br['lu']}",
+              K_eig_min=f"{r['eig_min']:.4g}",
+              K_eig_max=f"{r['eig_max']:.4g}", K_cond=f"{r['cond']:.3g}",
+              k2_tol=ELLIPSE_RTOL[torch.float32],
+              covariance_tol=COVARIANCE_TOL, tol=DENSE_KRIGING_TOL[nu],
+              peak_gb=f"{r['peak_gb']:.3f}",
+              **{k: f"{v:.3e}" for k, v in r["errs"].items()},
+              **{f"fault_{k}": f"{v:.3e}" for k, v in r["faults"].items()})
+    for nu, r in runs.items():
+        errs = dict(r["errs"])
+        errs.pop("covariance_antimeridian")
+        check(f"nu={nu} K2 64800 band vs plain", errs.pop("k2_band_vs_plain"),
+              ELLIPSE_RTOL[torch.float32])
+        check(f"nu={nu} builder covariance f32 vs K4 f64 (off the "
+              "antimeridian)", errs.pop("covariance"), COVARIANCE_TOL)
+        tol = DENSE_KRIGING_TOL[nu]
+        for k, v in errs.items():
+            check(f"nu={nu} ellipse kriging {k} f32 vs f64", v, tol)
+        for k in DENSE_FAULTS:
+            if not r["faults"][k] > tol:
+                raise AssertionError(
+                    f"nu={nu}: the bound {tol} passes the fault {k} "
+                    f"({r['faults'][k]:.3e})")
+    if not runs[0.5]["spd"] or runs[0.5]["branches"]["cholesky"] == 0:
+        raise AssertionError("nu = 0.5: expected a positive definite K")
+    r = runs[NU_NS]
+    return r["x8"], r["y_dense"], sum(x["k2_launches"] for x in runs.values())
+
+
+def phase10_bf16_operator(dev, glat, glon, x8, y_dense):
+    """The bf16 store at 64,800 (K2), one 8-column application."""
+    from glomargridding_tpu_torch import ellipse_covariance_operator
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    args = ellipse_args(glat, glon, realistic_ellipse_params(glat, glon),
+                        torch.float32, dev)
+    reset_ellipse_counts()
+    mv, n, trace = ellipse_covariance_operator(*args, v=NU_NS, store="bf16")
+    y = mv(x8)
+    sync()
+    k2_launches = require_launches("K2 (bf16 store)", te.ellipse_sym.launches)
+    if y.shape != (n, 8) or y.dtype != torch.float32:
+        raise AssertionError(f"bf16 matvec {tuple(y.shape)} {y.dtype}")
+    rel = check("bf16 matvec vs dense f32", max_rel(y, y_dense), BF16_TOL)
+    store_gb = (-(-n // te.TILE) * te.TILE) ** 2 * 2 / 1e9
+    phase(10, "bf16_operator_64800", store_gb=f"{store_gb:.2f}",
+          k2_launches=k2_launches, trace=f"{trace:.6g}",
+          max_rel_vs_dense_f32=f"{rel:.3e}", bound=BF16_TOL)
+    return k2_launches
+
+
+def phase11_stream(dev):
+    """The banded stream operator at 259,200 cells: 8 columns through K3,
+    1,024 through K4 + GEMM, K3 against the wide path, and banded against
+    the unbanded stream with the same cutoff."""
+    from glomargridding_tpu_torch import ellipse_covariance_operator
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    q_lat, q_lon = grid_linspace(*STREAM_GRID)
+    args = ellipse_args(q_lat, q_lon, realistic_ellipse_params(q_lat, q_lon),
+                        torch.float32, dev)
+    n = q_lat.size
+    rng = np.random.default_rng(5)
+    x8 = torch.as_tensor(rng.normal(size=(n, 8)).astype(np.float32),
+                         device=dev)
+    x1k = torch.as_tensor(
+        rng.normal(size=(n, WIDE_COLS)).astype(np.float32), device=dev)
+
+    reset_ellipse_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mv, _, _ = ellipse_covariance_operator(*args, v=NU_NS, store="stream",
+                                           max_dist=MAX_DIST_KM)
+    y8 = mv(x8)
+    y1k = mv(x1k)
+    sync()
+    launches = {
+        "k3": require_launches("K3 (narrow stream)",
+                               te.ellipse_matvec.launches),
+        "k4": require_launches("K4 (wide stream)", te.ellipse_tile.launches),
+    }
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, y, w in (("y8", y8, 8), ("y1024", y1k, WIDE_COLS)):
+        if y.shape != (n, w) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"stream {name} malformed")
+    del y1k
+    # the same 8 columns through the wide path (a 9th, zero column)
+    y9 = mv(torch.cat([x8, torch.zeros_like(x8[:, :1])], dim=1))[:, :8]
+    k3_vs_wide = check("K3 vs wide", max_rel(y8, y9), STREAM_ORDER_TOL)
+    # banded against the unbanded stream (every tile built, same cutoff)
+    P = te.pack_points(*args)
+    x16 = x1k[:, :16]
+    block = tcov._block_rows(n, None)
+    full = tcov._row_windows(n, block, [0] * -(-n // block), n)
+    unbanded = tcov._apply_wide(P, x16, full, NU_NS, "Modified_Met_Office",
+                                MAX_DIST_KM) + (P[:, 6] ** 2)[:, None] * x16
+    banded_vs_dense = check("banded vs unbanded", max_rel(mv(x16), unbanded),
+                            STREAM_ORDER_TOL)
+    stats = mv.band_stats
+    phase(11, "stream_operator_259200", max_dist_km=MAX_DIST_KM,
+          k3_launches=launches["k3"], k4_launches=launches["k4"],
+          bw=stats["bw"], wide_pairs=stats["wide_pairs"],
+          fused_pairs=stats["fused_pairs"], k3_vs_wide=f"{k3_vs_wide:.3e}",
+          banded_vs_unbanded=f"{banded_vs_dense:.3e}",
+          bound=STREAM_ORDER_TOL, peak_gb=f"{peak_gb:.3f}")
+    return launches, (P, x8, x1k, mv, block)
+
+
+def phase12_times(dev, glat, glon, obs, stream):
+    """Kernel times against their plain twins (CUDA events) and the
+    non-stationary walls (median of warm runs)."""
+    from glomargridding_tpu_torch import OrdinaryKriging
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    idx, y, err = obs
+    out = {}
+    lats, lons, fields = bench_fields(N_SYM)
+    P = te.pack_points(*ellipse_args(lats, lons, fields, torch.float32, dev))
+    abs_err = {"k2": torch.max(torch.abs(
+        te.ellipse_sym(P, NU_NS) - te.ellipse_sym_torch(P, NU_NS))).item()}
+    out["k2_16384_ms"] = cuda_time_ms(lambda: te.ellipse_sym(P, NU_NS))
+    out["k2_plain_16384_ms"] = cuda_time_ms(
+        lambda: te.ellipse_sym_torch(P, NU_NS), iters=3)
+
+    P = te.pack_points(*ellipse_args(
+        glat, glon, realistic_ellipse_params(glat, glon), torch.float32, dev))
+    out["k2_64800_f32_ms"] = cuda_time_ms(lambda: te.ellipse_sym(P, NU_NS),
+                                          iters=3)
+    C = te.ellipse_sym(P, NU_NS)
+
+    def krige():
+        ok = OrdinaryKriging(C, idx, y, err)
+        return ok.solve(), ok.get_uncertainty(), ok.constraint_mask()
+
+    out["ordinary_kriging_64800_s"] = wall_median_s(krige)
+    del C
+    out["k2_64800_bf16_ms"] = cuda_time_ms(
+        lambda: te.ellipse_sym(P, NU_NS, out_dtype=torch.bfloat16,
+                               add_diag=False, keep_pad=True), iters=3)
+
+    P, x8, x1k, mv, block = stream
+    n = P.shape[0]
+    lat = np.asarray(P[:, 0].cpu(), np.float64)
+    lat_pad = np.pad(lat, (0, -(-n // block) * block - n), mode="edge")
+    col_starts, bw, hi = tcov._stream_band_plan(
+        lat_pad, lat, n, block, MAX_DIST_KM, te.TILE, te.TILE)
+    r0 = (n // 2) // block * block  # a row block at the equator
+    c0 = int(col_starts[r0 // block])
+    rows, cols = P[r0:r0 + block], P[c0:min(c0 + bw, n)]
+    tile_args = (rows, cols, NU_NS, "Modified_Met_Office", MAX_DIST_KM)
+    plain = te.ellipse_tile_torch(*tile_args)
+    k4 = te.ellipse_tile(*tile_args)
+    abs_err["k4"] = torch.max(torch.abs(k4 - plain)).item()
+    rel = {"k4_vs_plain": check("K4 stream tile vs plain", max_rel(k4, plain),
+                                ELLIPSE_RTOL[torch.float32])}
+    # the wide stream's row block (K4 + GEMM) against the plain tile's
+    # product with the same 16 columns
+    x16 = x1k[:, :16]
+    want = plain @ x16[c0:c0 + cols.shape[0]] + (
+        rows[:, 6] * rows[:, 6])[:, None] * x16[r0:r0 + block]
+    rel["wide_block_vs_plain"] = check(
+        "wide stream row block vs plain", max_rel(mv(x16)[r0:r0 + block], want),
+        STREAM_ORDER_TOL)
+    del k4, plain, want
+    out["k4_tile_shape"] = f"{rows.shape[0]}x{cols.shape[0]}"
+    out["k4_tile_ms"] = cuda_time_ms(lambda: te.ellipse_tile(*tile_args))
+    out["k4_plain_tile_ms"] = cuda_time_ms(
+        lambda: te.ellipse_tile_torch(*tile_args), iters=3)
+    mv_args = (P, x8, hi, NU_NS, "Modified_Met_Office", MAX_DIST_KM)
+    yk = te.ellipse_matvec(*mv_args)
+    yp = te.ellipse_matvec_torch(*mv_args)
+    abs_err["k3"] = torch.max(torch.abs(yk - yp)).item()
+    rel["k3_vs_plain"] = check("K3 259200 vs plain", max_rel(yk, yp),
+                               K3_TWIN_TOL)
+    del yk, yp
+    out["k3_259200_ms"] = cuda_time_ms(lambda: te.ellipse_matvec(*mv_args),
+                                       iters=5)
+    out["k3_plain_259200_ms"] = cuda_time_ms(
+        lambda: te.ellipse_matvec_torch(*mv_args), iters=1)
+    out["stream_mv8_259200_s"] = wall_median_s(lambda: mv(x8))
+    out["stream_mv1024_259200_s"] = wall_median_s(lambda: mv(x1k))
+    phase(12, "ellipse_times", repeats=REPEATS,
+          **{k: v if isinstance(v, str) else f"{v:.4f}"
+             for k, v in out.items()},
+          **{k: f"{v:.3e}" for k, v in rel.items()},
+          bounds=f"k4:{ELLIPSE_RTOL[torch.float32]}|wide:{STREAM_ORDER_TOL}"
+                 f"|k3:{K3_TWIN_TOL}")
+    return out, abs_err
+
+
+def nonstationary(dev, glat, glon, obs):
+    """Phases 8-12; returns the kernel report entries of K2, K3, K4."""
+    phase8_parity(dev, glat, glon)
+    x8, y_dense, k2_builder = phase9_dense_kriging(dev, glat, glon, obs)
+    k2_store = phase10_bf16_operator(dev, glat, glon, x8, y_dense)
+    del x8, y_dense
+    launches, stream = phase11_stream(dev)
+    times, abs_err = phase12_times(dev, glat, glon, obs, stream)
+    source = "glomargridding_tpu_torch/ops/cuda/csrc/ellipse_tile.cu"
+    replaced = "glomargridding_tpu/ops/pallas/pairwise.py:"
+    return [
+        {"name": "ellipse_sym", "route": "cuda", "source": source,
+         "replaces": replaced + "416", "launches": k2_builder + k2_store,
+         "max_abs_err": abs_err["k2"], "ms": times["k2_16384_ms"],
+         "plain_ms": times["k2_plain_16384_ms"]},
+        {"name": "ellipse_matvec", "route": "cuda", "source": source,
+         "replaces": replaced + "644", "launches": launches["k3"],
+         "max_abs_err": abs_err["k3"], "ms": times["k3_259200_ms"],
+         "plain_ms": times["k3_plain_259200_ms"]},
+        {"name": "ellipse_tile", "route": "cuda", "source": source,
+         "replaces": replaced + "261", "launches": launches["k4"],
+         "max_abs_err": abs_err["k4"], "ms": times["k4_tile_ms"],
+         "plain_ms": times["k4_plain_tile_ms"]},
+    ]
 
 
 if __name__ == "__main__":

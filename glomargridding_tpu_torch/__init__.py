@@ -1,13 +1,21 @@
-"""PyTorch/CUDA port of glomargridding_tpu: streamed kriging on a GPU.
+"""PyTorch/CUDA port of glomargridding_tpu: kriging on a GPU.
 
-Runs the kernel-functional kriging path (``models.kernel_kriging``) with
-every pairwise covariance tile built by a hand-written CUDA kernel for
-Hopper (``ops.cuda``) when the tensors are on the card, and by its plain
-PyTorch twin when they are on the CPU. Imports torch and numpy only;
-importing it builds nothing and changes no global state.
+Two paths. Streamed kriging (``models.kernel_kriging``) builds every
+stationary covariance tile with a hand-written CUDA kernel. The
+non-stationary path (``models.ellipse``) assembles the Paciorek-Schervish
+covariance, or its matvec operator, with three more, and the dense
+kriging classes (``models.kriging``) krige against it. On the card the
+kernels (``ops.cuda``) run; on the CPU, their plain PyTorch twins.
+Imports torch and numpy only; importing it builds nothing and changes
+no global state.
 """
 
 from .constants import RADIUS_OF_EARTH_KM
+from .models.ellipse import (
+    EllipseCovarianceBuilder,
+    build_ellipse_covariance,
+    ellipse_covariance_operator,
+)
 from .models.kernel_kriging import (
     CrossValResult,
     KrigingResult,
@@ -20,6 +28,7 @@ from .models.kernel_kriging import (
     pad_month_observations,
     variogram_kernel,
 )
+from .models.kriging import OrdinaryKriging, SimpleKriging
 from .ops.variogram import (
     ExponentialVariogram,
     GaussianVariogram,
@@ -32,9 +41,14 @@ from .ops.variogram import (
 __all__ = [
     "RADIUS_OF_EARTH_KM",
     "CrossValResult",
+    "EllipseCovarianceBuilder",
     "KrigingResult",
+    "OrdinaryKriging",
+    "SimpleKriging",
     "VariogramKernel",
+    "build_ellipse_covariance",
     "crossval_from_covariance",
+    "ellipse_covariance_operator",
     "ensemble_from_kernel",
     "kriging_crossval",
     "kriging_from_kernel",

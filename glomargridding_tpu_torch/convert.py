@@ -6,12 +6,15 @@ imports nothing of the JAX package:
     variogram_from_params(kind, dataclasses.asdict(jax_variogram))
     kernel_from_params(dataclasses.asdict(jax_kernel.variogram),
                        jax_kernel.distance, jax_kernel.var, jax_kernel.radius)
+    ellipse_builder_from_inputs(Lx, Ly, theta, stdev, lats, lons, v=...,
+                                delta_x_method=..., ...)
 """
 
 from typing import Any, Mapping
 
 import numpy as np
 
+from .models.ellipse import EllipseCovarianceBuilder
 from .models.kernel_kriging import VariogramKernel
 from .ops.variogram import (
     ExponentialVariogram,
@@ -66,3 +69,40 @@ def kernel_from_params(
     (including ``_kind``), ``.distance``, ``.var`` and ``.radius``."""
     vario = variogram_from_params(variogram_params["_kind"], variogram_params)
     return VariogramKernel(vario, distance, _plain(variance), _plain(radius))
+
+
+def ellipse_builder_from_inputs(
+    Lx,
+    Ly,
+    theta,
+    stdev,
+    lats,
+    lons,
+    v,
+    delta_x_method: str = "Modified_Met_Office",
+    max_dist=None,
+    precision=np.float32,
+    covariance_method: str = "array",
+    batch_size=None,
+    use_pallas="auto",
+    device=None,
+) -> EllipseCovarianceBuilder:
+    """The port's ``EllipseCovarianceBuilder`` from the inputs of a
+    reference ``EllipseCovarianceBuilder``, as numpy: the (masked) `Lx`,
+    `Ly`, `theta`, `stdev` fields, `lats`, `lons`, and the same `v`,
+    `delta_x_method`, `max_dist`, `precision`, `covariance_method`,
+    `batch_size` and `use_pallas`. Numpy scalars become Python numbers;
+    `device` places the covariance."""
+    return EllipseCovarianceBuilder(
+        *(np.ma.asarray(a) for a in (Lx, Ly, theta, stdev)),
+        np.asarray(lats),
+        np.asarray(lons),
+        v=_plain(v),
+        delta_x_method=delta_x_method,
+        max_dist=_plain(max_dist),
+        precision=np.dtype(precision).type,
+        covariance_method=covariance_method,
+        batch_size=None if batch_size is None else int(batch_size),
+        use_pallas=use_pallas,
+        device=device,
+    )

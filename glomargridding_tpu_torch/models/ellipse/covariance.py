@@ -1,0 +1,641 @@
+r"""Non-stationary anisotropic covariance (Paciorek-Schervish), on tensors.
+
+Port of ``glomargridding_tpu/models/ellipse/covariance.py``: the full
+N x N covariance from per-gridpoint ellipse parameter fields (PS06 Eq. 8,
+Karspeck Eq. 17),
+
+.. math::
+    c_{ij} = \sigma_i \sigma_j
+        \frac{|\Sigma_i|^{1/4} |\Sigma_j|^{1/4}}{|\bar\Sigma|^{1/2}}
+        \frac{(2\sqrt{\nu}\tau)^\nu K_\nu(2\sqrt{\nu}\tau)}
+             {\Gamma(\nu) 2^{\nu-1}},
+    \qquad \bar\Sigma = \tfrac{\Sigma_i + \Sigma_j}{2},
+
+with :math:`\tau` the Mahalanobis distance of the (Modified) Met Office
+displacement under :math:`\bar\Sigma`, and its matvec forms.
+
+Every tile comes from the ellipse kernels of ``ops/cuda/ellipse`` for
+nu in {0.5, 1.5, 2.5, 3.5}: K2 builds the whole matrix (``use_pallas``,
+the bf16 store), K4 the row blocks and the stream's wide applications,
+and K3 the stream's narrow (<= 8 column) applications. On the card they
+are the CUDA kernels, on the CPU their plain twins. Any other order goes
+through ``ellipse_covariance_block``, the port of the reference's jnp
+tile, whose general-order K_nu raises ``NotImplementedError`` until it
+is ported.
+"""
+
+import logging
+import math
+
+import numpy as np
+import torch
+
+from ...constants import RADIUS_OF_EARTH_KM
+from ...ops.cuda.ellipse import (
+    DELTA_X_METHODS,
+    MV_W,
+    TILE,
+    ellipse_matvec,
+    ellipse_sym,
+    ellipse_tile,
+    pack_points,
+)
+from ...ops.distances import sigma_rot_flat
+from ...ops.sampling import Matvec
+from ...ops.special import xv_kv
+
+logger = logging.getLogger(__name__)
+
+TWO_PI = 2.0 * math.pi
+KERNEL_ORDERS = (0.5, 1.5, 2.5, 3.5)  # the orders the ellipse kernels take
+
+# Sizes for one H100 (80 GB). The stream and the bf16 row-block build
+# work one row block at a time against its column window, through one
+# reused f32 tile workspace: a row block against all n columns holds
+# about _BLOCK_BYTES. A (block x window) tile above _TILE_LIMIT_BYTES is
+# built and applied in column chunks of about _CHUNK_BYTES (at 64 rows
+# per block, windows past ~8M columns).
+_BLOCK_BYTES = 1 << 30
+_TILE_LIMIT_BYTES = 2 << 30
+_CHUNK_BYTES = 1 << 30
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
+
+
+def ellipse_covariance_block(
+    lat_i, lon_i, sig_i, sqrt_det_i, stdev_i,
+    lat_j, lon_j, sig_j, sqrt_det_j, stdev_j,
+    v: float,
+    delta_x_method: str = "Modified_Met_Office",
+    max_dist: float = 0.0,
+    use_max_dist: bool = False,
+):
+    """One (B_i x B_j) tile, op for op as the reference's jnp tile.
+
+    lat/lon in radians; `sig_*` the (B, 3) Sigma rows (s00, s01, s11);
+    `sqrt_det_*` = |Sigma|^(1/2). Entries at zero displacement and, with
+    `use_max_dist`, beyond `max_dist` (haversine km) are 0.
+    """
+    dtype = sig_i.dtype
+    la_i = lat_i[:, None]
+    lo_i = lon_i[:, None]
+    la_j = lat_j[None, :]
+    lo_j = lon_j[None, :]
+
+    dy = la_i - la_j
+    dx = lo_i - lo_j
+    dx = torch.where(dx > math.pi, dx - TWO_PI, dx)
+    dx = torch.where(dx < -math.pi, dx + TWO_PI, dx)
+    if delta_x_method == "Modified_Met_Office":
+        dx = dx * (0.5 * (torch.cos(la_i) + torch.cos(la_j)))
+    elif delta_x_method != "Met_Office":
+        raise ValueError(f"Unknown 'delta_x_method' value: {delta_x_method}")
+    dy = RADIUS_OF_EARTH_KM * dy
+    dx = RADIUS_OF_EARTH_KM * dx
+
+    s00 = 0.5 * (sig_i[:, 0][:, None] + sig_j[:, 0][None, :])
+    s01 = 0.5 * (sig_i[:, 1][:, None] + sig_j[:, 1][None, :])
+    s11 = 0.5 * (sig_i[:, 2][:, None] + sig_j[:, 2][None, :])
+    det_bar = s00 * s11 - s01 * s01
+
+    r_det = torch.rsqrt(det_bar)
+    amp_i = stdev_i * torch.sqrt(sqrt_det_i)
+    amp_j = stdev_j * torch.sqrt(sqrt_det_j)
+    pref = (
+        (amp_i[:, None] * amp_j[None, :])
+        / (math.gamma(v) * (2.0 ** (v - 1.0)))
+    ) * r_det
+
+    quad = (
+        dx * (dx * s11 - dy * s01) + dy * (dy * s00 - dx * s01)
+    ) * (r_det * r_det)
+    tau = torch.sqrt(torch.clamp(quad, min=0.0))
+    inner = (2.0 * math.sqrt(v)) * tau
+    out = pref * xv_kv(v, inner)
+    out = torch.where(inner > 0.0, out, torch.zeros_like(out))
+    out = torch.nan_to_num(out, nan=0.0, posinf=0.0, neginf=0.0)
+
+    if use_max_dist:
+        half = min(max_dist / (2.0 * RADIUS_OF_EARTH_KM), 0.5 * math.pi)
+        a_thresh = math.sin(half) ** 2
+        shla_i, chla_i = torch.sin(0.5 * la_i), torch.cos(0.5 * la_i)
+        shla_j, chla_j = torch.sin(0.5 * la_j), torch.cos(0.5 * la_j)
+        shlo_i, chlo_i = torch.sin(0.5 * lo_i), torch.cos(0.5 * lo_i)
+        shlo_j, chlo_j = torch.sin(0.5 * lo_j), torch.cos(0.5 * lo_j)
+        sdlat = shla_i * chla_j - chla_i * shla_j
+        sdlon = shlo_i * chlo_j - chlo_i * shlo_j
+        cli = 1.0 - 2.0 * shla_i * shla_i
+        clj = 1.0 - 2.0 * shla_j * shla_j
+        a = sdlat * sdlat + (cli * clj) * (sdlon * sdlon)
+        out = torch.where(a > a_thresh, torch.zeros_like(out), out)
+    return out.to(dtype)
+
+
+def _tile_into(rows, cols, v, delta_x_method, max_dist, out):
+    """C(rows, cols) of packed points into `out`: K4 for the kernel
+    orders, the jnp-tile port for any other."""
+    if float(v) in KERNEL_ORDERS:
+        return ellipse_tile(rows, cols, v, delta_x_method, max_dist, out=out)
+
+    def unpack(P):
+        return P[:, 0], P[:, 1], P[:, 2:5], P[:, 5], P[:, 6]
+
+    return out.copy_(ellipse_covariance_block(
+        *unpack(rows), *unpack(cols), v=float(v),
+        delta_x_method=delta_x_method,
+        max_dist=0.0 if max_dist is None else float(max_dist),
+        use_max_dist=max_dist is not None,
+    ))
+
+
+def build_ellipse_covariance(
+    lats_rad,
+    lons_rad,
+    sig_flat,
+    sqrt_dets,
+    stdevs,
+    v: float,
+    delta_x_method: str = "Modified_Met_Office",
+    max_dist: float | None = None,
+    row_block: int = 2048,
+    use_pallas: bool | str = "auto",
+):
+    """The full covariance, diag(stdev^2) included, in `sig_flat`'s dtype
+    and on its device.
+
+    ``use_pallas`` (the reference's name; "auto" means: for the kernel
+    orders) builds it in one K2 launch, upper-triangle tiles only.
+    Otherwise row blocks of `row_block` rows are written by K4 (or the
+    jnp-tile port) straight into the preallocated matrix.
+    """
+    P = pack_points(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs)
+    if use_pallas == "auto":
+        use_pallas = float(v) in KERNEL_ORDERS
+    if use_pallas:
+        return ellipse_sym(P, v, delta_x_method, max_dist)
+    n = P.shape[0]
+    cov = torch.empty((n, n), dtype=P.dtype, device=P.device)
+    for start in range(0, n, row_block):
+        stop = min(start + row_block, n)
+        _tile_into(P[start:stop], P, v, delta_x_method, max_dist,
+                   cov[start:stop])
+    cov.diagonal().add_(P[:, 6] ** 2)
+    return cov
+
+
+def _ellipse_inputs(Lx, Ly, theta, stdevs, lats_rad, lons_rad):
+    """Sigma from (Lx, Ly, theta): ``build_ellipse_covariance``'s
+    (lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs)."""
+    s00, s01, _, s11 = sigma_rot_flat(Lx, Ly, theta)
+    sig_flat = torch.stack([s00, s01, s11], dim=-1)
+    sqrt_dets = torch.sqrt(s00 * s11 - s01 * s01)
+    return lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs
+
+
+def _assemble_covariance(
+    Lx, Ly, theta, stdevs, lats_rad, lons_rad,
+    *, v, delta_x_method, max_dist, row_block, use_pallas,
+):
+    """Sigma from (Lx, Ly, theta), then ``build_ellipse_covariance``."""
+    return build_ellipse_covariance(
+        *_ellipse_inputs(Lx, Ly, theta, stdevs, lats_rad, lons_rad), v=v,
+        delta_x_method=delta_x_method, max_dist=max_dist,
+        row_block=row_block, use_pallas=use_pallas,
+    )
+
+
+class EllipseCovarianceBuilder:
+    """Covariance from ellipse parameter fields and positions.
+
+    Valid (unmasked) points only enter the matrix; `max_dist` (haversine
+    km) zeroes covariance beyond the radius; `precision` (a numpy float
+    dtype) defaults to float32. `covariance_method` ("array" / "batched"
+    / "low_memory") selects the row-block size of the K4 build (whole
+    matrix / `batch_size` rows / 512 rows) when ``use_pallas`` is off.
+
+    Sets `cov_ns`, a tensor on `device`; `calculate_cor` adds `cor_ns`;
+    `uncompress_cov` re-inflates to the full grid with fill values.
+    (Parity: ``glomargridding_tpu/models/ellipse/covariance.py:280-468``.)
+    """
+
+    def __init__(
+        self,
+        Lx,
+        Ly,
+        theta,
+        stdev,
+        lats,
+        lons,
+        v: float,
+        delta_x_method: str | None = "Modified_Met_Office",
+        max_dist: float | None = None,
+        precision=np.float32,
+        covariance_method: str = "array",
+        batch_size: int | None = None,
+        use_pallas: bool | str = "auto",
+        device=None,
+    ) -> None:
+        if max_dist is not None and not isinstance(max_dist, (int, float)):
+            raise ValueError("max_dist must be a number")
+        if delta_x_method not in DELTA_X_METHODS:
+            raise ValueError(
+                f"Unknown 'delta_x_method' value: {delta_x_method}"
+            )
+        self.v = float(v)
+        self.precision = precision
+        self.dtype = _TORCH_DTYPES[np.dtype(precision)]
+        self.device = torch.device("cpu") if device is None else torch.device(
+            device)
+
+        def as_masked(arr):
+            return np.ma.MaskedArray(
+                np.asarray(np.ma.getdata(arr), dtype=precision),
+                np.ma.getmaskarray(arr),
+            )
+
+        self.Lx = as_masked(Lx)
+        self.Ly = as_masked(Ly)
+        self.theta = as_masked(theta)
+        self.stdev = as_masked(stdev)
+        self.max_dist = max_dist
+        self.delta_x_method = delta_x_method
+        self.lats = np.asarray(lats, dtype=precision)
+        self.lons = np.asarray(lons, dtype=precision)
+        self.covariance_method = covariance_method
+        self.batch_size = batch_size
+        self.use_pallas = use_pallas
+
+        self.xy_shape = self.Lx.shape
+        self.n_elements = int(np.prod(self.xy_shape))
+
+        self._get_mask()
+        self._calculate_covariance()
+
+    def _get_mask(self) -> None:
+        self.data_has_mask = bool(np.ma.getmaskarray(self.Lx).any())
+        self.data_mask = np.ma.getmaskarray(self.Lx)
+        self.covar_size = int(np.sum(~self.data_mask))
+
+        self.Lx_compressed = self.Lx.compressed()
+        self.Ly_compressed = self.Ly.compressed()
+        self.theta_compressed = self.theta.compressed()
+        self.stdev_compressed = self.stdev.compressed()
+
+        self.x_grid, self.y_grid = np.meshgrid(self.lons, self.lats)
+        self.x_mask = np.ma.masked_where(self.data_mask, self.x_grid)
+        self.y_mask = np.ma.masked_where(self.data_mask, self.y_grid)
+        self.lat_grid_compressed = self.y_mask.compressed()
+        self.lon_grid_compressed = self.x_mask.compressed()
+        self.lat_grid_compressed_rad = np.deg2rad(self.lat_grid_compressed)
+        self.lon_grid_compressed_rad = np.deg2rad(self.lon_grid_compressed)
+
+        self.xy_compressed = np.column_stack(
+            [self.lon_grid_compressed, self.lat_grid_compressed]
+        )
+        self.xy_full = np.column_stack(
+            [self.x_mask.flatten(), self.y_mask.flatten()]
+        )
+
+    def _row_block(self) -> int:
+        n = len(self.Lx_compressed)
+        match self.covariance_method:
+            case "array":
+                return max(n, 1)
+            case "batched":
+                if self.batch_size is None:
+                    raise ValueError(
+                        "batch_size must be set if using 'batched' method"
+                    )
+                return max(1, int(self.batch_size))
+            case "low_memory":
+                return 512
+            case _:
+                raise ValueError(
+                    f"Unknown covariance_method: {self.covariance_method}"
+                )
+
+    @property
+    def sigmas(self):
+        """Per-point flattened 2x2 Sigma rows (numpy, computed lazily)."""
+        if getattr(self, "_sigmas", None) is None:
+            ct = np.cos(self.theta_compressed)
+            st = np.sin(self.theta_compressed)
+            Lx2 = self.Lx_compressed**2
+            Ly2 = self.Ly_compressed**2
+            s00 = ct * ct * Lx2 + st * st * Ly2
+            s01 = ct * st * (Lx2 - Ly2)
+            s11 = st * st * Lx2 + ct * ct * Ly2
+            self._sigmas = np.column_stack([s00, s01, s01, s11]).astype(
+                self.precision
+            )
+        return self._sigmas
+
+    @property
+    def sqrt_dets(self):
+        """Per-point sqrt(det Sigma) (numpy, lazy)."""
+        if getattr(self, "_sqrt_dets", None) is None:
+            s = self.sigmas
+            self._sqrt_dets = np.sqrt(s[:, 0] * s[:, 3] - s[:, 1] * s[:, 2])
+        return self._sqrt_dets
+
+    def _device_inputs(self):
+        """(Lx, Ly, theta, stdev, lats_rad, lons_rad) of the valid points,
+        as tensors in the builder's dtype on its device."""
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+        return tuple(dev(a) for a in (
+            self.Lx_compressed, self.Ly_compressed, self.theta_compressed,
+            self.stdev_compressed, self.lat_grid_compressed_rad,
+            self.lon_grid_compressed_rad))
+
+    def _calculate_covariance(self) -> None:
+        self.gamma_v_term = math.gamma(self.v) * (2 ** (self.v - 1))
+        self.sqrt_v_term = math.sqrt(self.v) * 2
+        self._sigmas = None
+        self._sqrt_dets = None
+        self.cov_ns = _assemble_covariance(
+            *self._device_inputs(),
+            v=self.v,
+            delta_x_method=self.delta_x_method,
+            max_dist=self.max_dist,
+            row_block=self._row_block(),
+            use_pallas=self.use_pallas,
+        )
+        logger.info("Covariance assembled: %s", tuple(self.cov_ns.shape))
+
+    def calculate_cor(self) -> None:
+        """Correlation matrix from the covariance matrix."""
+        from ...utils.arrays import cov_2_cor
+
+        self.cor_ns = cov_2_cor(self.cov_ns)
+
+    def uncompress_cov(
+        self, diag_fill_value=np.nan, fill_value=np.nan
+    ) -> None:
+        """Re-inflate cov_ns to full-grid size with fill values."""
+        cov = self.cov_ns
+        keep = torch.as_tensor(~self.data_mask.flatten(), device=cov.device)
+        if int(keep.sum()) != cov.shape[0]:
+            raise ValueError("Data mask and coordinates cannot be aligned")
+        size = keep.numel()
+        full = torch.full((size, size), fill_value, dtype=cov.dtype,
+                          device=cov.device)
+        full.diagonal().fill_(diag_fill_value)
+        idx = torch.nonzero(keep)[:, 0]
+        full[idx[:, None], idx[None, :]] = cov
+        self.cov_ns = full
+
+
+# ---------------------------------------------------------------------------
+# Matvec forms
+# ---------------------------------------------------------------------------
+def _block_rows(n: int, n_blocks: int | None) -> int:
+    """Rows per block, a multiple of the kernels' tile: about
+    _BLOCK_BYTES of f32 tile against all n columns, or n / n_blocks."""
+    if n_blocks is None:
+        block = max(TILE, (_BLOCK_BYTES // 4) // max(n, 1))
+    else:
+        block = -(-n // n_blocks)
+    block = -(-block // TILE) * TILE
+    return min(block, -(-n // TILE) * TILE)
+
+
+def ellipse_covariance_operator(
+    lats_rad,
+    lons_rad,
+    sig_flat,
+    sqrt_dets,
+    stdevs,
+    v: float,
+    delta_x_method: str = "Modified_Met_Office",
+    max_dist: float | None = None,
+    n_blocks: int | None = None,
+    store: str = "bf16",
+    assemble: str = "auto",
+):
+    """Matvec form of the covariance, ``cov @ X``, with no f32 n x n
+    matrix. Returns ``(matvec, n, trace)``; ``matvec`` is an
+    ``ops.sampling.Matvec`` taking (n,) or (n, k) inputs.
+
+    store="bf16": the covariance without its diagonal is stored once in
+    bf16 (half the f32 bytes); diag(stdev^2) is added in f32. Each
+    application rounds x to bf16 and multiplies with f32 accumulation
+    and an f32 result. ``assemble`` picks the build: "auto" (K2 for the
+    kernel orders, else row blocks), "pallas" (force K2: the (n_pad,
+    n_pad) store, padded to the tile with exact zeros, so x is zero-padded
+    instead of the store ever being sliced) or "scan" (row blocks into
+    one preallocated (n, n) store).
+
+    store="stream": nothing n x n at all; every application rebuilds the
+    tiles. With `max_dist` set it is banded: a latitude-gap certificate
+    (``_stream_band_plan``) gives each row block its own column window
+    and K3 its per-row-block band limits, and tiles outside are never
+    built (they are exact zeros). Applications of at most ``MV_W``
+    columns run K3 (f32 points, kernel orders); wider ones build each
+    row block's (block x window) tile with K4 into one reused workspace
+    and multiply it with ``torch.matmul`` in true f32.
+    ``matvec.band_stats`` counts the pairs each path builds.
+    """
+    P = pack_points(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs)
+    n = P.shape[0]
+    diag = P[:, 6].float() ** 2
+    trace = float(torch.sum(diag))
+    block = _block_rows(n, n_blocks)
+    kernel_order = float(v) in KERNEL_ORDERS
+
+    if store == "stream":
+        if max_dist is not None:
+            lat_np = np.asarray(P[:, 0].cpu(), dtype=np.float64)
+            n_rb = -(-n // block)
+            lat_pad = np.pad(lat_np, (0, n_rb * block - n), mode="edge")
+            col_starts, bw, hi = _stream_band_plan(
+                lat_pad, lat_np, n, block, float(max_dist), TILE, TILE
+            )
+        else:
+            col_starts = np.zeros(-(-n // block), np.int64)
+            bw, hi = n, None
+        windows = _row_windows(n, block, col_starts, bw)
+        use_fused = kernel_order and P.dtype == torch.float32
+        nb = -(-n // TILE)
+        hi_np = np.full(nb, nb - 1) if hi is None else hi
+        stats = {
+            "banded": bw < n,
+            "bw": int(bw),
+            "n_cols": n,
+            # the wide path: each row block against its own window
+            "wide_pairs": int(sum((r1 - r0) * (c1 - c0)
+                                  for r0, r1, c0, c1 in windows)),
+            # K3: the active upper-triangle tiles
+            "fused_pairs": int((hi_np - np.arange(nb) + 1).sum()) * TILE * TILE,
+            "use_fused": use_fused,
+        }
+
+        def stream(x):
+            x2 = _as_2d(x, P)
+            if use_fused and x2.shape[1] <= MV_W:
+                y = ellipse_matvec(P, x2.contiguous(), hi, v,
+                                   delta_x_method, max_dist)
+            else:
+                y = _apply_wide(P, x2, windows, v, delta_x_method, max_dist)
+            return _finish(y + diag[:, None] * x2, x)
+
+        return Matvec(stream, stats), n, trace
+
+    if store != "bf16":
+        raise ValueError(f"Unknown store: {store!r}")
+    if assemble not in ("auto", "pallas", "scan"):
+        raise ValueError(f"Unknown assemble: {assemble!r}")
+    if assemble == "pallas" and not kernel_order:
+        raise ValueError("assemble='pallas' requires half-integer v <= 3.5")
+    if assemble == "pallas" or (assemble == "auto" and kernel_order):
+        A = ellipse_sym(P.float(), v, delta_x_method, max_dist,
+                        out_dtype=torch.bfloat16, add_diag=False,
+                        keep_pad=True)
+    else:
+        A = torch.empty((n, n), dtype=torch.bfloat16, device=P.device)
+        ws = torch.empty(block * n, dtype=P.dtype, device=P.device)
+        for r0 in range(0, n, block):
+            r1 = min(r0 + block, n)
+            tile = ws[: (r1 - r0) * n].view(r1 - r0, n)
+            A[r0:r1] = _tile_into(P[r0:r1], P, v, delta_x_method, max_dist,
+                                  tile)
+        del ws
+
+    def bf16(x):
+        x2 = _as_2d(x, P).float()
+        xb = torch.zeros((A.shape[1], x2.shape[1]), dtype=torch.bfloat16,
+                         device=P.device)
+        xb[:n] = x2
+        y = _mm_bf16_f32(A, xb)
+        return _finish(y[:n] + diag[:, None] * x2, x)
+
+    return Matvec(bf16), n, trace
+
+
+def _as_2d(x, P):
+    x = torch.as_tensor(x, device=P.device)
+    x2 = x if x.dim() == 2 else x[:, None]
+    return x2.to(P.dtype)
+
+
+def _finish(y, x):
+    return y if torch.as_tensor(x).dim() == 2 else y[:, 0]
+
+
+def _mm_bf16_f32(A, xb):
+    """A @ xb for bf16 operands with f32 accumulation and an f32 result.
+
+    On the card one cuBLAS GEMM with an f32 output; on the CPU (whose
+    build lacks that form) row chunks of A upcast to f32, whose products
+    of bf16 values are exact."""
+    if A.is_cuda:
+        return torch.mm(A, xb, out_dtype=torch.float32)
+    rows = max(1, (_BLOCK_BYTES // 4) // A.shape[1])
+    xf = xb.float()
+    return torch.cat([A[r : r + rows].float() @ xf
+                      for r in range(0, A.shape[0], rows)])
+
+
+def _row_windows(n, block, col_starts, bw):
+    """(r0, r1, c0, c1) for each row block: rows [r0, r1) against the
+    column window [c0, c1)."""
+    return [
+        (r0, min(r0 + block, n), int(cs), min(int(cs) + int(bw), n))
+        for r0, cs in zip(range(0, n, block), col_starts)
+    ]
+
+
+def _apply_wide(P, x2, windows, v, delta_x_method, max_dist):
+    """y = C x (no diagonal) by row blocks: each block's tile against its
+    window into one reused workspace, then a true-f32 GEMM. A window
+    whose tile would pass _TILE_LIMIT_BYTES goes in column chunks of about
+    _CHUNK_BYTES, accumulated in place."""
+    n = P.shape[0]
+    item = P.element_size()
+    block = max(r1 - r0 for r0, r1, _, _ in windows)
+    width = max(c1 - c0 for _, _, c0, c1 in windows)
+    ccw = width
+    if block * width * item > _TILE_LIMIT_BYTES:
+        ncc = -(-(block * width * item) // _CHUNK_BYTES)
+        ccw = -(-(-(-width // ncc)) // TILE) * TILE
+    ws = torch.empty(block * ccw, dtype=P.dtype, device=P.device)
+    y = torch.zeros((n, x2.shape[1]), dtype=P.dtype, device=P.device)
+    for r0, r1, c0, c1 in windows:
+        for k0 in range(c0, c1, ccw):
+            k1 = min(k0 + ccw, c1)
+            tile = ws[: (r1 - r0) * (k1 - k0)].view(r1 - r0, k1 - k0)
+            _tile_into(P[r0:r1], P[k0:k1], v, delta_x_method, max_dist, tile)
+            y[r0:r1].addmm_(tile, x2[k0:k1])
+    return y
+
+
+def _stream_band_plan(
+    lat_pad_np, lat_np, n, block, max_dist_km, chunk, chunk_p
+):
+    """Column-band certificates from latitude intervals (host, numpy).
+
+    Central angle >= |dlat|, so any (row-block, column-chunk) pair whose
+    latitude gap exceeds max_dist / R holds only entries the cutoff
+    zeroes, and omitting it is exact. Returns ``col_starts`` ((n_blocks,)
+    chunk-aligned window starts), ``bw`` (the uniform window width) and
+    ``hi`` ((ceil(n / chunk_p),) upper band limits, hi[i] >= i, for the
+    fused matvec). (Port of the reference's ``_stream_band_plan``.)
+    """
+    thresh = max_dist_km / RADIUS_OF_EARTH_KM
+    n_blocks = len(lat_pad_np) // block
+    rlat = lat_pad_np.reshape(n_blocks, block)
+    rmin, rmax = rlat.min(axis=1), rlat.max(axis=1)
+    n_chunks = -(-n // chunk)
+    cpad = n_chunks * chunk - n
+    clat = (
+        np.pad(lat_np, (0, cpad), mode="edge") if cpad else lat_np
+    ).reshape(n_chunks, chunk)
+    cmin, cmax = clat.min(axis=1), clat.max(axis=1)
+
+    has, first, last = _interval_windows(rmin, rmax, cmin, cmax, thresh)
+    bw_chunks = int((last - first + 1).max())
+    start = np.minimum(first, n_chunks - bw_chunks).astype(np.int64)
+    col_starts = (start * chunk).astype(np.int32)
+
+    n_p = -(-n // chunk_p)
+    ppad = n_p * chunk_p - n
+    plat = (
+        np.pad(lat_np, (0, ppad), mode="edge") if ppad else lat_np
+    ).reshape(n_p, chunk_p)
+    pmin, pmax = plat.min(axis=1), plat.max(axis=1)
+    _, _, last_p = _interval_windows(pmin, pmax, pmin, pmax, thresh)
+    hi = np.maximum(last_p, np.arange(n_p)).astype(np.int32)
+    return col_starts, bw_chunks * chunk, hi
+
+
+def _interval_windows(amin, amax, bmin, bmax, thresh):
+    """For each row interval [amin_i, amax_i], the first and last column
+    interval j within latitude gap `thresh` (bmax_j >= amin_i - thresh
+    and bmin_j <= amax_i + thresh). Latitude-sorted columns take two
+    searchsorted calls; unsorted ones the pairwise scan (conservative).
+    (Port of the reference's ``_interval_windows``.)
+    """
+    if np.all(np.diff(bmin) >= 0.0) and np.all(np.diff(bmax) >= 0.0):
+        first = np.searchsorted(bmax, amin - thresh, side="left")
+        last = np.searchsorted(bmin, amax + thresh, side="right") - 1
+        has = first <= last
+        return (
+            has,
+            np.where(has, first, 0).astype(np.int64),
+            np.where(has, last, 0).astype(np.int64),
+        )
+    gap = np.maximum(
+        0.0,
+        np.maximum(
+            amin[:, None] - bmax[None, :], bmin[None, :] - amax[:, None]
+        ),
+    )
+    active = gap <= thresh
+    has = active.any(axis=1)
+    nc = bmin.shape[0]
+    first = np.where(has, np.argmax(active, axis=1), 0)
+    last = np.where(has, nc - 1 - np.argmax(active[:, ::-1], axis=1), 0)
+    return has, first.astype(np.int64), last.astype(np.int64)

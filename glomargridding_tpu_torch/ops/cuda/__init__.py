@@ -2,6 +2,13 @@
 PyTorch twin. Sources live in ``csrc/`` and are built with nvcc at first
 use (``build.py``); importing this package builds nothing."""
 
+from .ellipse import (
+    ellipse_covariance_cuda,
+    ellipse_matvec,
+    ellipse_sym,
+    ellipse_tile,
+    pack_points,
+)
 from .pairwise import (
     DISTANCES,
     TILE_N,
@@ -13,7 +20,12 @@ from .pairwise import (
 __all__ = [
     "DISTANCES",
     "TILE_N",
+    "ellipse_covariance_cuda",
+    "ellipse_matvec",
+    "ellipse_sym",
+    "ellipse_tile",
     "matern_covariance_cuda",
     "pairwise_covariance",
+    "pack_points",
     "pairwise_covariance_torch",
 ]

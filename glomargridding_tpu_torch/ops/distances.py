@@ -1,8 +1,10 @@
-"""Great-circle geometry on tensors.
+"""Great-circle and ellipse geometry on tensors.
 
-Port of ``glomargridding_tpu/ops/distances.py:45-111`` (the main-path
-pieces). Latitude/longitude are in degrees unless stated; distances come
-out in ``radius`` units (default: Earth radius in km).
+Port of ``glomargridding_tpu/ops/distances.py``: the haversine pieces of
+the stationary path (``:45-111``) and the ellipse geometry of the
+non-stationary path (``rot_mat``, ``displacements``, ``sigma_rot_func``,
+``sigma_rot_flat``). Latitude/longitude are in degrees unless stated;
+distances come out in ``radius`` units (default: Earth radius in km).
 """
 
 import math
@@ -85,3 +87,77 @@ def haversine_matrix(
     la2 = radians(lats2)[None, :]
     lo2 = radians(lons2)[None, :]
     return radius * _haversine_rad(la1, lo1, la2, lo2)
+
+
+def rot_mat(angle) -> torch.Tensor:
+    """2-d rotation matrix from an angle in radians."""
+    angle = torch.as_tensor(angle)
+    c, s = torch.cos(angle), torch.sin(angle)
+    return torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
+
+
+def displacements(
+    lats, lons, lats2=None, lons2=None, delta_x_method: str | None = None
+):
+    """N-S and E-W displacement matrices (disp_y, disp_x) for all pairs.
+
+    Longitude differences are wrapped into (-180, 180]. With
+    ``delta_x_method=None`` the results are in degrees; "Met_Office"
+    converts them to radians on a cylindrical Earth, and
+    "Modified_Met_Office" also scales the zonal displacement by the
+    pair's mean cos-latitude. Not multiplied by a radius.
+    """
+    if delta_x_method not in (None, "Met_Office", "Modified_Met_Office"):
+        raise ValueError(
+            f"Unknown 'delta_x_method' value, got '{delta_x_method}'"
+        )
+    lats = torch.atleast_1d(torch.as_tensor(lats))
+    lons = torch.atleast_1d(torch.as_tensor(lons, device=lats.device))
+    lats2 = lats if lats2 is None else torch.atleast_1d(
+        torch.as_tensor(lats2, device=lats.device))
+    lons2 = lons if lons2 is None else torch.atleast_1d(
+        torch.as_tensor(lons2, device=lats.device))
+
+    disp_y = lats[:, None] - lats2[None, :]
+    disp_x = lons[:, None] - lons2[None, :]
+    disp_x = torch.where(disp_x > 180.0, disp_x - 360.0, disp_x)
+    disp_x = torch.where(disp_x < -180.0, disp_x + 360.0, disp_x)
+    if delta_x_method is None:
+        return disp_y, disp_x
+
+    disp_y = radians(disp_y)
+    disp_x = radians(disp_x)
+    if delta_x_method == "Modified_Met_Office":
+        y_cos_mean = 0.5 * (
+            torch.cos(radians(lats))[:, None]
+            + torch.cos(radians(lats2))[None, :]
+        )
+        disp_x = disp_x * y_cos_mean
+    return disp_y, disp_x
+
+
+def sigma_rot_func(Lx, Ly, theta=None) -> torch.Tensor:
+    """Sigma(Lx, Ly, theta) = R diag(Lx^2, Ly^2) R^T (2 x 2), Karspeck et
+    al. 2011 Eq. 15 / Paciorek-Schervish 2006 Eq. 6."""
+    Lx, Ly = torch.as_tensor(Lx), torch.as_tensor(Ly)
+    L = torch.diag(torch.stack([Lx**2.0, Ly**2.0]))
+    if theta is None:
+        return L
+    R = rot_mat(theta).to(L.dtype)
+    return R @ L @ R.T
+
+
+def sigma_rot_flat(Lx, Ly, theta):
+    """Flattened (s00, s01, s10, s11) Sigma entries for vector parameters,
+    the layout the ellipse kernels consume."""
+    ct = torch.cos(theta)
+    st = torch.sin(theta)
+    c2 = ct * ct
+    s2 = st * st
+    cs = ct * st
+    Lx2 = Lx * Lx
+    Ly2 = Ly * Ly
+    s00 = c2 * Lx2 + s2 * Ly2
+    s01 = cs * (Lx2 - Ly2)
+    s11 = s2 * Lx2 + c2 * Ly2
+    return s00, s01, s01, s11

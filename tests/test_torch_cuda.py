@@ -1,4 +1,5 @@
-"""The CUDA tile kernel (K1) on the card, against its plain PyTorch twin.
+"""The CUDA kernels on the card, against their plain PyTorch twins: the
+stationary tile (K1) and the ellipse kernels K2, K3 and K4.
 
 Opt-in: needs an NVIDIA Hopper GPU, nvcc and ``GLOMAR_CUDA_TESTS=1``.
 Run from the repository root:
@@ -9,7 +10,10 @@ The first test builds the kernel from ``glomargridding_tpu_torch/ops/
 cuda/csrc`` (seconds). Tolerance, as max |kernel - plain| / variance:
 f64 1e-12; f32 1e-5 (the f32 A&S asin carries ~1 ulp of pi/2 of
 absolute error at every distance, and the kernel's FMA contraction moves
-a few roundings; see chip_smoke.py).
+a few roundings; see chip_smoke.py). The ellipse kernels, as max
+|kernel - plain| / max |plain|: f64 1e-12, f32 1e-5; K3 (f32, atomics in
+no fixed order) 1e-5 against its twin and 1e-4 against the dense f64
+product. K2 == K4 and C == C' are pinned bit for bit.
 """
 
 import os
@@ -19,6 +23,8 @@ import pytest
 import torch
 
 from glomargridding_tpu_torch.models import kernel_kriging as tkk
+from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+from glomargridding_tpu_torch.ops.cuda import ellipse as tell
 from glomargridding_tpu_torch.ops.cuda import pairwise as tpair
 from glomargridding_tpu_torch.ops.variogram import (
     ExponentialVariogram,
@@ -139,3 +145,147 @@ def test_wrapper_raises_on_unsupported_order():
     c = _coords(4, 4, torch.float64)
     with pytest.raises(NotImplementedError):
         tpair.pairwise_covariance(*c, MaternVariogram(range=1.0, nu=4.5))
+
+
+# ---------------------------------------------------------------------------
+# ellipse kernels K2, K3, K4
+# ---------------------------------------------------------------------------
+ELLIPSE_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _points(n, dtype, seed=0, device="cuda"):
+    """Lat-sorted points with heterogeneous ellipses, packed (n, 8)."""
+    g = np.random.default_rng(seed)
+    lats = np.sort(g.uniform(-70, 70, n))
+    lons = g.uniform(-180, 180, n)
+    Lx, Ly = g.uniform(800, 2000, n), g.uniform(400, 900, n)
+    th, sd = g.uniform(-np.pi, np.pi, n), g.uniform(0.5, 1.5, n)
+    ct, st = np.cos(th), np.sin(th)
+    s00 = ct * ct * Lx * Lx + st * st * Ly * Ly
+    s01 = ct * st * (Lx * Lx - Ly * Ly)
+    s11 = st * st * Lx * Lx + ct * ct * Ly * Ly
+    cols = (np.radians(lats), np.radians(lons),
+            np.stack([s00, s01, s11], -1), np.sqrt(s00 * s11 - s01 * s01),
+            sd)
+    return tell.pack_points(
+        *(torch.as_tensor(a, dtype=dtype, device=device) for a in cols))
+
+
+def _rel_max(k, p):
+    return (torch.max(torch.abs(k - p)) / torch.max(torch.abs(p))).item()
+
+
+ELLIPSE_CASES = [
+    (nu, method, md)
+    for nu in (0.5, 1.5, 2.5, 3.5)
+    for method in tell.DELTA_X_METHODS
+    for md in (None, 3000.0)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nu,method,max_dist", ELLIPSE_CASES)
+def test_ellipse_tile_and_sym_match_plain(nu, method, max_dist, dtype):
+    """K4 (rectangular, ragged) and K2 against their twins; K2 == K4 and
+    K2 == K2' bit for bit."""
+    args = (nu, method, max_dist)
+    rows, cols = _points(200, dtype, 1), _points(333, dtype, 2)
+    k4 = tell.ellipse_tile(rows, cols, *args)
+    assert k4.shape == (200, 333) and k4.dtype == dtype
+    assert _rel_max(k4, tell.ellipse_tile_torch(rows, cols, *args)) <= \
+        ELLIPSE_RTOL[dtype]
+    for n in (64, 130, 257):
+        P = _points(n, dtype, n)
+        k2 = tell.ellipse_sym(P, *args)
+        full = tell.ellipse_tile(P, P, *args)
+        full.diagonal().add_(P[:, 6] * P[:, 6])
+        torch.cuda.synchronize()
+        assert torch.equal(k2, full) and torch.equal(k2, k2.T), n
+        assert _rel_max(k2, tell.ellipse_sym_torch(P, *args)) <= \
+            ELLIPSE_RTOL[dtype]
+
+
+@pytest.mark.parametrize("max_dist", [None, 3000.0])
+def test_ellipse_sym_bf16_store(max_dist):
+    """The bf16 store is the f32 tile rounded once; keep_pad pads the
+    ragged edge with exact zeros."""
+    P = _points(300, torch.float32)
+    kw = dict(max_dist=max_dist, add_diag=False, keep_pad=True)
+    b16 = tell.ellipse_sym(P, 1.5, out_dtype=torch.bfloat16, **kw)
+    f32 = tell.ellipse_sym(P, 1.5, **kw)
+    assert b16.shape == (320, 320) and b16.dtype == torch.bfloat16
+    assert torch.equal(b16, f32.to(torch.bfloat16))
+    assert not bool(f32[300:].any()) and not bool(f32[:, 300:].any())
+    assert not bool(torch.diagonal(f32).any())
+
+
+@pytest.mark.parametrize("nu,method,max_dist", ELLIPSE_CASES)
+def test_ellipse_matvec_matches_plain_and_dense(nu, method, max_dist):
+    n = 1300
+    P = _points(n, torch.float32)
+    x = torch.randn(n, 5, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    lat = np.asarray(P[:, 0].cpu(), np.float64)
+    hi = None if max_dist is None else tcov._stream_band_plan(
+        lat, lat, n, n, max_dist, tell.TILE, tell.TILE)[2]
+    args = (nu, method, max_dist)
+    y = tell.ellipse_matvec(P, x, hi, *args)
+    assert y.shape == (n, 5) and y.dtype == torch.float32
+    assert _rel_max(y, tell.ellipse_matvec_torch(P, x, hi, *args)) <= 1e-5
+    dense = tell.ellipse_sym(P.double(), *args)
+    got = y.double() + (P[:, 6] ** 2).double()[:, None] * x.double()
+    assert _rel_max(got, dense @ x.double()) <= 1e-4
+
+
+def test_ellipse_kernels_refuse_other_orders():
+    P = _points(70, torch.float32)
+    before = (tell.ellipse_tile.launches, tell.ellipse_sym.launches,
+              tell.ellipse_matvec.launches)
+    for call in (
+        lambda: tell.ellipse_tile(P, P, 1.2),
+        lambda: tell.ellipse_sym(P, 4.5),
+        lambda: tell.ellipse_matvec(P, torch.zeros_like(P[:, :2]), v=2.0),
+    ):
+        with pytest.raises(ValueError, match="half-integer"):
+            call()
+    assert before == (tell.ellipse_tile.launches, tell.ellipse_sym.launches,
+                      tell.ellipse_matvec.launches)
+
+
+def test_ellipse_launch_counts_and_cpu_tensors(monkeypatch):
+    """One launch per wrapper call on the card; a CPU tensor never
+    launches; the stream operator's paths go through K3 and K4 only."""
+    P = _points(400, torch.float32)
+    counts = lambda: (tell.ellipse_tile.launches,  # noqa: E731
+                      tell.ellipse_sym.launches,
+                      tell.ellipse_matvec.launches)
+    before = counts()
+    tell.ellipse_tile(P, P, 0.5)
+    tell.ellipse_sym(P, 0.5)
+    tell.ellipse_matvec(P, torch.ones_like(P[:, :3]), None, v=0.5)
+    assert counts() == tuple(b + 1 for b in before)
+    cpu = P.cpu()
+    tell.ellipse_tile(cpu, cpu, 0.5)
+    tell.ellipse_sym(cpu, 0.5)
+    tell.ellipse_matvec(cpu, torch.ones_like(cpu[:, :3]), None, v=0.5)
+    assert counts() == tuple(b + 1 for b in before)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("plain twin called on the CUDA path")
+
+    monkeypatch.setattr(tell, "ellipse_tile_torch", forbidden)
+    monkeypatch.setattr(tell, "ellipse_matvec_torch", forbidden)
+    monkeypatch.setattr(tell, "ellipse_sym_torch", forbidden)
+    args = (P[:, 0], P[:, 1], P[:, 2:5], P[:, 5], P[:, 6])
+    mv, n, _ = tcov.ellipse_covariance_operator(
+        *args, v=1.5, store="stream", max_dist=3000.0)
+    before = counts()
+    narrow = mv(torch.ones((n, 4), device="cuda"))
+    wide = mv(torch.ones((n, 12), device="cuda"))
+    torch.cuda.synchronize()
+    after = counts()
+    assert after[2] == before[2] + 1 and after[0] > before[0]
+    assert narrow.is_cuda and wide.is_cuda
+    assert _rel_max(narrow, wide[:, :4]) <= 1e-5
+    cov = tcov.build_ellipse_covariance(*args, v=1.5, max_dist=3000.0)
+    assert cov.is_cuda and counts()[1] == after[1] + 1
