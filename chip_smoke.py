@@ -27,10 +27,16 @@ Usage, from the repository root, with no arguments:
 One line per phase. Any failure raises and the script exits non-zero
 without the final line. The final line is one JSON object with the
 device; the line before it lists each kernel with its launch count on
-its path, its error against the plain twin and its time.
+its path, its error against the plain twin, its time, its plain twin's
+time and its bound: the least time the card could take for the same
+work, from this run's inputs (bytes over HBM's rate, or operations over
+their peak rate, whichever is larger; see ``bound``). Phase 2 prints the
+registers and spills nvcc reports for each kernel and fails if K3 or K4
+spill.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -105,6 +111,22 @@ BF16_TOL = 2e-2
 # order they sum (K3's atomics against the GEMM; a GEMM over the band
 # window against one over all columns), relative to max |y|
 STREAM_ORDER_TOL = 1e-5
+
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet) for the kernels'
+# bounds: HBM bytes/s, f32 flop/s outside the tensor cores (an FMA counts
+# two), and transcendentals/s (16 per clock per SM x 132 SMs x 1.98 GHz).
+HBM_BYTES_S = 3.35e12
+F32_FLOPS_S = 67e12
+TRANSCENDENTALS_S = 4.18e12
+# Work per pair, counted from the sources (csrc/*.cu). K1 (haversine,
+# Matern nu = 0.5): ~35 flops and 5 transcendentals (2 sin, 2 sqrt, exp).
+# The ellipse pair: its cutoff test 11 flops; its value 31 flops and 3
+# transcendentals (rsqrt, sqrt, exp) at nu = 1.5, needed only for a pair
+# within the cutoff; K3 adds 32 flops per such pair (two 8-wide
+# contractions).
+K1_FLOPS, K1_TRANSCENDENTALS = 35, 5
+CUT_FLOPS, PAIR_FLOPS, PAIR_TRANSCENDENTALS = 11, 31, 3
+K3_CONTRACT_FLOPS = 32
 
 
 def sync():
@@ -200,6 +222,101 @@ def check(label, value, bound):
     if not value <= bound:
         raise AssertionError(f"{label}: {value:.3e} > {bound}")
     return value
+
+
+def bound(bytes_moved, flops, transcendentals):
+    """(bound_ms, bound_by) of a kernel call: the larger of the bytes it
+    must move (each input read once, each output written once) over HBM's
+    rate and its operations over their peak rates."""
+    bytes_ms = bytes_moved / HBM_BYTES_S * 1e3
+    ops_ms = max(flops / F32_FLOPS_S,
+                 transcendentals / TRANSCENDENTALS_S) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                             "operations")
+
+
+def ellipse_bound(bytes_moved, pairs, kept, extra_flops=0):
+    """The ellipse kernels' bound: every pair's cutoff test (when
+    `pairs` is nonzero) and the value of the `kept` pairs."""
+    return bound(bytes_moved,
+                 pairs * CUT_FLOPS + kept * (PAIR_FLOPS + extra_flops),
+                 kept * PAIR_TRANSCENDENTALS)
+
+
+def ptxas_summary(library, kernels):
+    """{kernel: (most registers, spill bytes)} over the instantiations of
+    each kernel, from the ``-Xptxas -v`` log nvcc wrote beside `library`."""
+    from glomargridding_tpu_torch.ops.cuda import build
+
+    text = build.library_path(library).with_suffix(".log").read_text()
+    out = {k: [0, 0] for k in kernels}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$.]+)", line)
+        if m:
+            current = next((k for k in kernels if k in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current][0] = max(out[current][0], int(m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[current][1] += int(m.group(1)) + int(m.group(2))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def within_cutoff(rows, cols, max_dist):
+    """The (len(rows), len(cols)) mask of pairs within the cutoff, as the
+    plain twin classifies them: haversine-a from the packed half-angle
+    values, one rounding per operation."""
+    from glomargridding_tpu_torch.constants import RADIUS_OF_EARTH_KM
+    from glomargridding_tpu_torch.ops.cuda.ellipse import PACKED
+
+    k = {name: i for i, name in enumerate(PACKED)}
+
+    def r(name):
+        return rows[:, k[name], None]
+
+    def c(name):
+        return cols[None, :, k[name]]
+
+    half = min(max_dist / (2.0 * RADIUS_OF_EARTH_KM), 0.5 * np.pi)
+    sdlat = r("sin_half_lat") * c("cos_half_lat") - r("cos_half_lat") * c(
+        "sin_half_lat")
+    sdlon = r("sin_half_lon") * c("cos_half_lon") - r("cos_half_lon") * c(
+        "sin_half_lon")
+    a = sdlat * sdlat + (r("cos_lat_from_half") * c("cos_lat_from_half")) * (
+        sdlon * sdlon)
+    return ~(a > torch.tensor(np.sin(half) ** 2, dtype=a.dtype,
+                              device=a.device))
+
+
+def band_pairs(P, hi, max_dist, group=16):
+    """(pairs, kept) of K3's band: row block i against column blocks
+    i..hi[i] (TILE points each, clipped to n), and those within the
+    cutoff."""
+    from glomargridding_tpu_torch.ops.cuda.ellipse import TILE
+
+    n = P.shape[0]
+    hi_t = torch.as_tensor(np.asarray(hi, np.int64), device=P.device)
+    block = torch.arange(n, device=P.device) // TILE
+    starts = np.arange(len(hi)) * TILE
+    pairs = sum((min(s + TILE, n) - s) * (min((int(h) + 1) * TILE, n) - s)
+                for s, h in zip(starts, hi))
+    kept = 0
+    for g0 in range(0, len(hi), group):
+        g1 = min(g0 + group, len(hi))
+        r0, r1 = g0 * TILE, min(g1 * TILE, n)
+        c1 = min((int(hi_t[g0:g1].max()) + 1) * TILE, n)
+        mask = within_cutoff(P[r0:r1], P[r0:c1], max_dist)
+        rb, cb = block[r0:r1, None], block[None, r0:c1]
+        mask &= (cb >= rb) & (cb <= hi_t[rb])
+        kept += int(mask.sum())
+    return pairs, kept
 
 
 def require_launches(label, count):
@@ -345,6 +462,17 @@ def main():
         list(pool.map(build.load_library, libraries))
     phase(2, "build", seconds=f"{time.perf_counter() - t0:.1f}",
           libraries="|".join(build.library_path(n).name for n in libraries))
+    # registers and spills (most registers over each kernel's
+    # instantiations, their spill bytes summed); K3 and K4 must not spill
+    ptxas = {**ptxas_summary("pairwise_tile", ["pairwise_tile_kernel"]),
+             **ptxas_summary("ellipse_tile", [
+                 "ellipse_sym_kernel", "ellipse_matvec_kernel",
+                 "ellipse_tile_kernel"])}
+    print("ptxas " + " ".join(f"{k}=regs:{r},spill_bytes:{b}"
+                              for k, (r, b) in ptxas.items()), flush=True)
+    for name in ("ellipse_matvec_kernel", "ellipse_tile_kernel"):
+        if ptxas[name][1] != 0 or ptxas[name][0] == 0:
+            raise AssertionError(f"{name}: ptxas reports {ptxas[name]}")
 
     # 3. K1 against its plain twin at the main path's tile shapes
     glat, glon = grid_1deg()
@@ -503,15 +631,22 @@ def main():
           **{k: f"{v:.4f}" for k, v in walls.items()},
           kriging_64800_peak_gb=f"{peak_gb:.3f}")
 
+    k1_pairs = la_o.numel() * 4096
+    k1_bound, k1_by = bound(k1_pairs * 4 + (la_o.numel() + 4096) * 2 * 4,
+                            k1_pairs * K1_FLOPS,
+                            k1_pairs * K1_TRANSCENDENTALS)
     kernels = [{
         "name": "pairwise_tile",
         "route": "cuda",
         "source": "glomargridding_tpu_torch/ops/cuda/csrc/pairwise_tile.cu",
-        "replaces": "glomargridding_tpu/ops/pallas/pairwise.py:102",
+        "replaces": "glomargridding_tpu/ops/pallas/pairwise.py:106",
         "launches": main_launches,
         "max_abs_err": main_abs_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
     }]
     kernels += nonstationary(dev, glat, glon, (idx, y, err))
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -657,11 +792,13 @@ def krige_nonstationary(dev, glat, glon, obs, nu):
     reset_ellipse_counts()
     _solve_sym.branches.update(cholesky=0, lu=0)
     torch.cuda.reset_peak_memory_stats()
+    # no device named: the builder runs on the card by default
     builder = EllipseCovarianceBuilder(
         *(f.reshape(shape) for f in fields), lat_axis, lon_axis, v=nu,
-        device=dev,
     )
     cov = builder.cov_ns
+    if not cov.is_cuda:
+        raise AssertionError(f"the builder ran on {cov.device}")
     ok = OrdinaryKriging(cov, idx, y, err)
     res = {"ordinary": (ok.solve(), ok.get_uncertainty(),
                         ok.constraint_mask())}
@@ -861,8 +998,9 @@ def phase11_stream(dev):
 
 
 def phase12_times(dev, glat, glon, obs, stream):
-    """Kernel times against their plain twins (CUDA events) and the
-    non-stationary walls (median of warm runs)."""
+    """Kernel times against their plain twins (CUDA events), their bounds
+    from this run's inputs, and the non-stationary walls (median of warm
+    runs)."""
     from glomargridding_tpu_torch import OrdinaryKriging
     from glomargridding_tpu_torch.models.ellipse import covariance as tcov
     from glomargridding_tpu_torch.ops.cuda import ellipse as te
@@ -876,6 +1014,10 @@ def phase12_times(dev, glat, glon, obs, stream):
     out["k2_16384_ms"] = cuda_time_ms(lambda: te.ellipse_sym(P, NU_NS))
     out["k2_plain_16384_ms"] = cuda_time_ms(
         lambda: te.ellipse_sym_torch(P, NU_NS), iters=3)
+    # K2 stores all n^2 values and needs each distinct pair's value once
+    # (no cutoff here)
+    bounds = {"k2_16384": ellipse_bound(
+        N_SYM * N_SYM * 4 + N_SYM * 64, 0, N_SYM * (N_SYM - 1) // 2)}
 
     P = te.pack_points(*ellipse_args(
         glat, glon, realistic_ellipse_params(glat, glon), torch.float32, dev))
@@ -892,6 +1034,12 @@ def phase12_times(dev, glat, glon, obs, stream):
     out["k2_64800_bf16_ms"] = cuda_time_ms(
         lambda: te.ellipse_sym(P, NU_NS, out_dtype=torch.bfloat16,
                                add_diag=False, keep_pad=True), iters=3)
+    m = P.shape[0]
+    m_pad = -(-m // te.TILE) * te.TILE
+    bounds["k2_64800_f32"] = ellipse_bound(m * m * 4 + m * 64, 0,
+                                           m * (m - 1) // 2)
+    bounds["k2_64800_bf16"] = ellipse_bound(m_pad * m_pad * 2 + m * 64, 0,
+                                            m * (m - 1) // 2)
 
     P, x8, x1k, mv, block = stream
     n = P.shape[0]
@@ -921,6 +1069,12 @@ def phase12_times(dev, glat, glon, obs, stream):
     out["k4_tile_ms"] = cuda_time_ms(lambda: te.ellipse_tile(*tile_args))
     out["k4_plain_tile_ms"] = cuda_time_ms(
         lambda: te.ellipse_tile_torch(*tile_args), iters=3)
+    k4_pairs = rows.shape[0] * cols.shape[0]
+    k4_kept = int(within_cutoff(rows, cols, MAX_DIST_KM).sum())
+    out["k4_kept_share"] = k4_kept / k4_pairs
+    bounds["k4_tile"] = ellipse_bound(
+        k4_pairs * 4 + (rows.shape[0] + cols.shape[0]) * 64, k4_pairs,
+        k4_kept)
     mv_args = (P, x8, hi, NU_NS, "Modified_Met_Office", MAX_DIST_KM)
     yk = te.ellipse_matvec(*mv_args)
     yp = te.ellipse_matvec_torch(*mv_args)
@@ -932,6 +1086,19 @@ def phase12_times(dev, glat, glon, obs, stream):
                                        iters=5)
     out["k3_plain_259200_ms"] = cuda_time_ms(
         lambda: te.ellipse_matvec_torch(*mv_args), iters=1)
+    k3_pairs, k3_kept = band_pairs(P, hi, MAX_DIST_KM)
+    out["k3_band_pairs"] = str(k3_pairs)
+    out["k3_kept_share"] = k3_kept / k3_pairs
+    # points read, x read and y written, each MV_W wide
+    bounds["k3_259200"] = ellipse_bound(n * 64 + 2 * n * te.MV_W * 4,
+                                        k3_pairs, k3_kept, K3_CONTRACT_FLOPS)
+    timed = {"k2_16384": "k2_16384_ms", "k2_64800_f32": "k2_64800_f32_ms",
+             "k2_64800_bf16": "k2_64800_bf16_ms", "k4_tile": "k4_tile_ms",
+             "k3_259200": "k3_259200_ms"}
+    for key, (bound_ms, bound_by) in bounds.items():
+        out[f"{key}_bound_ms"] = bound_ms
+        out[f"{key}_bound_by"] = bound_by
+        out[f"{key}_share_of_bound"] = bound_ms / out[timed[key]]
     out["stream_mv8_259200_s"] = wall_median_s(lambda: mv(x8))
     out["stream_mv1024_259200_s"] = wall_median_s(lambda: mv(x1k))
     phase(12, "ellipse_times", repeats=REPEATS,
@@ -940,7 +1107,7 @@ def phase12_times(dev, glat, glon, obs, stream):
           **{k: f"{v:.3e}" for k, v in rel.items()},
           bounds=f"k4:{ELLIPSE_RTOL[torch.float32]}|wide:{STREAM_ORDER_TOL}"
                  f"|k3:{K3_TWIN_TOL}")
-    return out, abs_err
+    return out, abs_err, bounds
 
 
 def nonstationary(dev, glat, glon, obs):
@@ -950,22 +1117,23 @@ def nonstationary(dev, glat, glon, obs):
     k2_store = phase10_bf16_operator(dev, glat, glon, x8, y_dense)
     del x8, y_dense
     launches, stream = phase11_stream(dev)
-    times, abs_err = phase12_times(dev, glat, glon, obs, stream)
+    times, abs_err, bounds = phase12_times(dev, glat, glon, obs, stream)
     source = "glomargridding_tpu_torch/ops/cuda/csrc/ellipse_tile.cu"
     replaced = "glomargridding_tpu/ops/pallas/pairwise.py:"
+    # no single PyTorch call computes an ellipse pair function
+    rows = (("ellipse_sym", "423", k2_builder + k2_store, "k2", "k2_16384",
+             "k2_16384_ms", "k2_plain_16384_ms"),
+            ("ellipse_matvec", "648", launches["k3"], "k3", "k3_259200",
+             "k3_259200_ms", "k3_plain_259200_ms"),
+            ("ellipse_tile", "265", launches["k4"], "k4", "k4_tile",
+             "k4_tile_ms", "k4_plain_tile_ms"))
     return [
-        {"name": "ellipse_sym", "route": "cuda", "source": source,
-         "replaces": replaced + "416", "launches": k2_builder + k2_store,
-         "max_abs_err": abs_err["k2"], "ms": times["k2_16384_ms"],
-         "plain_ms": times["k2_plain_16384_ms"]},
-        {"name": "ellipse_matvec", "route": "cuda", "source": source,
-         "replaces": replaced + "644", "launches": launches["k3"],
-         "max_abs_err": abs_err["k3"], "ms": times["k3_259200_ms"],
-         "plain_ms": times["k3_plain_259200_ms"]},
-        {"name": "ellipse_tile", "route": "cuda", "source": source,
-         "replaces": replaced + "261", "launches": launches["k4"],
-         "max_abs_err": abs_err["k4"], "ms": times["k4_tile_ms"],
-         "plain_ms": times["k4_plain_tile_ms"]},
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaced + line, "launches": count,
+         "max_abs_err": abs_err[err], "ms": times[ms],
+         "plain_ms": times[plain], "bound_ms": bounds[key][0],
+         "bound_by": bounds[key][1], "library_ms": None}
+        for name, line, count, err, key, ms, plain in rows
     ]
 
 

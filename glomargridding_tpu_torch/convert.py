@@ -92,7 +92,7 @@ def ellipse_builder_from_inputs(
     `Ly`, `theta`, `stdev` fields, `lats`, `lons`, and the same `v`,
     `delta_x_method`, `max_dist`, `precision`, `covariance_method`,
     `batch_size` and `use_pallas`. Numpy scalars become Python numbers;
-    `device` places the covariance."""
+    `device` places the covariance (by default the card)."""
     return EllipseCovarianceBuilder(
         *(np.ma.asarray(a) for a in (Lx, Ly, theta, stdev)),
         np.asarray(lats),

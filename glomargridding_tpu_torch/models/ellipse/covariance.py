@@ -43,6 +43,7 @@ from ...ops.cuda.ellipse import (
 from ...ops.distances import sigma_rot_flat
 from ...ops.sampling import Matvec
 from ...ops.special import xv_kv
+from ...utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -214,7 +215,8 @@ class EllipseCovarianceBuilder:
     / "low_memory") selects the row-block size of the K4 build (whole
     matrix / `batch_size` rows / 512 rows) when ``use_pallas`` is off.
 
-    Sets `cov_ns`, a tensor on `device`; `calculate_cor` adds `cor_ns`;
+    Sets `cov_ns`, a tensor on `device` (by default the card: the inputs
+    are numpy); `calculate_cor` adds `cor_ns`;
     `uncompress_cov` re-inflates to the full grid with fill values.
     (Parity: ``glomargridding_tpu/models/ellipse/covariance.py:280-468``.)
     """
@@ -245,8 +247,7 @@ class EllipseCovarianceBuilder:
         self.v = float(v)
         self.precision = precision
         self.dtype = _TORCH_DTYPES[np.dtype(precision)]
-        self.device = torch.device("cpu") if device is None else torch.device(
-            device)
+        self.device = resolve_device(device)
 
         def as_masked(arr):
             return np.ma.MaskedArray(
@@ -415,6 +416,7 @@ def ellipse_covariance_operator(
     n_blocks: int | None = None,
     store: str = "bf16",
     assemble: str = "auto",
+    device=None,
 ):
     """Matvec form of the covariance, ``cov @ X``, with no f32 n x n
     matrix. Returns ``(matvec, n, trace)``; ``matvec`` is an
@@ -438,8 +440,15 @@ def ellipse_covariance_operator(
     row block's (block x window) tile with K4 into one reused workspace
     and multiply it with ``torch.matmul`` in true f32.
     ``matvec.band_stats`` counts the pairs each path builds.
+
+    The operator lives on `device`; with no device, on the inputs' if one
+    is a tensor, else on the card (``resolve_device``).
     """
-    P = pack_points(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs)
+    device = resolve_device(device, sig_flat, lats_rad, lons_rad, sqrt_dets,
+                            stdevs)
+    P = pack_points(lats_rad, lons_rad, torch.as_tensor(sig_flat,
+                                                        device=device),
+                    sqrt_dets, stdevs)
     n = P.shape[0]
     diag = P[:, 6].float() ** 2
     trace = float(torch.sum(diag))

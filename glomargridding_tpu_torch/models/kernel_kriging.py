@@ -16,8 +16,10 @@ goes through the explicit inverse. No product here may run in TF32: the
 port never changes ``torch.get_float32_matmul_precision()`` from
 "highest".
 
-Inputs may be numpy arrays or tensors; ``device`` places numpy inputs,
-and tensors stay where they are. Block widths are rounded to the tile
+Inputs may be numpy arrays or tensors. ``device`` places the call; with
+no device a tensor input keeps its device, and numpy inputs go to the
+card (``cuda``; without one the call raises, so a CPU run names
+``device="cpu"``). Block widths are rounded to the tile
 kernel's column tile; results do not depend on the block count.
 """
 
@@ -30,6 +32,7 @@ from torch import nn
 from ..constants import RADIUS_OF_EARTH_KM
 from ..ops.cuda.pairwise import DISTANCES, TILE_N, pairwise_covariance
 from ..ops.distances import radians
+from ..utils.device import resolve_device
 
 
 class KrigingResult(NamedTuple):
@@ -102,7 +105,10 @@ def _blocks(m: int, n_blocks: int) -> list[tuple[int, int]]:
     return [(s, min(s + block, m)) for s in range(0, m, block)]
 
 
-def _grid(grid_lats, grid_lons, device):
+def _grid(grid_lats, grid_lons, device, *inputs):
+    """Radian grid tensors on the call's device (``resolve_device`` over
+    the grid and the other `inputs`)."""
+    device = resolve_device(device, grid_lats, grid_lons, *inputs)
     la = radians(torch.as_tensor(grid_lats, device=device))
     lo = radians(torch.as_tensor(grid_lons, device=la.device, dtype=la.dtype))
     return la, lo
@@ -194,7 +200,7 @@ def kriging_from_kernel(
     """
     if method not in ("ordinary", "simple"):
         raise ValueError(f"Unknown kriging method: {method}")
-    la, lo = _grid(grid_lats, grid_lons, device)
+    la, lo = _grid(grid_lats, grid_lons, device, idx, obs, error_cov)
     field, uncert2, cmask = _kernel_kriging(
         kernel_fn, la, lo, _index(idx, la), _like(obs, la),
         _like(error_cov, la), float(variance), float(mean), method,
@@ -225,7 +231,7 @@ def ensemble_from_kernel(
     `noise` of shape (n_members, n_obs). Returns (field (M,),
     members (n_members, M)).
     """
-    la, lo = _grid(grid_lats, grid_lons, device)
+    la, lo = _grid(grid_lats, grid_lons, device, idx, obs, error_cov, noise)
     idx = _index(idx, la)
     y = _like(obs, la)
     la_o, lo_o, L, u, w = _factor(
@@ -314,7 +320,8 @@ def months_scan_kriging(
     (T, M); with ``diagnostics=False`` only the (T, M) fields, computed
     without the triangular inverse or the quadratic form.
     """
-    la, lo = _grid(grid_lats, grid_lons, device)
+    la, lo = _grid(grid_lats, grid_lons, device, idx_months, obs_months,
+                   error_cov_months)
     idx_m = _index(idx_months, la)
     obs_m = _like(obs_months, la)
     err_m = _like(error_cov_months, la)
@@ -389,7 +396,7 @@ def kriging_crossval(
     """
     if method not in ("ordinary", "simple"):
         raise ValueError(f"Unknown kriging method: {method}")
-    la, lo = _grid(grid_lats, grid_lons, device)
+    la, lo = _grid(grid_lats, grid_lons, device, idx, obs, error_cov)
     idx = _index(idx, la)
     la_o, lo_o = la[idx], lo[idx]
     K = _add_error(kernel_fn(la_o, lo_o, la_o, lo_o), _like(error_cov, la))
@@ -412,7 +419,8 @@ def crossval_from_covariance(
     """
     if method not in ("ordinary", "simple"):
         raise ValueError(f"Unknown kriging method: {method}")
-    cov = torch.as_tensor(covariance, device=device)
+    cov = torch.as_tensor(covariance, device=resolve_device(
+        device, covariance, idx, obs, error_cov))
     idx = _index(idx, cov)
     E = _like(error_cov, cov)
     m = int(idx.shape[0])

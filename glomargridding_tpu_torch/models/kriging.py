@@ -20,8 +20,9 @@ extended inverse). The numerics follow the reference:
   reference's published variance ``diag(C) - (w'c + lambda) - lambda``;
   "textbook" subtracts lambda once.
 
-The covariance stays a tensor on its device (a numpy input is placed on
-`device`, default the CPU), and so do the outputs: a 64,800-cell f32
+The covariance stays a tensor on its device, and so do the outputs. A
+numpy covariance goes to `device`, by default the card (``cuda``; with
+no card the classes raise, so a CPU run names ``device="cpu"``): a 64,800-cell f32
 covariance is 16.8 GB, and no step here copies it to the host. No
 product here may run in TF32: the port never changes
 ``torch.get_float32_matmul_precision()`` from "highest".
@@ -39,6 +40,7 @@ from ..utils.arrays import (
     get_spatial_mean,
     intersect_mtlb,
 )
+from ..utils.device import resolve_device
 
 KrigMethod = Literal["simple", "ordinary"]
 
@@ -144,7 +146,8 @@ class Kriging(ABC):
     `error_cov` is subset to `idx`; observations whose error-cov diagonal
     is NaN or 0 are dropped with a warning and remaining NaNs set to 0
     (parity: ``glomargridding_tpu/models/kriging.py:213-263``).
-    Everything lives on the covariance's device.
+    Everything lives on the covariance's device (``resolve_device``: a
+    numpy covariance goes to `device`, by default the card).
     """
 
     def __init__(self, covariance, idx, obs, error_cov=None,
@@ -154,7 +157,8 @@ class Kriging(ABC):
                 "Do not use the generic class directly, "
                 "use SimpleKriging or OrdinaryKriging"
             )
-        self.covariance = torch.as_tensor(covariance, device=device)
+        self.covariance = torch.as_tensor(covariance, device=resolve_device(
+            device, covariance, idx, obs, error_cov))
         dev = self.covariance.device
         self.idx = torch.as_tensor(idx, device=dev).long()
         self.obs = torch.as_tensor(obs, device=dev)

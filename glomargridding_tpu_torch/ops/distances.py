@@ -12,6 +12,7 @@ import math
 import torch
 
 from ..constants import RADIUS_OF_EARTH_KM
+from ..utils.device import resolve_device
 
 # Abramowitz-Stegun 4.4.46, highest order first, as in the reference
 _ASIN_COEFFS = (
@@ -75,7 +76,9 @@ def haversine_matrix(
     device=None,
 ) -> torch.Tensor:
     """Pairwise great-circle distance matrix (degrees in, `radius` units
-    out): |set1| x |set1|, or |set1| x |set2| with two sets."""
+    out): |set1| x |set1|, or |set1| x |set2| with two sets. On `device`;
+    with none, on the inputs' if one is a tensor, else on the card."""
+    device = resolve_device(device, lats1, lons1, lats2, lons2)
     lats1 = torch.as_tensor(lats1, device=device)
     lons1 = torch.as_tensor(lons1, device=lats1.device)
     if lats2 is None:

@@ -1,4 +1,5 @@
-"""Array helpers shared by the kriging classes and the covariance builder."""
+"""Array helpers shared by the kriging classes and the covariance builder,
+and the entry points' device rule."""
 
 from .arrays import (
     adjust_small_negative,
@@ -6,10 +7,12 @@ from .arrays import (
     get_spatial_mean,
     intersect_mtlb,
 )
+from .device import resolve_device
 
 __all__ = [
     "adjust_small_negative",
     "cov_2_cor",
     "get_spatial_mean",
     "intersect_mtlb",
+    "resolve_device",
 ]

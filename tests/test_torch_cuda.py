@@ -135,7 +135,7 @@ def test_kriging_uses_the_kernel_only(monkeypatch):
     assert tpair.pairwise_covariance.launches - before == n_tiles
     monkeypatch.undo()
     cpu = tkk.kriging_from_kernel(kernel, lat, lon, idx, obs, err,
-                                  variance=1.2, n_blocks=4)
+                                  variance=1.2, n_blocks=4, device="cpu")
     for a, b in zip(res, cpu):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10,
                                    atol=1e-12)
@@ -289,3 +289,129 @@ def test_ellipse_launch_counts_and_cpu_tensors(monkeypatch):
     assert _rel_max(narrow, wide[:, :4]) <= 1e-5
     cov = tcov.build_ellipse_covariance(*args, v=1.5, max_dist=3000.0)
     assert cov.is_cuda and counts()[1] == after[1] + 1
+
+
+# ---------------------------------------------------------------------------
+# K4 and K3 at ragged shapes; the entry points' default device
+# ---------------------------------------------------------------------------
+# (m, n): one row; sides that are not multiples of K4's tile (64 x 128 in
+# f32, 32 x 64 in f64); n % 4 != 0 (no 16-byte stores); all of them fewer
+# tiles than the card has SMs, and one shape with many more
+K4_SHAPES = [(1, 1), (1, 333), (65, 129), (200, 333), (130, 4097),
+             (127, 260), (64, 128), (1500, 2100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("max_dist", [None, 3000.0])
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=str)
+def test_k4_ragged_shapes(shape, max_dist, dtype):
+    """K4 against its twin at ragged shapes, and into an output view that
+    is not 16-byte aligned; K4 == K4' bit for bit on square calls."""
+    m, n = shape
+    args = (1.5, "Modified_Met_Office", max_dist)
+    rows, cols = _points(m, dtype, 3), _points(n, dtype, 4)
+    k4 = tell.ellipse_tile(rows, cols, *args)
+    plain = tell.ellipse_tile_torch(rows, cols, *args)
+    torch.cuda.synchronize()
+    assert k4.shape == (m, n) and bool(torch.isfinite(k4).all())
+    scale = max(torch.max(torch.abs(plain)).item(), 1e-300)
+    assert torch.max(torch.abs(k4 - plain)).item() / scale <= \
+        ELLIPSE_RTOL[dtype]
+    ws = torch.full((m * n + 1,), float("nan"), dtype=dtype, device="cuda")
+    shifted = ws[1:].view(m, n)
+    tell.ellipse_tile(rows, cols, *args, out=shifted)
+    assert torch.equal(shifted, k4)
+    sq = tell.ellipse_tile(cols, cols, *args)
+    assert torch.equal(sq, sq.T)
+
+
+@pytest.mark.parametrize("width", range(1, 9))
+@pytest.mark.parametrize("max_dist", [None, 3000.0])
+def test_k3_deep_band_and_widths(width, max_dist):
+    """K3 over a band deeper than one block's chunk (MV_DEPTH column
+    blocks) at every width 1..8: 1e-5 of max |y| against its twin and
+    1e-4 against the dense f64 product."""
+    # unbanded, 22 column blocks; at 3,000 km the band of points spread
+    # over 140 degrees of latitude needs ~8,000 of them to pass 16 blocks
+    n = 64 * (tell.MV_DEPTH + 5) + 37 if max_dist is None else 64 * 125 + 37
+    P = _points(n, torch.float32, 9)
+    lat = np.asarray(P[:, 0].cpu(), np.float64)
+    hi = None if max_dist is None else tcov._stream_band_plan(
+        lat, lat, n, n, max_dist, tell.TILE, tell.TILE)[2]
+    _, depth = tell.band_limits(hi, n, "cpu")
+    assert depth > tell.MV_DEPTH
+    x = torch.randn(n, width, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(width))
+    args = (1.5, "Modified_Met_Office", max_dist)
+    y = tell.ellipse_matvec(P, x, hi, *args)
+    assert y.shape == (n, width)
+    assert _rel_max(y, tell.ellipse_matvec_torch(P, x, hi, *args)) <= 1e-5
+    dense = tell.ellipse_sym(P.double(), *args)
+    got = y.double() + (P[:, 6] ** 2).double()[:, None] * x.double()
+    assert _rel_max(got, dense @ x.double()) <= 1e-4
+
+
+def _default_device_calls():
+    """Each entry point with numpy inputs and no device."""
+    from glomargridding_tpu_torch import convert
+    from glomargridding_tpu_torch.models import kriging as tkrig
+    from glomargridding_tpu_torch.ops import distances as tdist
+
+    g = np.random.default_rng(2)
+    lat = np.repeat(np.arange(-82.5, 90, 15.0), 24)
+    lon = np.tile(np.arange(-172.5, 180, 15.0), 12)
+    idx = np.sort(g.choice(lat.size, 20, replace=False))
+    obs = g.normal(size=20)
+    err = np.diag(0.1 + 0.05 * g.random(20))
+    kernel = tkk.variogram_kernel(MaternVariogram(psill=1.2, range=2000.0))
+    cov = 1.2 * np.exp(-np.asarray(tdist.haversine_matrix(
+        lat, lon, device="cpu")) / 2000.0)
+    mask = g.random((7, 9)) < 0.25
+    fields = [np.ma.masked_where(mask, g.uniform(lo, hi, (7, 9)))
+              for lo, hi in ((800, 2000), (400, 900), (-1, 1), (0.5, 1.5))]
+    grid = (np.linspace(-50, 55, 7), np.linspace(-170, 160, 9))
+    P = _points(60, torch.float32, 5).cpu().numpy()
+    sig, X = P[:, 2:5], g.normal(size=(60, 3)).astype(np.float32)
+    return {
+        "kriging_from_kernel": lambda: tkk.kriging_from_kernel(
+            kernel, lat, lon, idx, obs, err, variance=1.2),
+        "ensemble_from_kernel": lambda: tkk.ensemble_from_kernel(
+            kernel, lat, lon, idx, obs, err, n_members=3,
+            noise=g.normal(size=(3, 20))),
+        "months_scan_kriging": lambda: tkk.months_scan_kriging(
+            kernel, lat, lon, idx[None], obs[None], err[None], variance=1.2),
+        "kriging_crossval": lambda: tkk.kriging_crossval(
+            kernel, lat, lon, idx, obs, err),
+        "crossval_from_covariance": lambda: tkk.crossval_from_covariance(
+            cov, idx, obs, err),
+        "OrdinaryKriging": lambda: (tkrig.OrdinaryKriging(
+            cov, idx, obs, err).solve(),),
+        "SimpleKriging": lambda: (tkrig.SimpleKriging(
+            cov, idx, obs, err).solve(),),
+        "EllipseCovarianceBuilder": lambda: (tcov.EllipseCovarianceBuilder(
+            *fields, *grid, v=1.5).cov_ns,),
+        "ellipse_builder_from_inputs": lambda: (
+            convert.ellipse_builder_from_inputs(*fields, *grid, v=1.5).cov_ns,),
+        "ellipse_covariance_operator": lambda: (
+            tcov.ellipse_covariance_operator(
+                P[:, 0], P[:, 1], sig, P[:, 5], P[:, 6], v=1.5,
+                store="stream", max_dist=3000.0)[0](X),),
+        "haversine_matrix": lambda: (tdist.haversine_matrix(lat, lon),),
+    }
+
+
+ENTRY_POINTS = ("kriging_from_kernel", "ensemble_from_kernel",
+                "months_scan_kriging", "kriging_crossval",
+                "crossval_from_covariance", "OrdinaryKriging",
+                "SimpleKriging", "EllipseCovarianceBuilder",
+                "ellipse_builder_from_inputs", "ellipse_covariance_operator",
+                "haversine_matrix")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name):
+    """Numpy inputs and no device: every output is a CUDA tensor."""
+    outputs = _default_device_calls()[name]()
+    for out in outputs:
+        assert out.is_cuda, name
+        assert bool(torch.isfinite(out).all()), name

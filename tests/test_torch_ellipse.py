@@ -343,7 +343,7 @@ def test_builder_matches_reference_f64(rng, settings):
     inp = _builder_inputs(rng)
     kw = dict(precision=np.float64, **settings)
     ref = jcov.EllipseCovarianceBuilder(*inp.values(), **kw)
-    ours = ellipse_builder_from_inputs(*inp.values(), **kw)
+    ours = ellipse_builder_from_inputs(*inp.values(), **kw, device="cpu")
     assert ours.cov_ns.dtype == torch.float64
     assert ours.covar_size == ref.covar_size
     np.testing.assert_allclose(_np(ours.cov_ns), np.asarray(ref.cov_ns),
@@ -363,7 +363,7 @@ def test_builder_routes_agree_bitwise(rng):
     inp = _builder_inputs(rng, dtype=np.float32)
     covs = [
         ellipse_builder_from_inputs(*inp.values(), v=1.5, max_dist=3000.0,
-                                    **kw).cov_ns
+                                    **kw, device="cpu").cov_ns
         for kw in (
             {},
             {"use_pallas": False},
@@ -380,15 +380,16 @@ def test_builder_routes_agree_bitwise(rng):
 def test_builder_orders(rng):
     inp = _builder_inputs(rng)
     with pytest.raises(ValueError, match="half-integer"):
-        ellipse_builder_from_inputs(*inp.values(), v=1.2, use_pallas=True)
+        ellipse_builder_from_inputs(*inp.values(), v=1.2, use_pallas=True,
+                                    device="cpu")
     with pytest.raises(NotImplementedError):
-        ellipse_builder_from_inputs(*inp.values(), v=1.2)
+        ellipse_builder_from_inputs(*inp.values(), v=1.2, device="cpu")
     with pytest.raises(ValueError, match="delta_x_method"):
         ellipse_builder_from_inputs(*inp.values(), v=0.5,
-                                    delta_x_method="Cylinder")
+                                    delta_x_method="Cylinder", device="cpu")
     with pytest.raises(ValueError, match="batch_size"):
         ellipse_builder_from_inputs(*inp.values(), v=0.5,
-                                    covariance_method="batched")
+                                    covariance_method="batched", device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -74,7 +74,8 @@ def test_kriging_matches_reference(rng, method, model, distance):
     kw = dict(error_cov=err, variance=variance, method=method, mean=0.3,
               n_blocks=5)
     ref = jkk.kriging_from_kernel(jkern, glat, glon, idx, obs, **kw)
-    ours = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, **kw)
+    ours = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, **kw,
+                                   device="cpu")
     assert isinstance(ours, tkk.KrigingResult)
     for o, r in zip(ours, ref):
         assert o.dtype == torch.float64 and o.shape == (len(glat),)
@@ -85,7 +86,8 @@ def test_kriging_without_error_cov(rng):
     glat, glon, idx, obs, _ = _grid_problem(rng)
     jkern, tkern = _kernels(MODELS["matern05-nugget"])
     ref = jkk.kriging_from_kernel(jkern, glat, glon, idx, obs, variance=1.1)
-    ours = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, variance=1.1)
+    ours = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, variance=1.1,
+                                   device="cpu")
     for o, r in zip(ours, ref):
         _close(o, r)
 
@@ -96,10 +98,11 @@ def test_block_invariance(rng):
     glat, glon, idx, obs, err = _grid_problem(rng, n_lat=18, n_lon=36)
     _, tkern = _kernels(MODELS["matern15"])
     base = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, err,
-                                   variance=1.2, n_blocks=1)
+                                   variance=1.2, n_blocks=1, device="cpu")
     for n_blocks in (2, 3, 7, 16, 10_000):
         other = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, err,
-                                        variance=1.2, n_blocks=n_blocks)
+                                        variance=1.2, n_blocks=n_blocks,
+                                        device="cpu")
         for o, b in zip(other, base):
             np.testing.assert_allclose(o.numpy(), b.numpy(), rtol=1e-12,
                                        atol=1e-14)
@@ -116,7 +119,7 @@ def test_months_scan_matches_reference(rng):
     err_m = np.stack([err * (1.0 + 0.1 * t) for t in range(T)])
     args = (glat, glon, idx_m, obs_m, err_m)
     ref = jkk.months_scan_kriging(jkern, *args, variance=1.1)
-    ours = tkk.months_scan_kriging(tkern, *args, variance=1.1)
+    ours = tkk.months_scan_kriging(tkern, *args, variance=1.1, device="cpu")
     for o, r in zip(ours, ref):
         assert o.shape == (T, len(glat))
         _close(o, r)
@@ -124,7 +127,7 @@ def test_months_scan_matches_reference(rng):
     ref_f = jkk.months_scan_kriging(jkern, *args, variance=1.1,
                                     diagnostics=False)
     ours_f = tkk.months_scan_kriging(tkern, *args, variance=1.1,
-                                     diagnostics=False)
+                                     diagnostics=False, device="cpu")
     _close(ours_f, ref_f)
     _close(ours_f, ours[0])
 
@@ -155,14 +158,14 @@ def test_ensemble_with_reference_noise(rng):
     )
     ours_f, ours_m = tkk.ensemble_from_kernel(
         tkern, glat, glon, idx, obs, err, n_members=n_members, n_blocks=3,
-        noise=noise,
+        noise=noise, device="cpu",
     )
     assert ours_m.shape == (n_members, len(glat))
     _close(ours_f, ref_f)
     _close(ours_m, ref_m)
     with pytest.raises(ValueError, match="noise"):
         tkk.ensemble_from_kernel(tkern, glat, glon, idx, obs, err,
-                                 n_members=3, noise=noise)
+                                 n_members=3, noise=noise, device="cpu")
 
 
 def test_ensemble_generator_draws(rng):
@@ -174,7 +177,8 @@ def test_ensemble_generator_draws(rng):
     def run(seed):
         gen = torch.Generator().manual_seed(seed)
         return tkk.ensemble_from_kernel(tkern, glat, glon, idx, obs, err,
-                                        gen, n_members=8, n_blocks=2)
+                                        gen, n_members=8, n_blocks=2,
+                                        device="cpu")
 
     (f0, m0), (f1, m1), (f2, m2) = run(0), run(0), run(1)
     assert torch.equal(m0, m1)
@@ -191,7 +195,7 @@ def test_kriging_crossval_matches_reference(rng, method, diag_error):
     ref = jkk.kriging_crossval(jkern, glat, glon, idx, obs, error_cov=e,
                                mean=0.2, method=method)
     ours = tkk.kriging_crossval(tkern, glat, glon, idx, obs, error_cov=e,
-                                mean=0.2, method=method)
+                                mean=0.2, method=method, device="cpu")
     assert isinstance(ours, tkk.CrossValResult)
     for o, r in zip(ours, ref):
         _close(o, r)
@@ -208,11 +212,12 @@ def test_crossval_from_covariance_matches_reference(rng, method):
         ref = jkk.crossval_from_covariance(cov, idx, obs, error_cov=e,
                                            method=method)
         ours = tkk.crossval_from_covariance(cov, idx, obs, error_cov=e,
-                                            method=method)
+                                            method=method, device="cpu")
         for o, r in zip(ours, ref):
             _close(o, r)
     with pytest.raises(ValueError, match="matches neither"):
-        tkk.crossval_from_covariance(cov, idx, obs, error_cov=np.ones(7))
+        tkk.crossval_from_covariance(cov, idx, obs, error_cov=np.ones(7),
+                                     device="cpu")
 
 
 def test_unknown_method_and_distance(rng):
@@ -220,9 +225,11 @@ def test_unknown_method_and_distance(rng):
     _, tkern = _kernels(MODELS["matern15"])
     for fn in (tkk.kriging_from_kernel, tkk.kriging_crossval):
         with pytest.raises(ValueError, match="method"):
-            fn(tkern, glat, glon, idx, obs, err, method="bogus")
+            fn(tkern, glat, glon, idx, obs, err, method="bogus",
+               device="cpu")
     with pytest.raises(ValueError, match="method"):
-        tkk.crossval_from_covariance(np.eye(3), [0], [1.0], method="bogus")
+        tkk.crossval_from_covariance(np.eye(3), [0], [1.0], method="bogus",
+                                     device="cpu")
     with pytest.raises(ValueError, match="distance"):
         tkk.variogram_kernel(tkern.variogram, distance="manhattan")
 
@@ -238,7 +245,7 @@ def test_float32_inputs_stay_float32(rng):
         torch.as_tensor(err).float(), variance=1.2,
     )
     res64 = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, err,
-                                    variance=1.2)
+                                    variance=1.2, device="cpu")
     for a, b in zip(res32, res64):
         assert a.dtype == torch.float32
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)

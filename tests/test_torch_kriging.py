@@ -89,7 +89,7 @@ def test_ordinary_golden_lu_branch():
     takes the LU branch; class and function forms."""
     cov, idx, obs = _setup()
     before = dict(tkrig._solve_sym.branches)
-    field = tkrig.OrdinaryKriging(cov, idx, obs).solve()
+    field = tkrig.OrdinaryKriging(cov, idx, obs, device="cpu").solve()
     assert tkrig._solve_sym.branches["lu"] == before["lu"] + 1
     assert tkrig._solve_sym.branches["cholesky"] == before["cholesky"]
     np.testing.assert_allclose(_golden(), _np(field).reshape(20, 20),
@@ -107,11 +107,11 @@ def test_ordinary_from_weights_and_inverse():
     n, m = SS.shape
     S_ext = np.block([[S, np.ones((n, 1))], [np.ones((1, n)), 0]])
     W = np.linalg.solve(S_ext, np.concatenate([SS, np.ones((1, m))])).T
-    ok = tkrig.OrdinaryKriging(cov, idx, obs)
+    ok = tkrig.OrdinaryKriging(cov, idx, obs, device="cpu")
     ok.set_kriging_weights(W)
     np.testing.assert_allclose(_golden(), _np(ok.solve()).reshape(20, 20),
                                rtol=1e-7, atol=1e-12)
-    ok = tkrig.OrdinaryKriging(cov, idx, obs)
+    ok = tkrig.OrdinaryKriging(cov, idx, obs, device="cpu")
     ok.kriging_weights_from_inverse(ok.extended_inverse(np.linalg.inv(S)))
     np.testing.assert_allclose(_golden(), _np(ok.solve()).reshape(20, 20),
                                rtol=1e-6, atol=1e-12)
@@ -157,11 +157,13 @@ def test_ordinary_matches_reference(rng, case, convention):
     ref = jkrig.OrdinaryKriging(*args, uncertainty=convention)
     with pytest.warns(UserWarning) if case == "golden" else nullcontext():
         # the golden variogram system has genuinely negative variances
-        ours = tkrig.OrdinaryKriging(*args, uncertainty=convention)
+        ours = tkrig.OrdinaryKriging(*args, uncertainty=convention,
+                                     device="cpu")
         _compare(ours, ref)
     # injected weights honour the convention too
     W = np.asarray(ref.kriging_weights)
-    again = tkrig.OrdinaryKriging(*args, uncertainty=convention)
+    again = tkrig.OrdinaryKriging(*args, uncertainty=convention,
+                                  device="cpu")
     again.set_kriging_weights(W)
     with np.errstate(invalid="ignore"):
         np.testing.assert_allclose(
@@ -172,17 +174,17 @@ def test_ordinary_matches_reference(rng, case, convention):
 def test_simple_matches_reference_cholesky_branch(rng):
     cov, idx, obs, err = _spd_case(rng)
     before = dict(tkrig._solve_sym.branches)
-    ours = tkrig.SimpleKriging(cov, idx, obs, err)
+    ours = tkrig.SimpleKriging(cov, idx, obs, err, device="cpu")
     ref = jkrig.SimpleKriging(cov, idx, obs, err)
     _compare(ours, ref)
     assert tkrig._solve_sym.branches["cholesky"] > before["cholesky"]
     assert tkrig._solve_sym.branches["lu"] == before["lu"]
     # a new solver with the mean
-    shifted = tkrig.SimpleKriging(cov, idx, obs, err).solve(mean=2.5)
+    shifted = tkrig.SimpleKriging(cov, idx, obs, err, device="cpu").solve(mean=2.5)
     np.testing.assert_allclose(_np(shifted), ref.solve() + 2.5, rtol=RTOL)
     # weights from an inverse, and the uncertainty from set weights
     K = cov[np.ix_(idx, idx)] + err
-    inv = tkrig.SimpleKriging(cov, idx, obs, err)
+    inv = tkrig.SimpleKriging(cov, idx, obs, err, device="cpu")
     inv.kriging_weights_from_inverse(np.linalg.inv(K))
     np.testing.assert_allclose(_np(inv.get_uncertainty()),
                                ref.get_uncertainty(), rtol=1e-7)
@@ -196,7 +198,7 @@ def test_simple_matches_reference_cholesky_branch(rng):
         _np(tkrig.constraint_mask(K, cov[idx], cov)),
         jkrig.constraint_mask(K, cov[idx], cov), rtol=RTOL)
     with pytest.raises(KeyError):
-        tkrig.SimpleKriging(cov, idx, obs, err).get_uncertainty()
+        tkrig.SimpleKriging(cov, idx, obs, err, device="cpu").get_uncertainty()
     with pytest.raises(TypeError):  # abstract
         tkrig.Kriging(cov, idx, obs)
 
@@ -209,12 +211,13 @@ def test_filter_bad_error_cov_values(rng):
         f"At positions {idx[2]}. Filtering input accordingly"
     )
     with pytest.warns(UserWarning, match=msg):
-        ok = tkrig.OrdinaryKriging(cov, idx, obs, err)
+        ok = tkrig.OrdinaryKriging(cov, idx, obs, err, device="cpu")
     assert _np(ok.idx).tolist() == idx[:2].tolist()
     assert _np(ok.obs).tolist() == obs[:2].tolist()
     assert ok.error_cov.shape == (2, 2)
     with pytest.raises(ValueError, match="uncertainty"):
-        tkrig.OrdinaryKriging(cov, idx, obs, uncertainty="bogus")
+        tkrig.OrdinaryKriging(cov, idx, obs, uncertainty="bogus",
+                              device="cpu")
 
 
 def test_prep_obs_for_kriging():
@@ -287,7 +290,7 @@ def test_ellipse_ordinary_kriging_end_to_end(rng, max_dist):
     inputs = _ellipse_inputs(rng)
     settings = dict(v=1.5, max_dist=max_dist, precision=np.float64)
     jb = EllipseCovarianceBuilder(*inputs, **settings)
-    tb = ellipse_builder_from_inputs(*inputs, **settings)
+    tb = ellipse_builder_from_inputs(*inputs, **settings, device="cpu")
     m = tb.covar_size
     idx = np.sort(rng.choice(m, 25, replace=False))
     obs = rng.normal(size=25)

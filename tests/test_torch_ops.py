@@ -65,10 +65,11 @@ def test_asin_poly_f32():
 def test_haversine_matrix(rng):
     lat1, lon1 = rng.uniform(-89, 89, 23), rng.uniform(-180, 180, 23)
     lat2, lon2 = rng.uniform(-89, 89, 17), rng.uniform(-180, 180, 17)
-    ours = tdist.haversine_matrix(lat1, lon1, lat2, lon2).numpy()
+    ours = tdist.haversine_matrix(lat1, lon1, lat2, lon2,
+                                  device="cpu").numpy()
     ref = np.asarray(jdist.haversine_matrix(lat1, lon1, lat2, lon2))
     np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=1e-9)
-    sym = tdist.haversine_matrix(lat1, lon1).numpy()
+    sym = tdist.haversine_matrix(lat1, lon1, device="cpu").numpy()
     np.testing.assert_allclose(
         sym, np.asarray(jdist.haversine_matrix(lat1, lon1)),
         rtol=RTOL, atol=1e-9,
