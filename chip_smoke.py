@@ -269,37 +269,11 @@ def ptxas_summary(library, kernels):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def within_cutoff(rows, cols, max_dist):
-    """The (len(rows), len(cols)) mask of pairs within the cutoff, as the
-    plain twin classifies them: haversine-a from the packed half-angle
-    values, one rounding per operation."""
-    from glomargridding_tpu_torch.constants import RADIUS_OF_EARTH_KM
-    from glomargridding_tpu_torch.ops.cuda.ellipse import PACKED
-
-    k = {name: i for i, name in enumerate(PACKED)}
-
-    def r(name):
-        return rows[:, k[name], None]
-
-    def c(name):
-        return cols[None, :, k[name]]
-
-    half = min(max_dist / (2.0 * RADIUS_OF_EARTH_KM), 0.5 * np.pi)
-    sdlat = r("sin_half_lat") * c("cos_half_lat") - r("cos_half_lat") * c(
-        "sin_half_lat")
-    sdlon = r("sin_half_lon") * c("cos_half_lon") - r("cos_half_lon") * c(
-        "sin_half_lon")
-    a = sdlat * sdlat + (r("cos_lat_from_half") * c("cos_lat_from_half")) * (
-        sdlon * sdlon)
-    return ~(a > torch.tensor(np.sin(half) ** 2, dtype=a.dtype,
-                              device=a.device))
-
-
 def band_pairs(P, hi, max_dist, group=16):
     """(pairs, kept) of K3's band: row block i against column blocks
     i..hi[i] (TILE points each, clipped to n), and those within the
     cutoff."""
-    from glomargridding_tpu_torch.ops.cuda.ellipse import TILE
+    from glomargridding_tpu_torch.ops.cuda.ellipse import TILE, beyond_cutoff
 
     n = P.shape[0]
     hi_t = torch.as_tensor(np.asarray(hi, np.int64), device=P.device)
@@ -312,7 +286,7 @@ def band_pairs(P, hi, max_dist, group=16):
         g1 = min(g0 + group, len(hi))
         r0, r1 = g0 * TILE, min(g1 * TILE, n)
         c1 = min((int(hi_t[g0:g1].max()) + 1) * TILE, n)
-        mask = within_cutoff(P[r0:r1], P[r0:c1], max_dist)
+        mask = ~beyond_cutoff(P[r0:r1], P[r0:c1], max_dist)
         rb, cb = block[r0:r1, None], block[None, r0:c1]
         mask &= (cb >= rb) & (cb <= hi_t[rb])
         kept += int(mask.sum())
@@ -1070,7 +1044,7 @@ def phase12_times(dev, glat, glon, obs, stream):
     out["k4_plain_tile_ms"] = cuda_time_ms(
         lambda: te.ellipse_tile_torch(*tile_args), iters=3)
     k4_pairs = rows.shape[0] * cols.shape[0]
-    k4_kept = int(within_cutoff(rows, cols, MAX_DIST_KM).sum())
+    k4_kept = int((~te.beyond_cutoff(rows, cols, MAX_DIST_KM)).sum())
     out["k4_kept_share"] = k4_kept / k4_pairs
     bounds["k4_tile"] = ellipse_bound(
         k4_pairs * 4 + (rows.shape[0] + cols.shape[0]) * 64, k4_pairs,

@@ -161,16 +161,22 @@ def build_ellipse_covariance(
     max_dist: float | None = None,
     row_block: int = 2048,
     use_pallas: bool | str = "auto",
+    device=None,
 ):
-    """The full covariance, diag(stdev^2) included, in `sig_flat`'s dtype
-    and on its device.
+    """The full covariance, diag(stdev^2) included, in `sig_flat`'s dtype,
+    on `device`: by default that of a tensor input, else the card
+    (``resolve_device``).
 
     ``use_pallas`` (the reference's name; "auto" means: for the kernel
     orders) builds it in one K2 launch, upper-triangle tiles only.
     Otherwise row blocks of `row_block` rows are written by K4 (or the
     jnp-tile port) straight into the preallocated matrix.
     """
-    P = pack_points(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs)
+    device = resolve_device(device, sig_flat, lats_rad, lons_rad, sqrt_dets,
+                            stdevs)
+    P = pack_points(lats_rad, lons_rad, torch.as_tensor(sig_flat,
+                                                        device=device),
+                    sqrt_dets, stdevs)
     if use_pallas == "auto":
         use_pallas = float(v) in KERNEL_ORDERS
     if use_pallas:

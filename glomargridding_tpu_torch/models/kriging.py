@@ -453,8 +453,9 @@ def get_unmasked_obs_indices(unmask_idx, unique_obs_idx):
 # ===========================================================================
 # Deprecated function forms (API parity)
 # ===========================================================================
-def _function_blocks(obs_obs_cov, obs_grid_cov, interp_cov):
-    K = torch.as_tensor(obs_obs_cov)
+def _function_blocks(obs_obs_cov, obs_grid_cov, interp_cov, device):
+    K = torch.as_tensor(obs_obs_cov, device=resolve_device(
+        device, obs_obs_cov, obs_grid_cov, interp_cov))
     C_cross = torch.as_tensor(obs_grid_cov, dtype=K.dtype, device=K.device)
     C_diag = torch.diagonal(
         torch.as_tensor(interp_cov, dtype=K.dtype, device=K.device)
@@ -462,32 +463,36 @@ def _function_blocks(obs_obs_cov, obs_grid_cov, interp_cov):
     return K, C_cross, C_diag
 
 
-def kriging_simple(obs_obs_cov, obs_grid_cov, grid_obs, interp_cov, mean=0.0):
+def kriging_simple(obs_obs_cov, obs_grid_cov, grid_obs, interp_cov, mean=0.0,
+                   device=None):
     """Deprecated function form of SimpleKriging: (field, uncertainty)
-    from pre-gathered blocks."""
+    from pre-gathered blocks, on `device` (``resolve_device``)."""
     warn("kriging_simple is deprecated, use SimpleKriging", DeprecationWarning)
     K, C_cross, C_diag = _function_blocks(obs_obs_cov, obs_grid_cov,
-                                          interp_cov)
+                                          interp_cov, device)
     y = torch.as_tensor(grid_obs, dtype=K.dtype, device=K.device)
     field, uncert2, _, _ = _simple_core(K, C_cross, C_diag, y, mean)
     return field, _finalise_uncert(uncert2)
 
 
-def kriging_ordinary(obs_obs_cov, obs_grid_cov, grid_obs, interp_cov):
-    """Deprecated function form of OrdinaryKriging."""
+def kriging_ordinary(obs_obs_cov, obs_grid_cov, grid_obs, interp_cov,
+                     device=None):
+    """Deprecated function form of OrdinaryKriging, on `device`
+    (``resolve_device``)."""
     warn(
         "kriging_ordinary is deprecated, use OrdinaryKriging",
         DeprecationWarning,
     )
     K, C_cross, C_diag = _function_blocks(obs_obs_cov, obs_grid_cov,
-                                          interp_cov)
+                                          interp_cov, device)
     y = torch.as_tensor(grid_obs, dtype=K.dtype, device=K.device)
     field, uncert2, *_ = _ordinary_core(K, C_cross, C_diag, y)
     return field, _finalise_uncert(uncert2)
 
 
-def constraint_mask(obs_obs_cov, obs_grid_cov, interp_cov):
-    """diag(C_cross' (C_obs+E)^{-1} C_cross)/diag(C) (function form)."""
+def constraint_mask(obs_obs_cov, obs_grid_cov, interp_cov, device=None):
+    """diag(C_cross' (C_obs+E)^{-1} C_cross)/diag(C) (function form), on
+    `device` (``resolve_device``)."""
     K, C_cross, C_diag = _function_blocks(obs_obs_cov, obs_grid_cov,
-                                          interp_cov)
+                                          interp_cov, device)
     return _column_dot(C_cross, _solve_sym(K, C_cross)) / C_diag

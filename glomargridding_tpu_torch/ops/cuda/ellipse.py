@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ...constants import RADIUS_OF_EARTH_KM
+from ...utils.device import resolve_device
 from . import build
 
 TILE = 64  # the kernels' tile side (kTile in csrc/ellipse_tile.cu)
@@ -168,17 +169,26 @@ def ellipse_tile_torch(
     out = torch.where(inner > 0.0, val, torch.zeros_like(val))
 
     if md > 0.0:
-        half = min(md / (2.0 * radius), 0.5 * math.pi)
-        a_thresh = math.sin(half) ** 2
-        sdlat = (r["sin_half_lat"] * c["cos_half_lat"]
-                 - r["cos_half_lat"] * c["sin_half_lat"])
-        sdlon = (r["sin_half_lon"] * c["cos_half_lon"]
-                 - r["cos_half_lon"] * c["sin_half_lon"])
-        cl = r["cos_lat_from_half"] * c["cos_lat_from_half"]
-        a = sdlat * sdlat + cl * (sdlon * sdlon)
-        out = torch.where(a > _scalar(a_thresh, a), torch.zeros_like(out),
-                          out)
+        out = torch.where(beyond_cutoff(rows, cols, md, radius),
+                          torch.zeros_like(out), out)
     return out
+
+
+def beyond_cutoff(rows, cols, max_dist: float, radius=RADIUS_OF_EARTH_KM):
+    """The (len(rows), len(cols)) mask of pairs farther apart than
+    `max_dist` km, as the kernels classify them: haversine-a from the
+    packed half-angle values, one rounding per operation, against
+    sin^2 of the half angle rounded to the points' dtype."""
+    half = min(max_dist / (2.0 * radius), 0.5 * math.pi)
+    r = {name: rows[:, k : k + 1] for k, name in enumerate(PACKED)}
+    c = {name: cols[:, k][None, :] for k, name in enumerate(PACKED)}
+    sdlat = (r["sin_half_lat"] * c["cos_half_lat"]
+             - r["cos_half_lat"] * c["sin_half_lat"])
+    sdlon = (r["sin_half_lon"] * c["cos_half_lon"]
+             - r["cos_half_lon"] * c["sin_half_lon"])
+    cl = r["cos_lat_from_half"] * c["cos_lat_from_half"]
+    a = sdlat * sdlat + cl * (sdlon * sdlon)
+    return a > _scalar(math.sin(half) ** 2, a)
 
 
 def _scalar(value: float, like):
@@ -409,10 +419,16 @@ def _library() -> ctypes.CDLL:
 def ellipse_covariance_cuda(
     lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs, v: float = 0.5,
     delta_x_method="Modified_Met_Office", max_dist: float = 0.0,
+    device=None,
 ):
     """Counterpart of ``ellipse_covariance_pallas``, with its signature:
-    K4 over all tiles, then diag(stdev^2)."""
-    P = pack_points(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs)
+    K4 over all tiles, then diag(stdev^2). Runs on `device`: by default
+    that of a tensor input, else the card (``resolve_device``)."""
+    device = resolve_device(device, sig_flat, lats_rad, lons_rad, sqrt_dets,
+                            stdevs)
+    P = pack_points(lats_rad, lons_rad, torch.as_tensor(sig_flat,
+                                                        device=device),
+                    sqrt_dets, stdevs)
     C = ellipse_tile(P, P, v, delta_x_method, max_dist)
     C.diagonal().add_(P[:, 6] * P[:, 6])
     return C
@@ -424,6 +440,7 @@ __all__ = [
     "PACKED",
     "TILE",
     "band_limits",
+    "beyond_cutoff",
     "ellipse_covariance_cuda",
     "ellipse_matvec",
     "ellipse_matvec_torch",

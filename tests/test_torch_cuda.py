@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 import pytest
+import test_torch_device as device_cases
 import torch
 
 from glomargridding_tpu_torch.models import kernel_kriging as tkk
@@ -351,67 +352,15 @@ def test_k3_deep_band_and_widths(width, max_dist):
     assert _rel_max(got, dense @ x.double()) <= 1e-4
 
 
-def _default_device_calls():
-    """Each entry point with numpy inputs and no device."""
-    from glomargridding_tpu_torch import convert
-    from glomargridding_tpu_torch.models import kriging as tkrig
-    from glomargridding_tpu_torch.ops import distances as tdist
-
-    g = np.random.default_rng(2)
-    lat = np.repeat(np.arange(-82.5, 90, 15.0), 24)
-    lon = np.tile(np.arange(-172.5, 180, 15.0), 12)
-    idx = np.sort(g.choice(lat.size, 20, replace=False))
-    obs = g.normal(size=20)
-    err = np.diag(0.1 + 0.05 * g.random(20))
-    kernel = tkk.variogram_kernel(MaternVariogram(psill=1.2, range=2000.0))
-    cov = 1.2 * np.exp(-np.asarray(tdist.haversine_matrix(
-        lat, lon, device="cpu")) / 2000.0)
-    mask = g.random((7, 9)) < 0.25
-    fields = [np.ma.masked_where(mask, g.uniform(lo, hi, (7, 9)))
-              for lo, hi in ((800, 2000), (400, 900), (-1, 1), (0.5, 1.5))]
-    grid = (np.linspace(-50, 55, 7), np.linspace(-170, 160, 9))
-    P = _points(60, torch.float32, 5).cpu().numpy()
-    sig, X = P[:, 2:5], g.normal(size=(60, 3)).astype(np.float32)
-    return {
-        "kriging_from_kernel": lambda: tkk.kriging_from_kernel(
-            kernel, lat, lon, idx, obs, err, variance=1.2),
-        "ensemble_from_kernel": lambda: tkk.ensemble_from_kernel(
-            kernel, lat, lon, idx, obs, err, n_members=3,
-            noise=g.normal(size=(3, 20))),
-        "months_scan_kriging": lambda: tkk.months_scan_kriging(
-            kernel, lat, lon, idx[None], obs[None], err[None], variance=1.2),
-        "kriging_crossval": lambda: tkk.kriging_crossval(
-            kernel, lat, lon, idx, obs, err),
-        "crossval_from_covariance": lambda: tkk.crossval_from_covariance(
-            cov, idx, obs, err),
-        "OrdinaryKriging": lambda: (tkrig.OrdinaryKriging(
-            cov, idx, obs, err).solve(),),
-        "SimpleKriging": lambda: (tkrig.SimpleKriging(
-            cov, idx, obs, err).solve(),),
-        "EllipseCovarianceBuilder": lambda: (tcov.EllipseCovarianceBuilder(
-            *fields, *grid, v=1.5).cov_ns,),
-        "ellipse_builder_from_inputs": lambda: (
-            convert.ellipse_builder_from_inputs(*fields, *grid, v=1.5).cov_ns,),
-        "ellipse_covariance_operator": lambda: (
-            tcov.ellipse_covariance_operator(
-                P[:, 0], P[:, 1], sig, P[:, 5], P[:, 6], v=1.5,
-                store="stream", max_dist=3000.0)[0](X),),
-        "haversine_matrix": lambda: (tdist.haversine_matrix(lat, lon),),
-    }
-
-
-ENTRY_POINTS = ("kriging_from_kernel", "ensemble_from_kernel",
-                "months_scan_kriging", "kriging_crossval",
-                "crossval_from_covariance", "OrdinaryKriging",
-                "SimpleKriging", "EllipseCovarianceBuilder",
-                "ellipse_builder_from_inputs", "ellipse_covariance_operator",
-                "haversine_matrix")
-
-
-@pytest.mark.parametrize("name", ENTRY_POINTS)
-def test_entry_points_default_to_the_card(name):
-    """Numpy inputs and no device: every output is a CUDA tensor."""
-    outputs = _default_device_calls()[name]()
-    for out in outputs:
+@pytest.mark.parametrize("name", sorted(device_cases.CASES))
+def test_entry_points_default_to_the_card(rng, name):
+    """The device-rule cases of the CPU test, with numpy inputs and no
+    device: every output is a CUDA tensor and matches the JAX package to
+    the CPU test's bound."""
+    port, ref = device_cases.CASES[name](rng)
+    outputs = port()
+    assert len(outputs) == len(ref), name
+    for out, want in zip(outputs, ref):
         assert out.is_cuda, name
-        assert bool(torch.isfinite(out).all()), name
+        np.testing.assert_allclose(out.cpu().numpy(), np.asarray(want),
+                                   **device_cases.tolerance(name))

@@ -8,11 +8,13 @@ CPU. With ``device="cpu"`` it still matches the JAX package on the same
 numpy inputs, f64, to the parity tests' bounds: rtol 1e-8, atol 1e-10,
 and for the stream operator (whose diagonal term is f32) its own tests'
 2e-4 against the dense product.
-The card side (outputs on ``cuda`` when no device is named) is in
-``tests/test_torch_cuda.py``.
+The card side runs the same ``CASES`` with no device named and asserts
+CUDA outputs (``tests/test_torch_cuda.py``). The deprecated function
+forms of the kriging classes are held to their DeprecationWarning here.
 """
 
 import dataclasses
+from contextlib import nullcontext
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +32,7 @@ from glomargridding_tpu_torch.models import kernel_kriging as tkk
 from glomargridding_tpu_torch.models import kriging as tkrig
 from glomargridding_tpu_torch.models.ellipse import covariance as tcov
 from glomargridding_tpu_torch.ops import distances as tdist
+from glomargridding_tpu_torch.ops.cuda import ellipse as tell
 from glomargridding_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(2)
@@ -148,8 +151,30 @@ def _builder(make):
     return case
 
 
-def _ellipse_covariance_operator(rng):
-    n = 60
+def _deprecated_form(name, blocks):
+    """A deprecated function form of the kriging classes, on pre-gathered
+    blocks: (K, C_cross[, y], C)."""
+    def case(rng):
+        cov, idx, obs, err = _spd_case(rng)
+        K = cov[np.ix_(idx, idx)] + err
+        args = (K, cov[idx], obs, cov) if blocks == 4 else (K, cov[idx], cov)
+
+        def port(**d):
+            with pytest.warns(DeprecationWarning) if blocks == 4 else (
+                    nullcontext()):
+                out = getattr(tkrig, name)(*args, **d)
+            return out if blocks == 4 else (out,)
+
+        ref = getattr(jkrig, name)(*args)
+        return port, ref if blocks == 4 else (ref,)
+
+    return case
+
+
+def _ellipse_points(rng, n=60, max_dist=2500.0):
+    """Packed-point inputs (lats_rad, lons_rad, sig_flat, sqrt_dets,
+    stdevs) as numpy, and the JAX package's dense f64 covariance on them
+    with diag(stdev^2)."""
     lats = np.sort(rng.uniform(-60, 60, n))
     lons = rng.uniform(-180, 180, n)
     Lx, Ly = rng.uniform(800, 2000, n), rng.uniform(400, 800, n)
@@ -159,13 +184,27 @@ def _ellipse_covariance_operator(rng):
     args = (np.radians(lats), np.radians(lons),
             np.stack([s00, s01, s11], -1), np.sqrt(s00 * s11 - s01 * s01),
             stdev)
-    X = rng.normal(size=(n, 3))
     dense = np.asarray(jcov.build_ellipse_covariance(
-        *map(jnp.asarray, args), v=1.5, max_dist=2500.0, use_pallas=False))
+        *map(jnp.asarray, args), v=1.5, max_dist=max_dist, use_pallas=False))
+    return args, dense
+
+
+def _ellipse_covariance_operator(rng):
+    args, dense = _ellipse_points(rng)
+    X = rng.normal(size=(dense.shape[0], 3))
     return (lambda **d: (tcov.ellipse_covariance_operator(
                 *args, v=1.5, max_dist=2500.0, store="stream", n_blocks=3,
                 **d)[0](torch.as_tensor(X, device=d.get("device"))),),
             (dense @ X,))
+
+
+def _dense_ellipse(build):
+    def case(rng):
+        args, dense = _ellipse_points(rng)
+        return (lambda **d: (build(*args, v=1.5, max_dist=2500.0, **d),),
+                (dense,))
+
+    return case
 
 
 def _haversine_matrix(rng):
@@ -187,8 +226,19 @@ CASES = {
     "ellipse_builder_from_inputs": _builder(
         convert.ellipse_builder_from_inputs),
     "ellipse_covariance_operator": _ellipse_covariance_operator,
+    "build_ellipse_covariance": _dense_ellipse(tcov.build_ellipse_covariance),
+    "ellipse_covariance_cuda": _dense_ellipse(tell.ellipse_covariance_cuda),
+    "kriging_simple": _deprecated_form("kriging_simple", 4),
+    "kriging_ordinary": _deprecated_form("kriging_ordinary", 4),
+    "constraint_mask": _deprecated_form("constraint_mask", 3),
     "haversine_matrix": _haversine_matrix,
 }
+
+
+def tolerance(name):
+    """The parity bound of a case: the stream operator's diagonal term is
+    f32, everything else f64."""
+    return OPERATOR_TOL if name == "ellipse_covariance_operator" else TOL
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -201,10 +251,9 @@ def test_entry_point_refuses_cpu_by_default(rng, monkeypatch, name):
         port()
     ours = port(device="cpu")
     assert len(ours) == len(ref)
-    tol = OPERATOR_TOL if name == "ellipse_covariance_operator" else TOL
     for o, r in zip(ours, ref):
         assert o.device.type == "cpu"
-        np.testing.assert_allclose(o.numpy(), np.asarray(r), **tol)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **tolerance(name))
 
 
 def test_resolve_device(monkeypatch):

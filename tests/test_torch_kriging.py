@@ -96,7 +96,7 @@ def test_ordinary_golden_lu_branch():
                                rtol=1e-7, atol=1e-9)
     with pytest.warns(DeprecationWarning):
         k, _ = tkrig.kriging_ordinary(cov[np.ix_(idx, idx)], cov[idx], obs,
-                                      cov)
+                                      cov, device="cpu")
     np.testing.assert_allclose(_golden(), _np(k).reshape(20, 20),
                                rtol=1e-7, atol=1e-9)
 
@@ -191,11 +191,11 @@ def test_simple_matches_reference_cholesky_branch(rng):
     np.testing.assert_allclose(_np(inv.constraint_mask()),
                                ref.constraint_mask(), rtol=1e-7)
     with pytest.warns(DeprecationWarning):
-        k, u = tkrig.kriging_simple(K, cov[idx], obs, cov)
+        k, u = tkrig.kriging_simple(K, cov[idx], obs, cov, device="cpu")
     np.testing.assert_allclose(_np(k), ref.solve(), rtol=RTOL)
     np.testing.assert_allclose(_np(u), ref.get_uncertainty(), rtol=1e-7)
     np.testing.assert_allclose(
-        _np(tkrig.constraint_mask(K, cov[idx], cov)),
+        _np(tkrig.constraint_mask(K, cov[idx], cov, device="cpu")),
         jkrig.constraint_mask(K, cov[idx], cov), rtol=RTOL)
     with pytest.raises(KeyError):
         tkrig.SimpleKriging(cov, idx, obs, err, device="cpu").get_uncertainty()
