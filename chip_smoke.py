@@ -31,8 +31,8 @@ its path, its error against the plain twin, its time, its plain twin's
 time and its bound: the least time the card could take for the same
 work, from this run's inputs (bytes over HBM's rate, or operations over
 their peak rate, whichever is larger; see ``bound``). Phase 2 prints the
-registers and spills nvcc reports for each kernel and fails if K3 or K4
-spill.
+registers and spills nvcc reports for each kernel and fails if any
+kernel spills.
 """
 
 import json
@@ -119,12 +119,14 @@ HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
 TRANSCENDENTALS_S = 4.18e12
 # Work per pair, counted from the sources (csrc/*.cu). K1 (haversine,
-# Matern nu = 0.5): ~35 flops and 5 transcendentals (2 sin, 2 sqrt, exp).
-# The ellipse pair: its cutoff test 11 flops; its value 31 flops and 3
+# Matern nu = 0.5): 43 flops and 3 transcendentals (2 sqrt, exp) a pair,
+# from each point's half-angle trig (sin and cos of lat/2 and lon/2, cos
+# lat: 5 transcendentals a point, counted once per point). The ellipse
+# pair: its cutoff test 11 flops; its value 31 flops and 3
 # transcendentals (rsqrt, sqrt, exp) at nu = 1.5, needed only for a pair
 # within the cutoff; K3 adds 32 flops per such pair (two 8-wide
 # contractions).
-K1_FLOPS, K1_TRANSCENDENTALS = 35, 5
+K1_FLOPS, K1_TRANSCENDENTALS, K1_POINT_TRANSCENDENTALS = 43, 3, 5
 CUT_FLOPS, PAIR_FLOPS, PAIR_TRANSCENDENTALS = 11, 31, 3
 K3_CONTRACT_FLOPS = 32
 
@@ -437,14 +439,14 @@ def main():
     phase(2, "build", seconds=f"{time.perf_counter() - t0:.1f}",
           libraries="|".join(build.library_path(n).name for n in libraries))
     # registers and spills (most registers over each kernel's
-    # instantiations, their spill bytes summed); K3 and K4 must not spill
+    # instantiations, their spill bytes summed); no kernel may spill
     ptxas = {**ptxas_summary("pairwise_tile", ["pairwise_tile_kernel"]),
              **ptxas_summary("ellipse_tile", [
                  "ellipse_sym_kernel", "ellipse_matvec_kernel",
                  "ellipse_tile_kernel"])}
     print("ptxas " + " ".join(f"{k}=regs:{r},spill_bytes:{b}"
                               for k, (r, b) in ptxas.items()), flush=True)
-    for name in ("ellipse_matvec_kernel", "ellipse_tile_kernel"):
+    for name in ptxas:
         if ptxas[name][1] != 0 or ptxas[name][0] == 0:
             raise AssertionError(f"{name}: ptxas reports {ptxas[name]}")
 
@@ -455,7 +457,10 @@ def main():
     la = torch.deg2rad(torch.as_tensor(glat, device=dev))
     lo = torch.deg2rad(torch.as_tensor(glon, device=dev))
     la_o, lo_o = la[idx], lo[idx]
-    shapes = {"5000x4096": slice(0, 4096), "5000x4133": slice(7000, 11133),
+    # the 64.8k call's C_cross tiles (a full block and its last), the
+    # 259.2k call's last, a width with n % 4 != 0, and K
+    shapes = {"5000x4096": slice(0, 4096), "5000x3360": slice(61440, 64800),
+              "5000x1152": slice(0, 1152), "5000x4133": slice(7000, 11133),
               "5000x5000(K)": None}
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for dtype in (torch.float32, torch.float64):
@@ -600,15 +605,19 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     krige("ordinary")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k1_pairs = la_o.numel() * 4096
+    k1_points = la_o.numel() + 4096
+    k1_bound, k1_by = bound(k1_pairs * 4 + k1_points * 2 * 4,
+                            k1_pairs * K1_FLOPS,
+                            k1_pairs * K1_TRANSCENDENTALS
+                            + k1_points * K1_POINT_TRANSCENDENTALS)
     phase(7, "times", repeats=REPEATS, k1_5000x4096_ms=f"{k1_ms:.4f}",
+          k1_bound_ms=f"{k1_bound:.4f}", k1_bound_by=k1_by,
+          k1_share_of_bound=f"{k1_bound / k1_ms:.4f}",
           plain_5000x4096_ms=f"{plain_ms:.4f}",
           **{k: f"{v:.4f}" for k, v in walls.items()},
           kriging_64800_peak_gb=f"{peak_gb:.3f}")
 
-    k1_pairs = la_o.numel() * 4096
-    k1_bound, k1_by = bound(k1_pairs * 4 + (la_o.numel() + 4096) * 2 * 4,
-                            k1_pairs * K1_FLOPS,
-                            k1_pairs * K1_TRANSCENDENTALS)
     kernels = [{
         "name": "pairwise_tile",
         "route": "cuda",
@@ -1095,13 +1104,16 @@ def nonstationary(dev, glat, glon, obs):
     source = "glomargridding_tpu_torch/ops/cuda/csrc/ellipse_tile.cu"
     replaced = "glomargridding_tpu/ops/pallas/pairwise.py:"
     # no single PyTorch call computes an ellipse pair function
-    rows = (("ellipse_sym", "423", k2_builder + k2_store, "k2", "k2_16384",
-             "k2_16384_ms", "k2_plain_16384_ms"),
+    # K2 at the path's size, 64,800: the f32 build (ms, bound) and the bf16
+    # store (bf16_*); the plain twin cannot hold 64,800^2 intermediates, so
+    # its time and the error are read at 16,384 (plain_shape)
+    rows = (("ellipse_sym", "423", k2_builder + k2_store, "k2",
+             "k2_64800_f32", "k2_64800_f32_ms", "k2_plain_16384_ms"),
             ("ellipse_matvec", "648", launches["k3"], "k3", "k3_259200",
              "k3_259200_ms", "k3_plain_259200_ms"),
             ("ellipse_tile", "265", launches["k4"], "k4", "k4_tile",
              "k4_tile_ms", "k4_plain_tile_ms"))
-    return [
+    entries = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaced + line, "launches": count,
          "max_abs_err": abs_err[err], "ms": times[ms],
@@ -1109,6 +1121,12 @@ def nonstationary(dev, glat, glon, obs):
          "bound_by": bounds[key][1], "library_ms": None}
         for name, line, count, err, key, ms, plain in rows
     ]
+    entries[0].update(
+        shape="64800 f32 build", plain_shape="16384",
+        bf16_shape="64832 bf16 store", bf16_ms=times["k2_64800_bf16_ms"],
+        bf16_bound_ms=bounds["k2_64800_bf16"][0],
+        bf16_bound_by=bounds["k2_64800_bf16"][1])
+    return entries
 
 
 if __name__ == "__main__":

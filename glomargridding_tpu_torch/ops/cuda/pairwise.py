@@ -29,8 +29,7 @@ from ..variogram import MaternVariogram, Variogram, matern_left, matern_scale
 from . import build
 
 DISTANCES = ("haversine", "chordal", "cartesian")
-TILE_N = 128  # the kernel's column tile (kTileN in csrc/pairwise_tile.cu)
-TILE_M = 64  # the kernel's row tile (kTileM)
+TILE_N = 128  # the kernel's f32 column tile (kTileN in csrc/pairwise_tile.cu)
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _DISTANCE_CODES = {name: i for i, name in enumerate(DISTANCES)}
@@ -151,8 +150,6 @@ def _launch(la1, lo1, la2, lo2, variogram, distance, variance, radius):
         variogram, distance, variance, radius
     )
     m, n = la1.shape[0], la2.shape[0]
-    if -(-m // TILE_M) > 65535:
-        raise ValueError(f"{m} rows exceed the kernel's grid limit")
     out = torch.empty((m, n), dtype=la1.dtype, device=la1.device)
     if m == 0 or n == 0:
         return out

@@ -16,7 +16,9 @@ no fixed order) 1e-5 against its twin and 1e-4 against the dense f64
 product. K2 == K4 and C == C' are pinned bit for bit.
 """
 
+import ctypes
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ import torch
 
 from glomargridding_tpu_torch.models import kernel_kriging as tkk
 from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+from glomargridding_tpu_torch.ops.cuda import build
 from glomargridding_tpu_torch.ops.cuda import ellipse as tell
 from glomargridding_tpu_torch.ops.cuda import pairwise as tpair
 from glomargridding_tpu_torch.ops.variogram import (
@@ -110,6 +113,60 @@ def test_self_tile_diagonal(dtype):
         sill = model.psill + model.nugget
         assert _rel(diag, torch.diagonal(p).cpu(), sill) <= TILE_RTOL[dtype]
         assert bool((diag == at_zero).all()) == branch_fires
+
+
+# K1's shapes on the kriging path: the 64.8k call's C_cross tiles (5,000 x
+# 4,096 and its last 5,000 x 3,360), the 259.2k call's last (5,000 x
+# 1,152), K (5,000 x 5,000, rows = columns); n % 4 != 0 (scalar stores);
+# m not a multiple of the row tile (64 in f32, 32 in f64); one pair
+K1_SHAPES = [(5000, 4096), (5000, 3360), (5000, 1152), (5000, "K"),
+             (5000, 4133), (65, 130), (33, 62), (1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("distance", ["haversine", "chordal", "cartesian"])
+@pytest.mark.parametrize(
+    "model", MODELS,
+    ids=lambda v: f"{v.kind}-{getattr(v, 'nu', '')}-{getattr(v, 'method', '')}",
+)
+def test_tile_kriging_shapes(model, distance, dtype):
+    """K1 at the kriging's real tile shapes and the ragged edges of its
+    persistent walk, against its twin; K's self-pairs keep d > 0 under
+    haversine (the diagonal equals the twin's)."""
+    sill = model.psill + model.nugget
+    for m, n in K1_SHAPES:
+        la1, lo1, la2, lo2 = _coords(m, 1 if n == "K" else n, dtype, seed=m)
+        if n == "K":
+            la2, lo2 = la1, lo1
+        k = tpair.pairwise_covariance(la1, lo1, la2, lo2, model, distance)
+        p = tpair.pairwise_covariance_torch(la1, lo1, la2, lo2, model,
+                                            distance)
+        torch.cuda.synchronize()
+        assert k.shape == p.shape and bool(torch.isfinite(k).all()), (m, n)
+        assert _rel(k, p, sill) <= TILE_RTOL[dtype], (m, n)
+        if n == "K":
+            assert _rel(torch.diagonal(k), torch.diagonal(p), sill) <= \
+                TILE_RTOL[dtype]
+        del k, p
+
+
+@pytest.mark.parametrize("source", ["ellipse_tile", "pairwise_tile"])
+def test_branch_free_sqrt_is_fsqrt_rn(source, tmp_path):
+    """The kernels' square root without a slow-path branch gives
+    __fsqrt_rn's bits for every one of the 2^32 floats (tests/cuda/
+    sqrt_check.cu includes the kernel source whole)."""
+    flags = build.NVCC_FLAGS + (
+        ("-DCHECK_PAIRWISE",) if source == "pairwise_tile" else ())
+    target = tmp_path / f"libsqrt_check_{source}.so"
+    build.compile_library(Path(__file__).parent / "cuda" / "sqrt_check.cu",
+                          target, flags=flags)
+    lib = ctypes.CDLL(str(target))
+    lib.sqrt_check.argtypes = [ctypes.c_void_p]
+    lib.sqrt_check.restype = ctypes.c_int
+    mismatches = torch.zeros(1, dtype=torch.int64, device="cuda")
+    assert lib.sqrt_check(mismatches.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert mismatches.item() == 0
 
 
 def test_kriging_uses_the_kernel_only(monkeypatch):
@@ -218,6 +275,39 @@ def test_ellipse_sym_bf16_store(max_dist):
     assert torch.equal(b16, f32.to(torch.bfloat16))
     assert not bool(f32[300:].any()) and not bool(f32[:, 300:].any())
     assert not bool(torch.diagonal(f32).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("max_dist", [None, 3000.0])
+@pytest.mark.parametrize("nu", [0.5, 1.5])
+@pytest.mark.parametrize("n", [4099, 16421])
+def test_ellipse_sym_persistent_walk(n, nu, max_dist, dtype):
+    """K2 where its persistent walk takes many steps over ragged tiles
+    (n not a multiple of its 128 (64) tile or of 4): K2 == K4 and K2 ==
+    K2' bit for bit, keep_pad's zero padding, and the bf16 store equal to
+    the f32 tile rounded once."""
+    P = _points(n, dtype, n + 1)
+    args = (nu, "Modified_Met_Office", max_dist)
+    k2 = tell.ellipse_sym(P, *args)
+    full = tell.ellipse_tile(P, P, *args)
+    full.diagonal().add_(P[:, 6] * P[:, 6])
+    torch.cuda.synchronize()
+    assert torch.equal(k2, full)
+    del full
+    assert torch.equal(k2, k2.T)
+    padded = tell.ellipse_sym(P, *args, keep_pad=True)
+    n_pad = -(-n // tell.TILE) * tell.TILE
+    assert padded.shape == (n_pad, n_pad)
+    assert torch.equal(padded[:n, :n], k2)
+    assert not bool(padded[n:].any()) and not bool(padded[:, n:].any())
+    del k2
+    if dtype == torch.float32:
+        kw = dict(add_diag=False, keep_pad=True)
+        b16 = tell.ellipse_sym(P, *args, out_dtype=torch.bfloat16, **kw)
+        f32 = tell.ellipse_sym(P, *args, **kw)
+        assert torch.equal(b16, f32.to(torch.bfloat16))
+        assert torch.equal(f32[:n, :n] + torch.diag(P[:, 6] * P[:, 6]),
+                           padded[:n, :n])
 
 
 @pytest.mark.parametrize("nu,method,max_dist", ELLIPSE_CASES)

@@ -234,3 +234,33 @@ def test_build_compiles_once(tmp_path):
     assert target.exists()
     build.compile_library(src, target, nvcc=str(fake))
     assert calls.read_text().count("x") == 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_half_angle_haversine_a(rng, dtype):
+    """The haversine-a of the CUDA tile, in numpy with its roundings: s =
+    sh_i ch_j - ch_i sh_j from each point's sin/cos of its half angles,
+    each product rounded on its own. A self-pair gives exactly 0 (so the
+    asin_poly(0) > 0 trap still keeps d > 0 on diag(K)); otherwise a is
+    within a few ulp of 1 (absolute) of the plain twin's per-pair sin."""
+    la, lo = _coords(rng, 400, dtype)
+    la = np.concatenate([la, [0.0, 1.5, -1.5]]).astype(dtype)
+    lo = np.concatenate([lo, [np.pi - 1e-3, -np.pi + 1e-3, 0.0]]).astype(dtype)
+    half = dtype(0.5)
+    shla, chla = np.sin(la * half), np.cos(la * half)
+    shlo, chlo = np.sin(lo * half), np.cos(lo * half)
+    cl = np.cos(la)
+    s1 = shla[:, None] * chla[None, :] - chla[:, None] * shla[None, :]
+    s2 = shlo[:, None] * chlo[None, :] - chlo[:, None] * shlo[None, :]
+    a = np.clip(s1 * s1 + cl[:, None] * cl[None, :] * (s2 * s2), 0, 1)
+    assert a.dtype == dtype
+    assert not np.diagonal(a).any()
+    t_la, t_lo = torch.as_tensor(la), torch.as_tensor(lo)
+    twin = torch.clamp(
+        torch.sin((t_la[:, None] - t_la[None, :]) / 2.0) ** 2
+        + torch.cos(t_la)[:, None] * torch.cos(t_la)[None, :]
+        * torch.sin((t_lo[:, None] - t_lo[None, :]) / 2.0) ** 2, 0.0, 1.0,
+    ).numpy()
+    # s errs by ~1 ulp of 0.5 absolute, so a by ~2 |s| of that
+    bound = 8 * np.finfo(dtype).eps
+    assert np.max(np.abs(a - twin)) <= bound
