@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (glomargridding_tpu_torch).
 
-Drives the port's two paths on one NVIDIA GPU and builds every kernel
+Drives the port's paths on one NVIDIA GPU and builds every kernel
 they run from the sources in this checkout (``pairwise_tile.cu`` and
 ``ellipse_tile.cu``, compiled in parallel):
 
@@ -18,7 +18,17 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
   ``SimpleKriging`` and ``crossval_from_covariance`` against an f64
   oracle; the bf16 operator at 64,800; the banded stream operator at
   259,200 cells (3,000 km cutoff); and their times. The ellipse fields
-  are the JAX benchmark's ``realistic_ellipse_params`` (seed 42).
+  are the JAX benchmark's ``realistic_ellipse_params`` (seed 42);
+- phases 13-15, the repaired non-stationary pipeline at 64,800 cells,
+  5,000 observations and 100 members (nu = 1.5, f32): the bf16 operator
+  (K2) through ``explained_variance_clip_lowrank`` (target 0.90), with
+  the partial clip held against the full spectrum on a sub-problem;
+  ``pad_rank(256)`` and ``lowrank_kriging``, ``lowrank_ensemble_step``
+  and ``lowrank_crossval`` against f64, against the dense-E route and
+  against the dense classes on ``to_dense()``; and the dense stochastic
+  path (``batched_ensemble_step``, ``StochasticKriging``) against
+  ``lowrank_members_from_states`` on the same draws, with the
+  eigen-repair rescue on an indefinite matrix. Each prints its own times.
 
 Usage, from the repository root, with no arguments:
 
@@ -36,6 +46,7 @@ kernel spills.
 """
 
 import json
+import logging
 import re
 import statistics
 import subprocess
@@ -111,6 +122,31 @@ BF16_TOL = 2e-2
 # order they sum (K3's atomics against the GEMM; a GEMM over the band
 # window against one over all columns), relative to max |y|
 STREAM_ORDER_TOL = 1e-5
+
+# --- the repaired pipeline (phases 13-15): bench.py:662-667's clip
+CLIP_TARGET = 0.90
+CLIP_KW = dict(k0=1024, max_rank=4096, n_iter=4, rank_multiple=128)
+PAD_RANK = 256
+# the factored covariance's trace against the operator's (the clip
+# preserves it by construction: re-normalised columns, f64 gains)
+TRACE_TOL = 1e-5
+# the sub-problem on which the partial clip meets the full spectrum: the
+# largest of these sizes whose f64 eigh is predicted (n^3, from a timed
+# 4,096) to stay under the budget
+SUB_SIZES = (16384, 12288, 8192, 4096)
+SUB_EIGH_BUDGET_S = 15.0
+# retained Ritz values against the full f64 spectrum, over theta_1, and
+# the partial clip against the full clip, resynthesised, over max |C|;
+# the partial clip at CLIP_WRONG_TARGET against the full clip at
+# CLIP_TARGET must exceed the second bound, or it sees nothing
+SUB_TOL = 1e-3
+CLIP_WRONG_TARGET = 0.80
+# RMSE against a truth drawn from the model, mean uncertainty and member
+# spread (bench.py:698-724): largest over smallest
+CONSISTENCY_RATIO = 1.05
+# dense members against the factored ones on the same draws, over
+# max |member|
+MEMBERS_TOL = 1e-3
 
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet) for the kernels'
 # bounds: HBM bytes/s, f32 flop/s outside the tensor cores (an FMA counts
@@ -401,6 +437,12 @@ def reset_ellipse_counts():
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
+    # every f32 product of the port feeds a solve or a cancellation
+    precision = torch.get_float32_matmul_precision()
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    if precision != "highest" or allow_tf32:
+        raise SystemExit(f"chip_smoke: f32 matmul precision is {precision!r}"
+                         f", allow_tf32={allow_tf32}: TF32 must be off")
 
     from glomargridding_tpu_torch import (
         MaternVariogram,
@@ -424,11 +466,9 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    precision = torch.get_float32_matmul_precision()
-    if precision != "highest" or torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError(f"f32 matmul precision is {precision!r}")
     phase(1, "device", torch=torch.__version__, cuda=torch.version.cuda,
-          gpu=torch.cuda.get_device_name(0), matmul_precision=precision)
+          gpu=torch.cuda.get_device_name(0), matmul_precision=precision,
+          allow_tf32=allow_tf32)
 
     # 2. build K1-K4 from the sources in this checkout, one nvcc each,
     # all started together
@@ -632,6 +672,10 @@ def main():
         "library_ms": None,
     }]
     kernels += nonstationary(dev, glat, glon, (idx, y, err))
+    # phases 13-15 run K2 once more, for the repair's bf16 store
+    k2_repair = repaired_pipeline(dev, glat, glon, (idx, y, err))
+    next(k for k in kernels if k["name"] == "ellipse_sym")[
+        "launches"] += k2_repair
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1127,6 +1171,439 @@ def nonstationary(dev, glat, glon, obs):
         bf16_bound_ms=bounds["k2_64800_bf16"][0],
         bf16_bound_by=bounds["k2_64800_bf16"][1])
     return entries
+
+
+class Stopwatch:
+    """A function with its calls counted and timed on the host's clock
+    around device synchronisation; `log` keeps (first argument's leading
+    size, seconds) of every call."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls, self.log = fn, 0.0, 0, []
+
+    def __call__(self, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        sync()
+        dt = time.perf_counter() - t0
+        self.seconds += dt
+        self.calls += 1
+        self.log.append((int(args[0].shape[0]), dt))
+        return out
+
+
+class SolverLog(logging.Handler):
+    """What ``adaptive_topk_eigh`` logged: stages (one more than its
+    widenings) and the gate its last candidate passed."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.widenings, self.accepted = 0, "none"
+
+    def emit(self, record):
+        if "widening" in record.msg:
+            self.widenings += 1
+        elif "structural accept" in record.msg:
+            self.accepted = "structural"
+        elif "max_resid/theta1" in record.msg:
+            self.accepted = f"{record.args[3]:.3e}"
+
+
+def clip_instrumented(mv, n, trace):
+    """One clip of the operator with its sweeps, CholQR passes and
+    Rayleigh-Ritz solves counted and timed (each timed call is
+    synchronised, so this run is slower than the warm ones)."""
+    from glomargridding_tpu_torch import explained_variance_clip_lowrank
+    from glomargridding_tpu_torch.ops import eigsh
+
+    watch = {"sweeps": Stopwatch(mv), "cholqr": Stopwatch(eigsh._cholqr2),
+             "eigh": Stopwatch(eigsh._ritz_eigh)}
+    log = SolverLog()
+    eigsh.logger.addHandler(log)
+    level = eigsh.logger.level
+    eigsh.logger.setLevel(logging.INFO)
+    keep = eigsh._cholqr2, eigsh._ritz_eigh
+    eigsh._cholqr2, eigsh._ritz_eigh = watch["cholqr"], watch["eigh"]
+    try:
+        sync()
+        t0 = time.perf_counter()
+        psd = explained_variance_clip_lowrank(
+            watch["sweeps"], n=n, trace=trace,
+            target_variance_fraction=CLIP_TARGET, **CLIP_KW)
+        sync()
+        total = time.perf_counter() - t0
+    finally:
+        eigsh._cholqr2, eigsh._ritz_eigh = keep
+        eigsh.logger.removeHandler(log)
+        eigsh.logger.setLevel(level)
+    return psd, watch, log, total
+
+
+def eigh_f64_seconds(n, dev):
+    a = torch.randn((n, n), dtype=torch.float64, device=dev)
+    a = a + a.T
+    sync()
+    t0 = time.perf_counter()
+    torch.linalg.eigh(a)
+    sync()
+    return time.perf_counter() - t0
+
+
+def sub_problem_checks(dev):
+    """The partial clip against the full spectrum on a K2-built f32
+    matrix of bench.py:511-524's fields; `eig_min` says whether it is
+    indefinite."""
+    from glomargridding_tpu_torch import (
+        explained_variance_clip,
+        explained_variance_clip_lowrank,
+    )
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    eigh_f64_seconds(1024, dev)  # the solver library's start-up
+    t4096 = eigh_f64_seconds(4096, dev)
+    n_sub = max((c for c in SUB_SIZES
+                 if t4096 * (c / 4096) ** 3 <= SUB_EIGH_BUDGET_S),
+                default=SUB_SIZES[-1])
+    lats, lons, fields = bench_fields(n_sub)
+    P = te.pack_points(*ellipse_args(lats, lons, fields, torch.float32, dev))
+    C = te.ellipse_sym(P, NU_NS)
+    scale = torch.max(torch.abs(C)).item()
+    C64 = C.double()
+    sync()
+    t0 = time.perf_counter()
+    w_full = torch.linalg.eigvalsh(C64).flip(0)
+    sync()
+    eigvalsh_s = time.perf_counter() - t0
+
+    psd = explained_variance_clip_lowrank(
+        C, target_variance_fraction=CLIP_TARGET, **CLIP_KW)
+    r = psd.effective_rank
+    ritz = psd.gains[:r].double() + psd.floor[0].double()
+    out = {"n": n_sub, "eigh_4096_s": t4096, "eigvalsh_s": eigvalsh_s,
+           "eig_min": w_full[-1].item(), "theta_1": w_full[0].item(),
+           "rank": psd.rank, "effective_rank": r,
+           "ritz_vs_full": torch.max(torch.abs(ritz - w_full[:r])).item()
+           / w_full[0].item()}
+    del psd
+
+    t0 = time.perf_counter()
+    full = explained_variance_clip(C64, CLIP_TARGET, spectrum="full")
+    sync()
+    out["full_clip_s"] = time.perf_counter() - t0
+    del C64
+    for name, target in (("partial_vs_full", CLIP_TARGET),
+                         ("wrong_target_vs_full", CLIP_WRONG_TARGET)):
+        partial = explained_variance_clip(C, target, spectrum="partial",
+                                          **CLIP_KW)
+        if partial.shape != full.shape or partial.device.type != dev.type:
+            raise AssertionError(f"partial clip {tuple(partial.shape)}")
+        out[name] = max_rel(partial, full, scale)
+        del partial
+    return out
+
+
+def phase13_psd_repair(dev, glat, glon):
+    """The bf16 operator at 64,800 (K2) through the trace-preserving
+    low-rank clip; returns (psd, K2 launches)."""
+    from glomargridding_tpu_torch import (
+        LowRankPSD,
+        ellipse_covariance_operator,
+        explained_variance_clip_lowrank,
+    )
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    args = ellipse_args(glat, glon, realistic_ellipse_params(glat, glon),
+                        torch.float32, dev)
+    reset_ellipse_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mv, n, trace = ellipse_covariance_operator(*args, v=NU_NS, store="bf16")
+    # the warm walls first, so that the instrumented run's split is warm
+    warm = wall_median_s(lambda: explained_variance_clip_lowrank(
+        mv, n=n, trace=trace, target_variance_fraction=CLIP_TARGET,
+        **CLIP_KW))
+    psd, watch, log, total = clip_instrumented(mv, n, trace)
+    k2_launches = require_launches("K2 (the repair's bf16 store)",
+                                   te.ellipse_sym.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not isinstance(psd, LowRankPSD) or (
+            psd.vectors.device.type != dev.type
+            or psd.vectors.dtype != torch.float32 or psd.n != n):
+        raise AssertionError("the clip did not return f32 factors on the card")
+    if psd.rank % CLIP_KW["rank_multiple"] or not bool(
+            torch.isfinite(psd.vectors).all()):
+        raise AssertionError(f"factors malformed, rank {psd.rank}")
+    if not float(psd.gains.min()) >= 0.0 or not float(psd.floor.min()) > 0.0:
+        raise AssertionError("gains must be >= 0 and the floor > 0")
+    trace_rel = check("trace of the factors vs the operator's",
+                      abs(psd.trace() - trace) / trace, TRACE_TOL)
+    eigh_log = watch["eigh"].log
+    del mv
+    sub = sub_problem_checks(dev)
+    phase(13, "psd_repair_64800", k2_launches=k2_launches,
+          target=CLIP_TARGET, rank=psd.rank,
+          effective_rank=psd.effective_rank,
+          stages=log.widenings + 1, sweeps=watch["sweeps"].calls,
+          final_resid_over_theta1=log.accepted,
+          trace=f"{trace:.6g}", trace_rel=f"{trace_rel:.3e}",
+          trace_tol=TRACE_TOL, floor=f"{float(psd.floor[0]):.4g}",
+          instrumented_s=f"{total:.3f}",
+          sweeps_s=f"{watch['sweeps'].seconds:.3f}",
+          cholqr_s=f"{watch['cholqr'].seconds:.3f}",
+          cholqr_calls=watch["cholqr"].calls,
+          eigh_s=f"{watch['eigh'].seconds:.3f}",
+          eigh_f64_by_width="|".join(f"{w}:{t:.3f}" for w, t in eigh_log),
+          clip_warm_s=f"{warm:.4f}", repeats=REPEATS,
+          peak_gb=f"{peak_gb:.3f}",
+          **{f"sub_{k}": v if isinstance(v, int) else f"{v:.4g}"
+             for k, v in sub.items()},
+          sub_tol=SUB_TOL)
+    check("sub-problem: retained Ritz values vs the full f64 spectrum",
+          sub["ritz_vs_full"], SUB_TOL)
+    check("sub-problem: partial clip vs full clip", sub["partial_vs_full"],
+          SUB_TOL)
+    if not sub["wrong_target_vs_full"] > SUB_TOL:
+        raise AssertionError(
+            f"the bound {SUB_TOL} passes a clip at the wrong target "
+            f"({sub['wrong_target_vs_full']:.3e})")
+    return psd, k2_launches
+
+
+def phase14_lowrank_kriging(dev, psd, obs):
+    """Kriging, ensemble and cross-validation off the padded factors,
+    against f64, the dense-E route and the dense classes."""
+    from glomargridding_tpu_torch import (
+        LowRankPSD,
+        OrdinaryKriging,
+        lowrank_crossval,
+        lowrank_ensemble_step,
+        lowrank_kriging,
+    )
+    from glomargridding_tpu_torch.models import lowrank
+    from glomargridding_tpu_torch.models.kernel_kriging import _loo_from_K
+    from glomargridding_tpu_torch.models.kriging import (
+        _ordinary_core,
+        _simple_core,
+        _solve_sym,
+    )
+
+    idx, y, err = obs
+    e = torch.diagonal(err).contiguous()
+    n, m = psd.n, idx.numel()
+    torch.cuda.reset_peak_memory_stats()
+    res = lowrank_kriging(psd, idx, y, e)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    res_e, members = lowrank_ensemble_step(psd, idx, y, e, gen, N_MEMBERS)
+    cv = lowrank_crossval(psd, idx, y, e)
+    sync()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, got in (*zip(res._fields, res), ("members", members)):
+        if got.shape[-1] != n or got.device.type != dev.type or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"lowrank {name} malformed")
+    if members.shape != (N_MEMBERS, n):
+        raise AssertionError(f"members {tuple(members.shape)}")
+    sd_scale = float(torch.sqrt(psd.diagonal().max()))
+    errs = {}
+
+    def hold(label, got, want):
+        for k, v in kriging_errs(got, want, sd_scale).items():
+            errs[f"{label}_{k}"] = v
+
+    hold("ensemble_result_vs_kriging", res_e, res)
+    del members, res_e
+    # the same call on the factors cast to f64
+    psd64 = LowRankPSD(psd.vectors.double(), psd.gains.double(),
+                       psd.floor.double())
+    hold("f32_vs_f64", res, lowrank_kriging(psd64, idx, y, e))
+    # the diagonal-E (Woodbury) route against the dense-E route: a
+    # diagonal matrix is recognised and takes the Woodbury route too, so
+    # the dense-E route is asked for by its flag
+    dense_e = lowrank._result(*lowrank._lowrank_solve(
+        psd.vectors, psd.gains, psd.floor, err, idx, y, 0, e_diag=False)[:3])
+    hold("woodbury_vs_dense_e", res, dense_e)
+    del dense_e
+    # cross-validation against the LOO identity in f64 on K off the
+    # f64 factors
+    V_o = psd64.vectors[idx]
+    K64 = (V_o * psd64.gains[None, :]) @ V_o.T + torch.diag(
+        psd64.floor[idx] + e.double())
+    cv64 = _loo_from_K(K64, y.double(), 0.0, "ordinary")
+    for name, got, want in zip(cv._fields, cv, cv64):
+        errs[f"crossval_{name}"] = max_rel(got, want)
+    del psd64, V_o, K64, cv64
+
+    # the dense classes on the densified covariance
+    C = psd.to_dense()
+    _solve_sym.branches.update(cholesky=0, lu=0)
+    ok = OrdinaryKriging(C, idx, y, err)
+    dense = (ok.solve(), ok.get_uncertainty(), ok.constraint_mask())
+    branches = dict(_solve_sym.branches)
+    if branches["cholesky"] == 0 or branches["lu"] != 0:
+        raise AssertionError(f"the repaired K is not positive definite: "
+                             f"{branches}")
+    hold("factored_vs_dense_class", res, dense)
+    # both against f64 solves on the dense matrix's own blocks, and the
+    # faults of DENSE_FAULTS read the same way
+    Cc = C[idx, :].double()
+    C_diag = torch.diagonal(C).double()
+    del C, ok
+    err64, y64 = err.double(), y.double()
+    K = Cc[:, idx] + err64
+    eig = torch.linalg.eigvalsh(K)
+    oracle = core_outputs(_ordinary_core(K, Cc, C_diag, y64))
+    hold("factored_vs_f64_dense", res, oracle)
+    hold("dense_class_vs_f64_dense", dense, oracle)
+    wrong = {
+        "simple_for_ordinary": core_outputs(
+            _simple_core(K, Cc, C_diag, y64, 0.0)),
+        "error_cov_x1.1": core_outputs(_ordinary_core(
+            Cc[:, idx] + 1.1 * err64, Cc, C_diag, y64)),
+    }
+    faults = {name: max(kriging_errs(got, oracle, sd_scale).values())
+              for name, got in wrong.items()}
+    del Cc, K, oracle, wrong, dense
+
+    # self-consistency (bench.py:698-724): a truth drawn from the
+    # factored covariance, observed with the error covariance's own noise
+    truth = psd.draw(1, generator=gen)[0]
+    yc = truth[idx] + torch.sqrt(e) * torch.randn(
+        m, generator=gen, device=dev)
+    res_c, mem_c = lowrank_ensemble_step(psd, idx, yc, e, gen, N_MEMBERS)
+    triple = {
+        "rmse": torch.sqrt(torch.mean((res_c.field - truth) ** 2)).item(),
+        "mean_uncertainty": res_c.uncertainty.mean().item(),
+        "member_spread": (mem_c - res_c.field).std(dim=0).mean().item(),
+    }
+    del mem_c, res_c, truth
+    walls = {
+        "lowrank_kriging_s": wall_median_s(
+            lambda: lowrank_kriging(psd, idx, y, e)),
+        "lowrank_ensemble_step_s": wall_median_s(
+            lambda: lowrank_ensemble_step(psd, idx, y, e, gen, N_MEMBERS)),
+        "lowrank_crossval_s": wall_median_s(
+            lambda: lowrank_crossval(psd, idx, y, e)),
+    }
+    phase(14, "lowrank_kriging_64800x5000", rank=psd.rank,
+          effective_rank=psd.effective_rank, members=N_MEMBERS,
+          solve_branches=f"cholesky:{branches['cholesky']}"
+                         f"|lu:{branches['lu']}",
+          K_eig_min=f"{eig[0].item():.4g}", K_eig_max=f"{eig[-1].item():.4g}",
+          K_cond=f"{(eig[-1] / eig[0]).item():.3g}", tol=KRIGING_TOL,
+          **{k: f"{v:.3e}" for k, v in errs.items()},
+          **{f"fault_{k}": f"{v:.3e}" for k, v in faults.items()},
+          **{f"consistency_{k}": f"{v:.4f}" for k, v in triple.items()},
+          consistency_ratio_bound=CONSISTENCY_RATIO, repeats=REPEATS,
+          **{k: f"{v:.4f}" for k, v in walls.items()},
+          peak_gb=f"{peak_gb:.3f}")
+    for k, v in errs.items():
+        check(f"lowrank {k}", v, KRIGING_TOL)
+    for k in DENSE_FAULTS:
+        if not faults[k] > KRIGING_TOL:
+            raise AssertionError(f"the bound {KRIGING_TOL} passes the fault "
+                                 f"{k} ({faults[k]:.3e})")
+    check("consistency: largest over smallest of RMSE, mean uncertainty and "
+          "member spread", max(triple.values()) / min(triple.values()),
+          CONSISTENCY_RATIO)
+
+
+def phase15_stochastic_dense(dev, glat, glon, psd, obs):
+    """The dense stochastic path on the densified repaired covariance
+    against the factored members on the same draws, and the eigen-repair
+    rescue on an unrepaired (indefinite) matrix."""
+    from glomargridding_tpu_torch import (
+        StochasticKriging,
+        batched_ensemble_step,
+        lowrank_members_from_states,
+        mv_normal_draw,
+    )
+    from glomargridding_tpu_torch.models import stochastic
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    idx, y, err = obs
+    n, m = psd.n, idx.numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    z_state = torch.randn((N_MEMBERS, n), generator=gen, device=dev)
+    z_obs = torch.randn((N_MEMBERS, m), generator=gen, device=dev)
+    C = psd.to_dense()
+
+    def dense_members():
+        return batched_ensemble_step(C, err, idx, y, N_MEMBERS,
+                                     noise=(z_state, z_obs))
+
+    torch.cuda.reset_peak_memory_stats()
+    members, field = dense_members()
+    sync()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if members.shape != (N_MEMBERS, n) or (
+            members.device.type != dev.type) or not bool(
+            torch.isfinite(members).all()):
+        raise AssertionError("dense members malformed")
+    # the same states and observation noise through the factors
+    L, info = stochastic.draw_factor(C)
+    if int(info) != 0:
+        raise AssertionError("the repaired covariance has no Cholesky factor")
+    states = z_state @ L.T
+    del L
+    eps = z_obs * torch.sqrt(torch.diagonal(err))[None, :]
+    want = lowrank_members_from_states(psd, idx, y, err, states, eps)
+    errs = {"dense_vs_factored_members": max_rel(members, want)}
+    del want, states, eps
+    # one member through the class, on the first member's normals
+    sk = StochasticKriging(C, idx, y, err)
+    member = sk.solve(noise=(z_state[0], z_obs[0]))
+    errs["class_member_vs_batched"] = max_rel(
+        member, members[0], torch.max(torch.abs(members)).item())
+    errs["class_field_vs_batched"] = max_rel(sk.gridded_field, field)
+    del sk, member, members
+    wall = wall_median_s(dense_members)
+    del C, z_state, z_obs
+
+    # the rescue: the unrepaired nu = 1.5 matrix of N_SYM cells of the
+    # grid has no Cholesky factor. The cells include the observed ones,
+    # whose block phase 9 found indefinite, so this matrix is too
+    # (its smallest eigenvalue is no larger than a principal block's).
+    rng = np.random.default_rng(SEED)
+    rest = np.setdiff1d(np.arange(n), idx.cpu().numpy())
+    cells = np.sort(np.concatenate(
+        [idx.cpu().numpy(), rng.choice(rest, N_SYM - m, replace=False)]))
+    P = te.pack_points(*ellipse_args(
+        glat[cells], glon[cells],
+        [f[cells] for f in realistic_ellipse_params(glat, glon)],
+        torch.float32, dev))
+    C16 = te.ellipse_sym(P, NU_NS)
+    if int(stochastic.draw_factor(C16)[1]) == 0:
+        raise AssertionError("draw_factor did not report the indefinite "
+                             "matrix")
+    repairs = Stopwatch(stochastic.eigen_repaired_factor)
+    stochastic.eigen_repaired_factor = repairs
+    try:
+        draws = mv_normal_draw(torch.zeros(N_SYM, device=dev), C16, 4,
+                               generator=gen)
+    finally:
+        stochastic.eigen_repaired_factor = repairs.fn
+    if repairs.calls != 1 or draws.shape != (4, N_SYM) or not bool(
+            torch.isfinite(draws).all()):
+        raise AssertionError(f"rescue: {repairs.calls} repairs, draws "
+                             f"{tuple(draws.shape)}")
+    phase(15, "stochastic_dense_64800", members=N_MEMBERS,
+          covariance_gb=f"{n * n * 4 / 1e9:.1f}", tol=MEMBERS_TOL,
+          **{k: f"{v:.3e}" for k, v in errs.items()},
+          rescue_size=N_SYM, rescue_ran=repairs.calls,
+          rescue_eigh_s=f"{repairs.seconds:.3f}",
+          rescue_draw_std=f"{draws.std().item():.4f}", repeats=REPEATS,
+          batched_ensemble_step_s=f"{wall:.4f}", peak_gb=f"{peak_gb:.3f}")
+    for k, v in errs.items():
+        check(f"stochastic {k}", v, MEMBERS_TOL)
+
+
+def repaired_pipeline(dev, glat, glon, obs):
+    """Phases 13-15; returns the K2 launches of the repair's store."""
+    psd, k2_launches = phase13_psd_repair(dev, glat, glon)
+    psd = psd.pad_rank(PAD_RANK)
+    phase14_lowrank_kriging(dev, psd, obs)
+    phase15_stochastic_dense(dev, glat, glon, psd, obs)
+    return k2_launches
 
 
 if __name__ == "__main__":

@@ -1,11 +1,15 @@
 """PyTorch/CUDA port of glomargridding_tpu: kriging on a GPU.
 
-Two paths. Streamed kriging (``models.kernel_kriging``) builds every
+Three paths. Streamed kriging (``models.kernel_kriging``) builds every
 stationary covariance tile with a hand-written CUDA kernel. The
 non-stationary path (``models.ellipse``) assembles the Paciorek-Schervish
 covariance, or its matvec operator, with three more, and the dense
-kriging classes (``models.kriging``) krige against it. On the card the
-kernels (``ops.cuda``) run; on the CPU, their plain PyTorch twins.
+kriging classes (``models.kriging``, ``models.stochastic``) krige against
+it. The factored path repairs the covariance operator to a positive
+semi-definite low-rank form (``ops.eigsh``, ``ops.covariance_tools``) and
+kriges and draws ensembles straight off the factors (``models.lowrank``).
+On the card the kernels (``ops.cuda``) run; on the CPU, their plain
+PyTorch twins.
 Imports torch and numpy only; importing it builds nothing and changes
 no global state.
 """
@@ -29,6 +33,30 @@ from .models.kernel_kriging import (
     variogram_kernel,
 )
 from .models.kriging import OrdinaryKriging, SimpleKriging
+from .models.lowrank import (
+    LowRankKrigingResult,
+    lowrank_crossval,
+    lowrank_ensemble_step,
+    lowrank_kriging,
+    lowrank_members_from_states,
+    lowrank_months_scan,
+)
+from .models.stochastic import (
+    StochasticKriging,
+    batched_ensemble_step,
+    mv_normal_draw,
+    precompute_states,
+)
+from .ops.covariance_tools import (
+    LowRankPSD,
+    eigenvalue_clip,
+    explained_variance_clip,
+    explained_variance_clip_lowrank,
+    laloux_clip,
+    laloux_clip_lowrank,
+    simple_clipping,
+)
+from .ops.eigsh import PartialSpectrumError, adaptive_topk_eigh, topk_eigh
 from .ops.variogram import (
     ExponentialVariogram,
     GaussianVariogram,
@@ -43,17 +71,37 @@ __all__ = [
     "CrossValResult",
     "EllipseCovarianceBuilder",
     "KrigingResult",
+    "LowRankKrigingResult",
+    "LowRankPSD",
     "OrdinaryKriging",
+    "PartialSpectrumError",
     "SimpleKriging",
+    "StochasticKriging",
     "VariogramKernel",
+    "adaptive_topk_eigh",
+    "batched_ensemble_step",
     "build_ellipse_covariance",
     "crossval_from_covariance",
+    "eigenvalue_clip",
     "ellipse_covariance_operator",
     "ensemble_from_kernel",
+    "explained_variance_clip",
+    "explained_variance_clip_lowrank",
     "kriging_crossval",
     "kriging_from_kernel",
+    "laloux_clip",
+    "laloux_clip_lowrank",
+    "lowrank_crossval",
+    "lowrank_ensemble_step",
+    "lowrank_kriging",
+    "lowrank_members_from_states",
+    "lowrank_months_scan",
     "months_scan_kriging",
+    "mv_normal_draw",
     "pad_month_observations",
+    "precompute_states",
+    "simple_clipping",
+    "topk_eigh",
     "variogram_kernel",
     "ExponentialVariogram",
     "GaussianVariogram",

@@ -8,14 +8,19 @@ imports nothing of the JAX package:
                        jax_kernel.distance, jax_kernel.var, jax_kernel.radius)
     ellipse_builder_from_inputs(Lx, Ly, theta, stdev, lats, lons, v=...,
                                 delta_x_method=..., ...)
+    lowrank_psd_from_arrays(np.asarray(jax_psd.vectors),
+                            np.asarray(jax_psd.gains),
+                            np.asarray(jax_psd.floor))
 """
 
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from .models.ellipse import EllipseCovarianceBuilder
 from .models.kernel_kriging import VariogramKernel
+from .ops.covariance_tools import LowRankPSD
 from .ops.variogram import (
     ExponentialVariogram,
     GaussianVariogram,
@@ -23,6 +28,7 @@ from .ops.variogram import (
     SphericalVariogram,
     Variogram,
 )
+from .utils.device import resolve_device
 
 VARIOGRAMS = {
     cls.kind: cls
@@ -106,3 +112,21 @@ def ellipse_builder_from_inputs(
         use_pallas=use_pallas,
         device=device,
     )
+
+
+def lowrank_psd_from_arrays(vectors, gains, floor, device=None) -> LowRankPSD:
+    """The port's ``LowRankPSD`` from the three arrays of a reference
+    ``LowRankPSD`` (as numpy): `vectors` (n, r), `gains` (r,), `floor`
+    (n,), in the dtype of `vectors`. `device` places the factors (by
+    default the card; tensors keep their device)."""
+    device = resolve_device(device, vectors, gains, floor)
+    V = torch.as_tensor(vectors, device=device)
+    if V.dim() != 2:
+        raise ValueError(f"vectors must be (n, r), got {tuple(V.shape)}")
+    g = torch.as_tensor(gains, dtype=V.dtype, device=device)
+    f = torch.as_tensor(floor, dtype=V.dtype, device=device)
+    if g.shape != (V.shape[1],) or f.shape != (V.shape[0],):
+        raise ValueError(
+            f"gains {tuple(g.shape)} and floor {tuple(f.shape)} do not "
+            f"match vectors {tuple(V.shape)}")
+    return LowRankPSD(vectors=V, gains=g, floor=f)

@@ -41,7 +41,7 @@ from ...ops.cuda.ellipse import (
     pack_points,
 )
 from ...ops.distances import sigma_rot_flat
-from ...ops.sampling import Matvec
+from ...ops.sampling import Matvec, _mm_bf16_f32
 from ...ops.special import xv_kv
 from ...utils.device import resolve_device
 
@@ -538,20 +538,6 @@ def _as_2d(x, P):
 
 def _finish(y, x):
     return y if torch.as_tensor(x).dim() == 2 else y[:, 0]
-
-
-def _mm_bf16_f32(A, xb):
-    """A @ xb for bf16 operands with f32 accumulation and an f32 result.
-
-    On the card one cuBLAS GEMM with an f32 output; on the CPU (whose
-    build lacks that form) row chunks of A upcast to f32, whose products
-    of bf16 values are exact."""
-    if A.is_cuda:
-        return torch.mm(A, xb, out_dtype=torch.float32)
-    rows = max(1, (_BLOCK_BYTES // 4) // A.shape[1])
-    xf = xb.float()
-    return torch.cat([A[r : r + rows].float() @ xf
-                      for r in range(0, A.shape[0], rows)])
 
 
 def _row_windows(n, block, col_starts, bw):

@@ -3,6 +3,7 @@ and the entry points' device rule."""
 
 from .arrays import (
     adjust_small_negative,
+    cor_2_cov,
     cov_2_cor,
     get_spatial_mean,
     intersect_mtlb,
@@ -11,6 +12,7 @@ from .device import resolve_device
 
 __all__ = [
     "adjust_small_negative",
+    "cor_2_cov",
     "cov_2_cor",
     "get_spatial_mean",
     "intersect_mtlb",

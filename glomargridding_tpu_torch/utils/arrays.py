@@ -2,7 +2,7 @@
 
 Port of ``glomargridding_tpu/utils/arrays.py`` (``adjust_small_negative``
 ``:24``, ``intersect_mtlb`` ``:80``, ``cov_2_cor`` ``:125``,
-``get_spatial_mean`` ``:179``). A numpy array takes the reference's numpy
+``cor_2_cov`` ``:159``, ``get_spatial_mean`` ``:179``). A numpy array takes the reference's numpy
 branch. A tensor stays on its device: ``adjust_small_negative`` keeps the
 numpy branch's warnings, and ``cov_2_cor`` the branch-free form that the
 reference applies to device arrays.
@@ -72,6 +72,25 @@ def cov_2_cor(cov, rounding: int | None = None):
     if rounding is not None:
         cor = torch.round(cor, decimals=rounding)
     return cor
+
+
+def cor_2_cov(cor, variances, rounding: int | None = None):
+    """Correlation matrix + variances -> covariance matrix; zeros stay
+    zero (numpy or tensor)."""
+    if not isinstance(cor, torch.Tensor):
+        stdevs = np.sqrt(variances)
+        cov = cor * np.outer(stdevs, stdevs)
+        cov[cor == 0] = 0
+        if rounding is not None:
+            cov = np.round(cov, rounding)
+        return cov
+    stdevs = torch.sqrt(torch.as_tensor(variances, dtype=cor.dtype,
+                                        device=cor.device))
+    cov = cor * torch.outer(stdevs, stdevs)
+    cov = torch.where(cor == 0, torch.zeros_like(cov), cov)
+    if rounding is not None:
+        cov = torch.round(cov, decimals=rounding)
+    return cov
 
 
 def get_spatial_mean(grid_obs, covx) -> float:

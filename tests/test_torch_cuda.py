@@ -454,3 +454,163 @@ def test_entry_points_default_to_the_card(rng, name):
         assert out.is_cuda, name
         np.testing.assert_allclose(out.cpu().numpy(), np.asarray(want),
                                    **device_cases.tolerance(name))
+
+
+# ---------------------------------------------------------------------------
+# PSD repair, factored kriging and the dense stochastic path on the card
+# ---------------------------------------------------------------------------
+CLIP = dict(k0=512, max_rank=2048, n_iter=4, rank_multiple=128)
+
+
+def _smooth_grid(step=4.0):
+    """Ellipse inputs (lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs) of
+    a global grid with smooth parameter fields, f32 on the card: a
+    covariance with a decaying spectrum that is not positive definite."""
+    lat = np.arange(-90 + step / 2, 90, step)
+    lon = np.arange(-180 + step / 2, 180, step)
+    la = np.radians(np.repeat(lat, lon.size))
+    lo = np.radians(np.tile(lon, lat.size))
+    fields = ((1800 + 900 * np.cos(la) ** 2) * np.exp(0.2 * np.sin(2 * lo + la)),
+              (1200 + 500 * np.cos(la)) * np.exp(0.2 * np.cos(3 * lo)),
+              0.4 * np.sin(lo - 2 * la), 0.8 + 0.4 * np.cos(la), la, lo)
+    return tcov._ellipse_inputs(*(
+        torch.as_tensor(a, dtype=torch.float32, device="cuda")
+        for a in fields))
+
+
+def _factors(n=3000, r=96, m=400, seed=0):
+    """A factored covariance on the card (f32) and a month of
+    observations with a diagonal error covariance."""
+    from glomargridding_tpu_torch.ops.covariance_tools import LowRankPSD
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    V = torch.linalg.qr(torch.randn((n, r), generator=g, device="cuda"))[0]
+    gains = torch.sort(0.5 + 5 * torch.rand(r, generator=g, device="cuda"),
+                       descending=True)[0]
+    floor = 0.05 + 0.1 * torch.rand(n, generator=g, device="cuda")
+    idx = torch.randperm(n, generator=g, device="cuda")[:m].sort()[0]
+    y = torch.randn(m, generator=g, device="cuda")
+    e = 0.1 + 0.05 * torch.rand(m, generator=g, device="cuda")
+    return LowRankPSD(V, gains, floor), idx, y, e
+
+
+def test_true_f32_products():
+    """The port leaves TF32 off: an f32 product on the card is f32."""
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((512, 2048), generator=g, device="cuda")
+    b = torch.randn((2048, 512), generator=g, device="cuda")
+    assert _rel_max(a @ b, a.double() @ b.double()) <= 1e-5
+
+
+def test_clip_of_the_bf16_operator():
+    """K2's bf16 store through the trace-preserving clip: factors on the
+    card, the trace kept, Ritz values within the store's noise of the
+    f64 spectrum; and on the f32 matrix the partial clip against the
+    full one."""
+    from glomargridding_tpu_torch.ops import covariance_tools as tct
+
+    args = _smooth_grid()
+    tell.ellipse_sym.launches = 0
+    mv, n, trace = tcov.ellipse_covariance_operator(*args, v=1.5,
+                                                    store="bf16")
+    psd = tct.explained_variance_clip_lowrank(
+        mv, n=n, trace=trace, target_variance_fraction=0.9, **CLIP)
+    assert tell.ellipse_sym.launches > 0
+    assert psd.vectors.is_cuda and psd.vectors.dtype == torch.float32
+    assert psd.n == n and psd.rank % 128 == 0
+    assert abs(psd.trace() - trace) <= 1e-5 * trace
+    assert float(psd.gains.min()) >= 0 and float(psd.floor.min()) > 0
+    dense = tell.ellipse_sym(tell.pack_points(*args), 1.5)
+    w = torch.linalg.eigvalsh(dense.double()).flip(0)
+    r = psd.effective_rank
+    ritz = psd.gains[:r].double() + psd.floor[0].double()
+    assert float(torch.max(torch.abs(ritz - w[:r])) / w[0]) <= 2e-2
+    partial = tct.explained_variance_clip(dense, 0.9, spectrum="partial",
+                                          **CLIP)
+    full = tct.explained_variance_clip(dense.double(), 0.9, spectrum="full")
+    assert partial.is_cuda and partial.dtype == torch.float32
+    scale = torch.max(torch.abs(dense)).item()
+    assert torch.max(torch.abs(partial - full)).item() <= 1e-3 * scale
+    wrong = tct.explained_variance_clip(dense, 0.8, spectrum="partial",
+                                        **CLIP)
+    assert torch.max(torch.abs(wrong - full)).item() > 1e-3 * scale
+
+
+def test_factored_kriging_on_the_card():
+    """f32 on the card against f64, the Woodbury route against the
+    dense-E route, the factors against the dense class (Cholesky branch)
+    and the cross-validation against the LOO identity in f64."""
+    from glomargridding_tpu_torch.models import kriging as tkrig
+    from glomargridding_tpu_torch.models import lowrank as tlr
+    from glomargridding_tpu_torch.ops.covariance_tools import LowRankPSD
+
+    psd, idx, y, e = _factors()
+    psd = psd.pad_rank(128)
+    res = tlr.lowrank_kriging(psd, idx, y, e)
+    assert all(a.is_cuda and a.dtype == torch.float32 for a in res)
+    psd64 = LowRankPSD(psd.vectors.double(), psd.gains.double(),
+                       psd.floor.double())
+    dense_e = tlr._result(*tlr._lowrank_solve(
+        psd.vectors, psd.gains, psd.floor, torch.diag(e), idx, y, 0,
+        e_diag=False)[:3])
+    before = dict(tkrig._solve_sym.branches)
+    ok = tkrig.OrdinaryKriging(psd.to_dense(), idx, y, torch.diag(e))
+    dense = (ok.solve(), ok.get_uncertainty(), ok.constraint_mask())
+    assert tkrig._solve_sym.branches["lu"] == before["lu"]
+    assert tkrig._solve_sym.branches["cholesky"] > before["cholesky"]
+    for other in (tlr.lowrank_kriging(psd64, idx, y, e), dense_e, dense):
+        for a, b in zip(res, other):
+            assert _rel_max(a.double(), b.double()) <= 1e-3
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res_e, members = tlr.lowrank_ensemble_step(psd, idx, y, e, gen, 50)
+    assert members.shape == (50, psd.n) and members.is_cuda
+    assert bool(torch.isfinite(members).all())
+    assert _rel_max(res_e.field, res.field) <= 1e-5
+    cv = tlr.lowrank_crossval(psd, idx, y, e)
+    V_o = psd64.vectors[idx]
+    K = (V_o * psd64.gains[None, :]) @ V_o.T + torch.diag(
+        psd64.floor[idx] + e.double())
+    for a, b in zip(cv, tkk._loo_from_K(K, y.double(), 0.0, "ordinary")):
+        assert a.is_cuda and _rel_max(a.double(), b) <= 1e-3
+
+
+def test_stochastic_path_on_the_card():
+    """The dense members on the card against the CPU on the same
+    normals (f64), against the factored members, and the eigen-repair
+    rescue of an indefinite matrix."""
+    from glomargridding_tpu_torch.models import lowrank as tlr
+    from glomargridding_tpu_torch.models import stochastic as tst
+    from glomargridding_tpu_torch.ops.covariance_tools import LowRankPSD
+
+    psd, idx, y, e = _factors(n=1200, r=48, m=150)
+    psd = LowRankPSD(psd.vectors.double(), psd.gains.double(),
+                     psd.floor.double())
+    C, E = psd.to_dense(), torch.diag(e.double())
+    g = torch.Generator(device="cuda").manual_seed(2)
+    z_state = torch.randn((6, 1200), dtype=torch.float64, generator=g,
+                          device="cuda")
+    z_obs = torch.randn((6, 150), dtype=torch.float64, generator=g,
+                        device="cuda")
+    members, field = tst.batched_ensemble_step(C, E, idx, y.double(), 6,
+                                               noise=(z_state, z_obs))
+    assert members.is_cuda and field.is_cuda
+    on_cpu, _ = tst.batched_ensemble_step(
+        C.cpu(), E.cpu(), idx.cpu(), y.double().cpu(), 6,
+        noise=(z_state.cpu(), z_obs.cpu()))
+    assert _rel_max(members.cpu(), on_cpu) <= 1e-9
+    L = torch.linalg.cholesky(C)
+    want = tlr.lowrank_members_from_states(
+        psd, idx, y, E, z_state @ L.T, z_obs * torch.sqrt(e.double()))
+    assert _rel_max(members, want) <= 1e-9
+    sk = tst.StochasticKriging(C, idx, y.double(), E)
+    member = sk.solve(noise=(z_state[0], z_obs[0]))
+    assert _rel_max(member, members[0]) <= 1e-9
+
+    bad = tell.ellipse_sym(tell.pack_points(*_smooth_grid(6.0)), 1.5)
+    assert int(tst.draw_factor(bad)[1]) != 0
+    draws = tst.mv_normal_draw(torch.zeros(bad.shape[0], device="cuda"),
+                               bad, 3, generator=g)
+    assert draws.is_cuda and draws.shape == (3, bad.shape[0])
+    assert bool(torch.isfinite(draws).all())
