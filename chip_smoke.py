@@ -28,7 +28,25 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
   against the dense classes on ``to_dense()``; and the dense stochastic
   path (``batched_ensemble_step``, ``StochasticKriging``) against
   ``lowrank_members_from_states`` on the same draws, with the
-  eigen-repair rescue on an indefinite matrix. Each prints its own times.
+  eigen-repair rescue on an indefinite matrix. Each prints its own times;
+- phases 16-18, the estimation path at 64,800 cells (nu = 1.5, f32): 60
+  states drawn from phase 13's repaired covariance are the training
+  cube of ``EllipseBuilder`` (dense correlation, 16.8 GB), and
+  ``compute_params`` fits every cell's ellipse by batched Nelder-Mead
+  with the configuration of ``examples/nonstationary_1deg_pipeline.py``.
+  and once more by Levenberg-Marquardt. The fit is held on 4,096 lanes
+  against the f64 run of the same code, against the Levenberg-Marquardt
+  lane, and against two controls that must do worse (the likelihood
+  summed in f32, a fit at the wrong order), and one chunk of polar lanes
+  is fitted in f64 by both optimisers; the fitted fields go through
+  ``convert.ellipse_builder_from_dataset`` into K2, and the Hessian
+  standard errors are read in f32 against f64;
+- phase 19 measures what the thresholds of ``ops/covariance_tools`` and
+  the locked widening of ``ops/eigsh`` stand on: the full against the
+  partial clip at 2,048-16,384, ``to_dense()`` at 64,800, and a clip
+  that has to widen, locking its converged pairs and locking none, on
+  the bf16 store at 16,200 and 64,800 cells and on the 259,200-cell
+  stream.
 
 Usage, from the repository root, with no arguments:
 
@@ -53,6 +71,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from itertools import product
 
 import numpy as np
@@ -147,6 +166,72 @@ CONSISTENCY_RATIO = 1.05
 # dense members against the factored ones on the same draws, over
 # max |member|
 MEMBERS_TOL = 1e-3
+
+# --- the estimation path (phases 16-18): the fit of
+# examples/nonstationary_1deg_pipeline.py:133-166 on every cell
+T_TRAIN = 60
+FIT_MODEL = dict(anisotropic=True, rotated=True, physical_distance=True,
+                 v=NU_NS, unit_sigma=True)
+FIT_KW = dict(
+    max_distance=6000.0, guesses=[2000.0, 2000.0, 0.0],
+    bounds=[(300.0, 30000.0), (300.0, 30000.0),
+            (-2.0 * np.pi, 2.0 * np.pi)],
+    tol=1e-3, chunk_size=2048, max_train_cols=4096)
+FIT_DEFAULTS = [-999.9, -999.9, -999.9, -999.9, -1, -1]
+# the lanes on which the fit is held: two of its chunks, around 10 S and
+# 64 N
+SUBSET_STARTS = (28672, 55296)
+# a chunk of polar lanes, 81 to 87 N, looked at apart (`polar_lanes`)
+POLAR_START = 61440
+LM_TOL = 1e-8
+# iterations of one chunk's solve that are profiled for the device's
+# idle share, and timed with the host reading every iteration against
+# every 32nd (a multiple of 32, so that both run as many)
+PROFILE_ITERS = 64
+# The fit in f32 against the f64 run of the same code, per lane with QC 0
+# in both. Nelder-Mead stops when the simplex's spread in f and in x is
+# under tol = 1e-3, so in a quadratic bowl f - f* = (dx/SE)^2 / 2 <= tol
+# leaves a run within sqrt(2 tol) = 0.045 standard errors of its
+# optimum, and two runs within 0.09 of each other. The Fisher-information
+# SE of this cube (phase 18) is 0.096 L for the lengths and 0.16 rad for
+# the angle at the median lane: 0.09 SE is 0.9% of a length and 0.014
+# rad. That holds per lane only where the simplex still sees its
+# objective at that size, which f32 does not grant everywhere: the model
+# correlation's rounding leaves a few 1e-6 of noise in the f32 objective,
+# above what the first steps in the angle (0.00025 rad, ~1e-6 in f)
+# change, so on some lanes the simplex closes with the angle where it
+# started and the lengths off with it (measured on an NVIDIA H100 80GB
+# HBM3: 71% of lanes within the lengths' bound, 55% within all three;
+# with the likelihood summed in f32, as in the reference, the median lane
+# is 2% off and no angle moves: the run reads that control too, and it
+# must do worse). Levenberg-Marquardt reads the angle's
+# slope from its Jacobian, in f32 too, and meets the f64 simplex on 97%:
+# the rest are lanes with two optima. So each comparison is held as the
+# share of lanes within the bounds, and the control must fall under
+# FIT_WRONG_SHARE.
+FIT_REL_TOL = 0.01
+FIT_THETA_TOL = 0.02
+FIT_SHARE_NM_F32 = 0.6
+# all three within their bounds: 54.7% measured; summed in f32 the angle
+# stays where it started, and that control must fall under the bound
+FIT_SHARE_NM_F32_ELLIPSE = 0.45
+FIT_SHARE_LM = 0.9
+FIT_WRONG_SHARE = 0.1
+FIT_QC_SHARE = 0.98
+# Hessian standard errors, f32 against f64 at the same point: the f32
+# double-backward of a sum of 4,096 terms (measured 3.9e-4 at worst);
+# finite wherever the curvature is positive, which the f64 optima are
+# and the f32 simplex's stalled lanes need not be
+SE_RTOL = 2e-3
+SE_FINITE_SHARE = 0.99
+SE_FINITE_SHARE_F32 = 0.8
+
+# --- the thresholds (phase 19)
+THRESHOLD_SIZES = (2048, 4096, 8192, 16384)
+# the clips that compare the widening flavours start narrow so that they
+# have to widen: the flavours differ only from the second stage on
+WIDENING_SMALL_GRID = (90, 180)  # the 2-degree grid, 16,200 cells
+WIDENING_CLIP_KW = dict(k0=512, max_rank=4096, n_iter=4, rank_multiple=128)
 
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet) for the kernels'
 # bounds: HBM bytes/s, f32 flop/s outside the tensor cores (an FMA counts
@@ -672,10 +757,13 @@ def main():
         "library_ms": None,
     }]
     kernels += nonstationary(dev, glat, glon, (idx, y, err))
-    # phases 13-15 run K2 once more, for the repair's bf16 store
-    k2_repair = repaired_pipeline(dev, glat, glon, (idx, y, err))
+    # phases 13-15 run K2 once more, for the repair's bf16 store, and
+    # phase 17 once, on the fitted fields
+    psd, k2_repair = repaired_pipeline(dev, glat, glon, (idx, y, err))
+    k2_fitted = estimation_path(dev, glat, glon, psd)
     next(k for k in kernels if k["name"] == "ellipse_sym")[
-        "launches"] += k2_repair
+        "launches"] += k2_repair + k2_fitted
+    phase19_thresholds(dev, psd)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1176,7 +1264,7 @@ def nonstationary(dev, glat, glon, obs):
 class Stopwatch:
     """A function with its calls counted and timed on the host's clock
     around device synchronisation; `log` keeps (first argument's leading
-    size, seconds) of every call."""
+    size, or 0 where it has none, seconds) of every call."""
 
     def __init__(self, fn):
         self.fn, self.seconds, self.calls, self.log = fn, 0.0, 0, []
@@ -1189,7 +1277,8 @@ class Stopwatch:
         dt = time.perf_counter() - t0
         self.seconds += dt
         self.calls += 1
-        self.log.append((int(args[0].shape[0]), dt))
+        size = args[0].shape[0] if hasattr(args[0], "shape") else 0
+        self.log.append((int(size), dt))
         return out
 
 
@@ -1210,6 +1299,25 @@ class SolverLog(logging.Handler):
             self.accepted = f"{record.args[3]:.3e}"
 
 
+@contextmanager
+def solver_log():
+    """What ``adaptive_topk_eigh`` logs while the block runs, as a
+    ``SolverLog``."""
+    from glomargridding_tpu_torch.ops import eigsh
+
+    log = SolverLog()
+    level, propagate = eigsh.logger.level, eigsh.logger.propagate
+    eigsh.logger.addHandler(log)
+    eigsh.logger.setLevel(logging.INFO)
+    eigsh.logger.propagate = False  # the records are for `log` alone
+    try:
+        yield log
+    finally:
+        eigsh.logger.removeHandler(log)
+        eigsh.logger.setLevel(level)
+        eigsh.logger.propagate = propagate
+
+
 def clip_instrumented(mv, n, trace):
     """One clip of the operator with its sweeps, CholQR passes and
     Rayleigh-Ritz solves counted and timed (each timed call is
@@ -1219,24 +1327,19 @@ def clip_instrumented(mv, n, trace):
 
     watch = {"sweeps": Stopwatch(mv), "cholqr": Stopwatch(eigsh._cholqr2),
              "eigh": Stopwatch(eigsh._ritz_eigh)}
-    log = SolverLog()
-    eigsh.logger.addHandler(log)
-    level = eigsh.logger.level
-    eigsh.logger.setLevel(logging.INFO)
     keep = eigsh._cholqr2, eigsh._ritz_eigh
     eigsh._cholqr2, eigsh._ritz_eigh = watch["cholqr"], watch["eigh"]
     try:
-        sync()
-        t0 = time.perf_counter()
-        psd = explained_variance_clip_lowrank(
-            watch["sweeps"], n=n, trace=trace,
-            target_variance_fraction=CLIP_TARGET, **CLIP_KW)
-        sync()
-        total = time.perf_counter() - t0
+        with solver_log() as log:
+            sync()
+            t0 = time.perf_counter()
+            psd = explained_variance_clip_lowrank(
+                watch["sweeps"], n=n, trace=trace,
+                target_variance_fraction=CLIP_TARGET, **CLIP_KW)
+            sync()
+            total = time.perf_counter() - t0
     finally:
         eigsh._cholqr2, eigsh._ritz_eigh = keep
-        eigsh.logger.removeHandler(log)
-        eigsh.logger.setLevel(level)
     return psd, watch, log, total
 
 
@@ -1598,12 +1701,761 @@ def phase15_stochastic_dense(dev, glat, glon, psd, obs):
 
 
 def repaired_pipeline(dev, glat, glon, obs):
-    """Phases 13-15; returns the K2 launches of the repair's store."""
+    """Phases 13-15; returns the padded factors and the K2 launches of
+    the repair's store."""
     psd, k2_launches = phase13_psd_repair(dev, glat, glon)
     psd = psd.pad_rank(PAD_RANK)
     phase14_lowrank_kriging(dev, psd, obs)
     phase15_stochastic_dense(dev, glat, glon, psd, obs)
+    return psd, k2_launches
+
+
+def device_busy_s(fn):
+    """(busy, wall) of one call of `fn` under ``torch.profiler``: the
+    seconds the device spent in kernels, summed over every kernel (None
+    where the profiler saw no device activity), and the host's seconds
+    around that same call (the profiler's own cost on the host is in it,
+    so 1 - busy / wall is the most the device can have idled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    # the kernels' own rows only: an operator's row repeats the time of
+    # the kernels it launched
+    total_us = sum(
+        getattr(e, "self_device_time_total", None)
+        or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (total_us / 1e6 if total_us > 0 else None), wall
+
+
+def spread(values):
+    """median|99th percentile|max of an array, for a phase line."""
+    v = np.asarray(values, dtype=float)
+    if v.size == 0:
+        return "none"
+    return "|".join(f"{q:.3e}" for q in (
+        np.median(v), np.percentile(v, 99), v.max()))
+
+
+def subset_fitter(builder, model, lane, tol):
+    """``EllipseBuilder._chunk_fitter`` (``compute_params`` calls it
+    too) with the fit's configuration, for fitting chosen lanes: its
+    ``fit`` and ``build``, the start point, the box and the bounds the
+    QC codes are read against."""
+    x0, box, bounds_out = model._fit_setup(
+        FIT_KW["guesses"], FIT_KW["bounds"], builder._x_centered.dtype,
+        builder.device)
+    geometry = dict(
+        min_distance=0.3, max_distance=FIT_KW["max_distance"],
+        anisotropic=model.anisotropic, delta_x_method="Modified_Met_Office",
+        physical_distance=model.physical_distance,
+        physical_distance_selection=True,
+        max_train_cols=FIT_KW["max_train_cols"])
+    fit, build = builder._chunk_fitter(model, lane, tol, geometry, x0, box)
+    return dict(fit=fit, build=build, x0=x0, box=box, bounds_out=bounds_out,
+                model=model)
+
+
+def fit_lanes(fitter, chunks):
+    """The chunks of lanes through `fitter`: the raw optima (tensors, one
+    per chunk), and, as numpy over all lanes, the canonical parameters
+    (n, 3), the QC codes and the iteration counts."""
+    from glomargridding_tpu_torch.models.ellipse import estimate
+
+    raw, nit, success = [], [], []
+    for sel in chunks:
+        x, n_it, ok, has_data = fitter["fit"](sel)
+        if not bool(has_data.all()):
+            raise AssertionError("a subset lane has no training data")
+        raw.append(x)
+        nit.append(n_it.cpu().numpy())
+        success.append(ok.cpu().numpy())
+    fitted = np.concatenate([x.cpu().numpy() for x in raw])
+    pm, qc, _ = estimate._postprocess_fits(
+        fitted, np.concatenate(success), fitter["model"],
+        fitter["bounds_out"], 3)
+    return raw, pm, qc, np.concatenate(nit)
+
+
+def fit_deviation(a, b, keep):
+    """Canonical (Lx, Ly, theta) rows `a` against `b` on the lanes of
+    `keep`: |dLx| / Lx, |dLy| / Ly, and |dtheta| modulo pi."""
+    a, b = a[keep], b[keep]
+    dth = np.abs(a[:, 2] - b[:, 2]) % np.pi
+    return {"Lx_rel": np.abs(a[:, 0] - b[:, 0]) / b[:, 0],
+            "Ly_rel": np.abs(a[:, 1] - b[:, 1]) / b[:, 1],
+            "theta_abs": np.minimum(dth, np.pi - dth)}
+
+
+def share_within(deviation, names):
+    """The share of lanes whose deviations `names` all hold their bound
+    (FIT_REL_TOL for a length, FIT_THETA_TOL for the angle)."""
+    ok = np.ones(deviation[names[0]].shape, dtype=bool)
+    for name in names:
+        ok &= deviation[name] <= (
+            FIT_THETA_TOL if name == "theta_abs" else FIT_REL_TOL)
+    return float(ok.mean())
+
+
+def summed_in_f32_fit(fitter, sel):
+    """One chunk fitted by Nelder-Mead on the reference's form of the
+    unit-sigma objective, ``-sum(norm.logpdf(z_y, z_model, 1) * w)``
+    with every term and the sum in the data's dtype; returns what a
+    chunk fitter's ``fit`` returns."""
+    from glomargridding_tpu_torch.ops import optim
+
+    model = fitter["model"]
+    log_sqrt_2pi = 0.5 * np.log(2.0 * np.pi)
+
+    def nll(params, X, z_y, weights):
+        z_model, _ = model._masked_model_z(params, X, weights)
+        r = z_y - z_model
+        return -torch.sum((-0.5 * r * r - log_sqrt_2pi) * weights)
+
+    X, z_y, w = fitter["build"](sel)
+    x0 = fitter["x0"][None, :].expand(len(sel), fitter["x0"].shape[0])
+    res = optim.batched_nelder_mead(nll, x0, (X, z_y, w), fitter["box"],
+                                    xatol=FIT_KW["tol"], fatol=FIT_KW["tol"])
+    return res.x, res.nit, res.success, torch.sum(w, dim=1) > 0
+
+
+def gather_times(builder, sel):
+    """The top-k column gather of one chunk, as the port does it (X, y
+    and w one by one) against one gather of the three packed (B, N, 4):
+    (ms, ms)."""
+    from glomargridding_tpu_torch.models.ellipse import estimate
+
+    lats, lons = builder._point_coords()
+    sel_t = torch.as_tensor(sel, device=builder.device)
+    X, w = estimate._train_geometry_arrays(
+        lats, lons, sel_t, min_distance=0.3,
+        max_distance=FIT_KW["max_distance"], anisotropic=True,
+        delta_x_method="Modified_Met_Office", physical_distance=True,
+        physical_distance_selection=True)
+    y = builder.cor[sel_t, :]
+    k = FIT_KW["max_train_cols"]
+
+    def packed():
+        d2 = torch.where(w > 0, X[..., 0] ** 2 + X[..., 1] ** 2, torch.inf)
+        cols = torch.topk(d2, k, dim=1, largest=False).indices
+        del d2
+        P = torch.cat([X, y[..., None], w[..., None]], dim=-1)
+        return torch.take_along_dim(P, cols[..., None], dim=1)
+
+    thrice_ms = cuda_time_ms(
+        lambda: estimate._nearest_train_cols(X, y, w, k, True), iters=3)
+    return thrice_ms, cuda_time_ms(packed, iters=3)
+
+
+def polar_lanes(builder64, model, qc_f32):
+    """One chunk of polar lanes (81 to 87 N), where the f32 simplex
+    ends most lanes with Ly on its lower bound (QC 1): the simplex and
+    Levenberg-Marquardt in f64 on those lanes, and the f64 likelihood
+    each ends at. Printed, not held: it says whether the bound is where
+    the likelihood is least or where the simplex got caught."""
+    sel = np.arange(POLAR_START, POLAR_START + FIT_KW["chunk_size"])
+    found = {}
+    for lane, tol in (("nm", FIT_KW["tol"]), ("lm", LM_TOL)):
+        fitter = subset_fitter(builder64, model, lane, tol)
+        found[lane] = fit_lanes(fitter, [sel])
+    data = subset_fitter(builder64, model, "nm", FIT_KW["tol"])["build"](sel)
+    nll = torch.func.vmap(model._nll_fit_z)
+    with torch.no_grad():
+        at = {lane: nll(found[lane][0][0], *data).cpu().numpy()
+              for lane in found}
+    gain = at["nm"] - at["lm"]  # > 0: LM ends at the lower likelihood
+    (_, pm_nm, qc_nm, _), (_, pm_lm, qc_lm, _) = found["nm"], found["lm"]
+    caught = (qc_nm == 1) & (qc_lm == 0)
+    lo = FIT_KW["bounds"][1][0]
+
+    def counts(qc):
+        codes, n = np.unique(qc, return_counts=True)
+        return "|".join(f"{c}:{k}" for c, k in zip(codes, n))
+
+    phase(16, "ellipse_mle_polar", lanes=sel.size,
+          qc_nm_f32=counts(qc_f32[sel]), qc_nm_f64=counts(qc_nm),
+          qc_lm_f64=counts(qc_lm), nm_qc1_lm_qc0=int(caught.sum()),
+          nm_f64_Ly_at_bound=int(np.sum(pm_nm[:, 1] <= lo * 1.001)),
+          lm_lower_by_more_than_tol=(
+              int(np.sum(gain[caught] > FIT_KW["tol"])) if caught.any()
+              else 0),
+          nm_lower_by_more_than_tol=(
+              int(np.sum(-gain[caught] > FIT_KW["tol"])) if caught.any()
+              else 0),
+          nll_nm_minus_lm=spread(gain[caught]) if caught.any() else "none",
+          lm_Ly_median=(f"{np.median(pm_lm[caught, 1]):.1f}"
+                        if caught.any() else "none"),
+          nm_Lx_median=(f"{np.median(pm_nm[caught, 0]):.1f}"
+                        if caught.any() else "none"),
+          lm_Lx_median=(f"{np.median(pm_lm[caught, 0]):.1f}"
+                        if caught.any() else "none"))
+
+
+def phase16_whole_grid_fit(dev, glat, glon, psd):
+    """The ellipse MLE on every cell of the 1-degree grid, from a cube
+    drawn from the repaired covariance, and its checks on the subset.
+
+    - The subset's lanes through ``_chunk_fitter`` are, bit for
+      bit, the whole-grid fit's fields.
+    - f32 against the f64 run of the same code (the lazy correlation,
+      f64 coordinates), on lanes with QC 0 in both: the share of lanes
+      within FIT_REL_TOL on Lx and Ly, the share within those and
+      FIT_THETA_TOL on the angle (see there), and the share of equal QC
+      codes.
+    - Levenberg-Marquardt (tol 1e-8, in f64 and in f32) against
+      Nelder-Mead in f64, on lanes with QC 0 in both: the share within FIT_REL_TOL and FIT_THETA_TOL,
+      and no lane fails that Nelder-Mead fitted.
+    - The whole grid once more by Levenberg-Marquardt in f32: its wall,
+      its QC codes, and its subset lanes in the comparison above.
+    - The reference's summation of the likelihood (all in f32) must
+      leave fewer lanes within FIT_REL_TOL than the port's f64 sum, and
+      fewer within all three bounds than FIT_SHARE_NM_F32_ELLIPSE.
+    - One chunk of polar lanes, where the f32 simplex ends with Ly on
+      its lower bound: the simplex and Levenberg-Marquardt in f64, and
+      the f64 likelihood at both optima (printed, not held).
+    - The negative control: the same f32 fit at nu = 0.5 against the f64
+      fit at nu = 1.5 must leave at most FIT_WRONG_SHARE of lanes within
+      FIT_REL_TOL.
+    """
+    from glomargridding_tpu_torch import (
+        Coordinates,
+        EllipseBuilder,
+        EllipseModel,
+    )
+    from glomargridding_tpu_torch.models.ellipse import estimate
+    from glomargridding_tpu_torch.ops import optim
+
+    lat_axis, lon_axis = np.unique(glat), np.unique(glon)
+    shape = (lat_axis.size, lon_axis.size)
+    n = glat.size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cube = psd.draw(T_TRAIN, generator=gen).contiguous().reshape(
+        T_TRAIN, *shape)
+
+    def coords(dtype):
+        return Coordinates({"time": np.arange(T_TRAIN),
+                            "latitude": lat_axis.astype(dtype),
+                            "longitude": lon_axis.astype(dtype)})
+
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    # no device named: the cube's
+    builder = EllipseBuilder(cube, coords(np.float32))
+    sync()
+    out = {"builder_s": time.perf_counter() - t0}
+    cor = builder.cor
+    if not isinstance(cor, torch.Tensor) or cor.device.type != dev.type or (
+            cor.shape != (n, n) or cor.dtype != torch.float32):
+        raise AssertionError("the correlation is not dense f32 on the card")
+    del cor
+    out["calc_cov_s"] = wall_median_s(builder.calc_cov)
+
+    model = EllipseModel(**FIT_MODEL)
+    watch = {"build": Stopwatch(estimate._chunk_train_data),
+             "solve": Stopwatch(estimate.batched_nelder_mead)}
+    iterations = []
+
+    def solve(*args, **kwargs):
+        res = watch["solve"](*args, **kwargs)
+        iterations.append(int(res.nit.max()))
+        return res
+
+    keep = estimate._chunk_train_data, estimate.batched_nelder_mead
+    estimate._chunk_train_data, estimate.batched_nelder_mead = (
+        watch["build"], solve)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        params = builder.compute_params(FIT_DEFAULTS, model, **FIT_KW)
+        sync()
+        out["fit_s"] = time.perf_counter() - t0
+    finally:
+        estimate._chunk_train_data, estimate.batched_nelder_mead = keep
+    out["fit_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def fields(dataset):
+        flat = {k: np.asarray(dataset[k].values, dtype=float).reshape(-1)
+                for k in dataset.keys()}
+        for name, values in flat.items():
+            if values.shape != (n,) or not np.isfinite(values).all():
+                raise AssertionError(f"fitted field {name} malformed")
+        return flat, np.column_stack(
+            [flat["Lx"], flat["Ly"], flat["theta"]]), flat["qc_code"].astype(
+                int)
+
+    flat, fitted, qc = fields(params)
+    nit = flat["number_of_iterations"]
+    lo, hi = FIT_KW["bounds"][0]
+    for name in ("Lx", "Ly"):
+        if flat[name].min() < lo or flat[name].max() > hi:
+            raise AssertionError(f"{name} left its box")
+    if (flat["Ly"] > flat["Lx"]).any() or (
+            np.abs(flat["theta"]) > np.pi).any():
+        raise AssertionError("the fitted fields are not canonical")
+    chunk = FIT_KW["chunk_size"]
+    n_chunks = -(-n // chunk)
+    if watch["solve"].calls != n_chunks or watch["build"].calls != n_chunks:
+        raise AssertionError(
+            f"{watch['solve'].calls} solves for {n_chunks} chunks")
+    # recovery of the fields the cube was drawn from (printed, not held:
+    # the clip and its floor change the local correlation)
+    tLx, tLy, tth, _ = (f.astype(float) for f in realistic_ellipse_params(
+        glat, glon))
+    swap = tLy > tLx
+    truth = np.column_stack([np.where(swap, tLy, tLx),
+                             np.where(swap, tLx, tLy),
+                             tth + swap * np.pi / 2])
+    good = qc == 0
+    recovery = fit_deviation(fitted, truth, good)
+    build_s = [dt for _, dt in watch["build"].log]
+    solve_s = [dt for _, dt in watch["solve"].log]
+    codes, counts = np.unique(qc, return_counts=True)
+    phase(16, "ellipse_mle_64800", T=T_TRAIN, nu=NU_NS, lanes=n,
+          chunks=n_chunks, cols=FIT_KW["max_train_cols"],
+          cor_gb=f"{n * n * 4 / 1e9:.1f}",
+          builder_s=f"{out['builder_s']:.4f}",
+          calc_cov_s=f"{out['calc_cov_s']:.4f}",
+          fit_s=f"{out['fit_s']:.3f}",
+          chunk_build_s=f"{sum(build_s):.3f}",
+          chunk_solve_s=f"{sum(solve_s):.3f}",
+          chunk_solve_s_min_max=f"{min(solve_s):.3f}|{max(solve_s):.3f}",
+          loop_iterations=sum(iterations),
+          ms_per_iteration=f"{1e3 * sum(solve_s) / sum(iterations):.3f}",
+          nit_median=f"{np.median(nit):.0f}", nit_max=f"{nit.max():.0f}",
+          qc_counts="|".join(f"{c}:{k}" for c, k in zip(codes, counts)),
+          fit_peak_gb=f"{out['fit_peak_gb']:.3f}",
+          recovery_Lx_ratio_median=(
+              f"{np.median(fitted[good, 0] / truth[good, 0]):.4f}"),
+          recovery_Ly_ratio_median=(
+              f"{np.median(fitted[good, 1] / truth[good, 1]):.4f}"),
+          recovery_theta_abs_median=(
+              f"{np.median(recovery['theta_abs']):.4f}"))
+
+    # the same grid by Levenberg-Marquardt on the Fisher-z residuals
+    sync()
+    t0 = time.perf_counter()
+    flat_lm, fitted_lm, qc_lm32 = fields(builder.compute_params(
+        FIT_DEFAULTS, model, **{**FIT_KW, "tol": LM_TOL}, opt_method="lm"))
+    sync()
+    lm_fit_s = time.perf_counter() - t0
+    codes, counts = np.unique(qc_lm32, return_counts=True)
+    nit = flat_lm["number_of_iterations"]
+    agree = fit_deviation(fitted, fitted_lm, good & (qc_lm32 == 0))
+    phase(16, "ellipse_mle_64800_lm", tol=LM_TOL, fit_s=f"{lm_fit_s:.3f}",
+          nit_median=f"{np.median(nit):.0f}", nit_max=f"{nit.max():.0f}",
+          qc_counts="|".join(f"{c}:{k}" for c, k in zip(codes, counts)),
+          simplex_qc1_lm_qc0=int(np.sum((qc == 1) & (qc_lm32 == 0))),
+          simplex_within_rel_tol_of_lm=(
+              f"{share_within(agree, ('Lx_rel', 'Ly_rel')):.4f}"),
+          rel_tol=FIT_REL_TOL)
+
+    # one chunk's build and a window of its solve: memory per pair, the
+    # two gathers, the device's idle share, and the host reading every
+    # iteration against every 32nd
+    chunks = [np.arange(s, s + chunk) for s in SUBSET_STARTS]
+    f32 = subset_fitter(builder, model, "nm", FIT_KW["tol"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    data = f32["build"](chunks[0])
+    sync()
+    per_pair = (torch.cuda.max_memory_allocated() - base) / (chunk * n * 4)
+    thrice_ms, packed_ms = gather_times(builder, chunks[0])
+    x0 = f32["x0"][None, :].expand(chunk, 3)
+
+    def window(sync_every):
+        return optim.batched_nelder_mead(
+            model._nll_fit_z, x0, data, f32["box"], xatol=FIT_KW["tol"],
+            fatol=FIT_KW["tol"], maxiter=PROFILE_ITERS,
+            sync_every=sync_every)
+
+    every, blocked = window(1), window(32)
+    for a, b in zip(every, blocked):
+        if not torch.equal(a, b):
+            raise AssertionError("sync_every changed a lane's result")
+    del every, blocked
+    wall_1 = wall_median_s(lambda: window(1))
+    wall_32 = wall_median_s(lambda: window(32))
+    busy, wall_profiled = device_busy_s(lambda: window(1))
+    del data
+    phase(16, "ellipse_mle_window", lanes=chunk, iterations=PROFILE_ITERS,
+          build_values_per_pair=f"{per_pair:.2f}",
+          gather_thrice_ms=f"{thrice_ms:.3f}",
+          gather_packed_ms=f"{packed_ms:.3f}",
+          sync_every_1_s=f"{wall_1:.4f}", sync_every_32_s=f"{wall_32:.4f}",
+          sync_every_1_vs_32="bitwise",
+          device_busy_s="not measured" if busy is None else f"{busy:.4f}",
+          profiled_call_s=f"{wall_profiled:.4f}",
+          # inside the profiled call (the profiler's host cost counts as
+          # idle), and the same kernels against the wall of the
+          # unprofiled calls, which are other calls
+          device_idle_share_profiled_call="not measured" if busy is None
+          else f"{1.0 - busy / wall_profiled:.4f}",
+          device_idle_share_vs_unprofiled_wall="not measured"
+          if busy is None else f"{1.0 - busy / wall_1:.4f}")
+
+    # the subset: the same lanes through the chunk fitter
+    lanes = np.concatenate(chunks)
+    raw32, pm32, qc32, _ = fit_lanes(f32, chunks)
+    if not (np.array_equal(pm32, fitted[lanes])
+            and np.array_equal(qc32, qc[lanes])):
+        raise AssertionError("the chunk fitter's lanes are not the "
+                             "whole-grid fit's")
+    builder64 = EllipseBuilder(cube.double(), coords(np.float64),
+                               cor_mode="lazy")
+
+    def timed_fit(builder, model, lane, tol):
+        sync()
+        t0 = time.perf_counter()
+        fitter = subset_fitter(builder, model, lane, tol)
+        found = fit_lanes(fitter, chunks)
+        sync()
+        return fitter, found, time.perf_counter() - t0
+
+    f64, (raw64, pm64, qc64, nit64), f64_s = timed_fit(
+        builder64, model, "nm", FIT_KW["tol"])
+    _, (_, pm_lm, qc_lm, nit_lm), lm_s = timed_fit(
+        builder64, model, "lm", LM_TOL)
+    pm_lm32, qc_lm32 = fitted_lm[lanes], qc_lm32[lanes]
+    # the reference's summation, every term and the sum in f32: what the
+    # f64 sum of ``model._weighted_nll`` is there for
+    summed = dict(f32, fit=lambda sel: summed_in_f32_fit(f32, sel))
+    _, pm_s, qc_s, nit_s = fit_lanes(summed, chunks)
+    # the negative control: the f32 fit at the wrong order
+    _, (_, pm_w, qc_w, _), _ = timed_fit(
+        builder, EllipseModel(**{**FIT_MODEL, "v": 0.5}), "nm",
+        FIT_KW["tol"])
+    polar_lanes(builder64, model, qc)
+    del builder64
+    both = (qc32 == 0) & (qc64 == 0)
+    lengths = ("Lx_rel", "Ly_rel")
+    ellipse = (*lengths, "theta_abs")
+    devs = {"nm_f32_vs_f64": fit_deviation(pm32, pm64, both),
+            "lm_vs_nm_f64": fit_deviation(
+                pm_lm, pm64, (qc_lm == 0) & (qc64 == 0)),
+            "lm_f32_vs_nm_f64": fit_deviation(
+                pm_lm32, pm64, (qc_lm32 == 0) & (qc64 == 0)),
+            "summed_f32_vs_f64": fit_deviation(
+                pm_s, pm64, (qc_s == 0) & (qc64 == 0)),
+            "wrong_nu": fit_deviation(pm_w, pm64, (qc_w == 0) & (qc64 == 0))}
+    shares = {
+        "nm_f32_vs_f64_lengths": share_within(devs["nm_f32_vs_f64"], lengths),
+        "nm_f32_vs_f64_ellipse": share_within(devs["nm_f32_vs_f64"], ellipse),
+        "lm_vs_nm_f64_ellipse": share_within(devs["lm_vs_nm_f64"], ellipse),
+        "lm_f32_vs_nm_f64_ellipse": share_within(devs["lm_f32_vs_nm_f64"],
+                                                 ellipse),
+        "summed_f32_vs_f64_lengths": share_within(devs["summed_f32_vs_f64"],
+                                                  lengths),
+        "summed_f32_vs_f64_ellipse": share_within(devs["summed_f32_vs_f64"],
+                                                  ellipse),
+        "wrong_nu_lengths": share_within(devs["wrong_nu"], lengths),
+    }
+    qc_share = float(np.mean(qc32 == qc64))
+    failed = {"lm_f64": int(np.sum((qc_lm == 9) & (qc64 != 9))),
+              "lm_f32": int(np.sum((qc_lm32 == 9) & (qc64 != 9)))}
+    phase(16, "ellipse_mle_subset", lanes=lanes.size,
+          subset_vs_whole_grid="bitwise", qc0_in_both=int(both.sum()),
+          nm_f64_s=f"{f64_s:.3f}", nm_f64_nit_median=f"{np.median(nit64):.0f}",
+          lm_f64_s=f"{lm_s:.3f}", lm_f64_nit_median=f"{np.median(nit_lm):.0f}",
+          summed_f32_nit_median=f"{np.median(nit_s):.0f}",
+          summed_f32_theta_abs_median=(
+              f"{np.median(np.abs(pm_s[qc_s == 0, 2])):.4f}"),
+          **{f"{k}_{name}": spread(v) for k, d in devs.items()
+             for name, v in d.items()},
+          nm_f32_theta_abs_median=f"{np.median(np.abs(pm32[both, 2])):.4f}",
+          nm_f64_theta_abs_median=f"{np.median(np.abs(pm64[both, 2])):.4f}",
+          rel_tol=FIT_REL_TOL, theta_tol=FIT_THETA_TOL,
+          **{f"share_{k}": f"{v:.4f}" for k, v in shares.items()},
+          share_bound_nm_f32=FIT_SHARE_NM_F32,
+          share_bound_nm_f32_ellipse=FIT_SHARE_NM_F32_ELLIPSE,
+          share_bound_lm=FIT_SHARE_LM,
+          wrong_nu_share_bound=FIT_WRONG_SHARE,
+          qc_equal_share=f"{qc_share:.4f}", qc_share_bound=FIT_QC_SHARE,
+          **{f"{k}_failed_where_nm_fitted": v for k, v in failed.items()})
+    for name, least in (("nm_f32_vs_f64_lengths", FIT_SHARE_NM_F32),
+                        ("nm_f32_vs_f64_ellipse", FIT_SHARE_NM_F32_ELLIPSE),
+                        ("lm_vs_nm_f64_ellipse", FIT_SHARE_LM),
+                        ("lm_f32_vs_nm_f64_ellipse", FIT_SHARE_LM)):
+        if not shares[name] >= least:
+            raise AssertionError(
+                f"{name}: {shares[name]:.4f} of lanes within the bounds, "
+                f"under {least}")
+    if not (shares["summed_f32_vs_f64_lengths"]
+            < shares["nm_f32_vs_f64_lengths"]):
+        raise AssertionError(
+            "the likelihood summed in f32 fits as many lanes as the one "
+            "summed in f64: "
+            f"{shares['summed_f32_vs_f64_lengths']:.4f}")
+    if not shares["summed_f32_vs_f64_ellipse"] < FIT_SHARE_NM_F32_ELLIPSE:
+        raise AssertionError(
+            f"the bound {FIT_SHARE_NM_F32_ELLIPSE} passes the likelihood "
+            "summed in f32: "
+            f"{shares['summed_f32_vs_f64_ellipse']:.4f}")
+    if not shares["wrong_nu_lengths"] <= FIT_WRONG_SHARE:
+        raise AssertionError(
+            f"the bound {FIT_REL_TOL} passes the fit at nu = 0.5 on "
+            f"{shares['wrong_nu_lengths']:.4f} of lanes")
+    if not qc_share >= FIT_QC_SHARE:
+        raise AssertionError(f"QC codes agree on {qc_share:.4f} of lanes")
+    if any(failed.values()):
+        raise AssertionError(f"LM failed lanes that NM fitted: {failed}")
+    subset = dict(chunks=chunks, f32=f32, f64=f64, raw32=raw32, raw64=raw64,
+                  pm32=pm32, pm64=pm64, both=both)
+    return params, builder, (lat_axis, lon_axis), subset
+
+
+def phase17_fitted_covariance(dev, params, axes):
+    """The fitted fields through ``convert.ellipse_builder_from_dataset``
+    into K2, and the matrix against K4 in f64 on a row band (off the
+    pairs 180 degrees apart, as in phase 9). Returns the K2 launches."""
+    from glomargridding_tpu_torch import convert
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    lat_axis, lon_axis = axes
+    reset_ellipse_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    # no device named: the card
+    cb = convert.ellipse_builder_from_dataset(params, lat_axis, lon_axis,
+                                              v=NU_NS)
+    cov = cb.cov_ns
+    sync()
+    seconds = time.perf_counter() - t0
+    k2_launches = require_launches("K2 (fitted fields)",
+                                   te.ellipse_sym.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m = cb.covar_size
+    if cov.device.type != dev.type or cov.shape != (m, m) or (
+            cov.dtype != torch.float32):
+        raise AssertionError(f"covariance {tuple(cov.shape)} {cov.dtype}")
+    rows = slice(min(BAND_ROWS.start, m // 2),
+                 min(BAND_ROWS.stop, m))
+    got = cov[rows].double()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite covariance of the fitted fields")
+    diag_rel = max_rel(torch.diagonal(cov),
+                       torch.as_tensor(cb.stdev_compressed, device=dev) ** 2)
+    del cov
+    P = te.pack_points(*ellipse_args(
+        cb.lat_grid_compressed, cb.lon_grid_compressed,
+        [cb.Lx_compressed, cb.Ly_compressed, cb.theta_compressed,
+         cb.stdev_compressed], torch.float64, dev))
+    want = te.ellipse_tile(P[rows], P, NU_NS)
+    band = torch.arange(rows.start, rows.stop, device=dev)
+    want[torch.arange(band.numel(), device=dev), band] += P[band, 6] ** 2
+    lon = torch.as_tensor(cb.lon_grid_compressed, device=dev).double()
+    antimeridian = torch.abs(lon[band][:, None] - lon[None, :]) == 180.0
+    dev_rel = torch.abs(got - want) / torch.max(torch.abs(want)).item()
+    err = torch.max(dev_rel[~antimeridian]).item()
+    phase(17, "fitted_fields_through_k2", points=m,
+          masked=int(np.prod(cb.xy_shape)) - m, k2_launches=k2_launches,
+          build_s=f"{seconds:.4f}", peak_gb=f"{peak_gb:.3f}",
+          band=f"{rows.stop - rows.start}x{m}",
+          covariance_vs_k4_f64=f"{err:.3e}",
+          covariance_antimeridian=(
+              f"{torch.max(dev_rel[antimeridian]).item():.3e}"),
+          covariance_tol=COVARIANCE_TOL, diagonal_vs_stdev2=f"{diag_rel:.3e}")
+    check("fitted covariance f32 (K2) vs K4 f64 (off the antimeridian)", err,
+          COVARIANCE_TOL)
+    check("fitted covariance diagonal vs stdev^2", diag_rel,
+          ELLIPSE_RTOL[torch.float32])
     return k2_launches
+
+
+def phase18_hessian_se(subset):
+    """Fisher-information standard errors on the subset: f32 against f64
+    at the same (f32) optima, the share of finite ones, and the fit's
+    f32-f64 deviation in units of the f64 standard error."""
+    from glomargridding_tpu_torch.models.ellipse import estimate
+
+    se, seconds = {}, {}
+    for tag, points in (("f32", subset["raw32"]), ("f64", subset["raw32"]),
+                        ("f64_own", subset["raw64"])):
+        fitter = subset[tag[:3]]
+        sync()
+        t0 = time.perf_counter()
+        parts = []
+        for sel, x in zip(subset["chunks"], points):
+            parts.append(estimate._chunk_hessian_se(
+                fitter["model"]._nll_fit_z, fitter["build"](sel),
+                x.to(fitter["x0"].dtype)))
+        sync()
+        seconds[tag] = time.perf_counter() - t0
+        se[tag] = torch.cat(parts).double().cpu().numpy()
+    good = subset["both"]
+    finite = np.isfinite(se["f32"][good]).all(axis=1)
+    share = float(finite.mean())
+    share_own = float(np.isfinite(se["f64_own"][good]).all(axis=1).mean())
+    ok = good.copy()
+    ok[good] = finite & np.isfinite(se["f64"][good]).all(axis=1)
+    rel = np.abs(se["f32"][ok] - se["f64"][ok]) / se["f64"][ok]
+    # the fit's f32-f64 deviation over the f64 standard error at the f64
+    # optimum (raw optima: the standard errors belong to the raw axes)
+    raw = [np.concatenate([x.double().cpu().numpy() for x in subset[k]])
+           for k in ("raw32", "raw64")]
+    ok_own = ok & np.isfinite(se["f64_own"]).all(axis=1)
+    delta = np.abs(raw[0] - raw[1])[ok_own]
+    delta[:, 2] = np.minimum(delta[:, 2] % np.pi,
+                             np.pi - delta[:, 2] % np.pi)
+    scaled = delta / se["f64_own"][ok_own]
+    phase(18, "hessian_se_subset", lanes=int(good.size),
+          qc0_in_both=int(good.sum()), f32_s=f"{seconds['f32']:.3f}",
+          f64_s=f"{seconds['f64']:.3f}", finite_share=f"{share:.4f}",
+          finite_share_at_f64_optima=f"{share_own:.4f}",
+          finite_share_bounds=f"{SE_FINITE_SHARE_F32}|{SE_FINITE_SHARE}",
+          f32_vs_f64_rel=spread(rel), se_rtol=SE_RTOL,
+          se_over_L_median="|".join(
+              f"{v:.3e}" for v in np.median(
+                  se["f64_own"][ok_own][:, :2] / raw[1][ok_own][:, :2],
+                  axis=0)),
+          se_theta_median=f"{np.median(se['f64_own'][ok_own][:, 2]):.3e}",
+          fit_deviation_over_se=spread(scaled.max(axis=1)))
+    check("Hessian SE f32 vs f64", rel.max(), SE_RTOL)
+    if not (share >= SE_FINITE_SHARE_F32 and share_own >= SE_FINITE_SHARE):
+        raise AssertionError(
+            f"finite standard errors on {share:.4f} of the f32 optima and "
+            f"{share_own:.4f} of the f64 optima")
+
+
+def estimation_path(dev, glat, glon, psd):
+    """Phases 16-18; returns the K2 launches of the fitted fields."""
+    params, builder, axes, subset = phase16_whole_grid_fit(
+        dev, glat, glon, psd)
+    k2_launches = phase17_fitted_covariance(dev, params, axes)
+    phase18_hessian_se(subset)
+    del builder, subset
+    return k2_launches
+
+
+def widening_flavours(mv, n, trace, dev):
+    """The clip of one operator from k0 = 512 as the port widens, by
+    locking the converged Ritz pairs, and with nothing locked
+    (``eigsh._converged_prefix`` made to find none, and put back), so
+    that every pair re-iterates with the fresh columns: the joint
+    widening the reference uses below 200,000 points, up to a rotation
+    of the carried block. What each took, as seconds and as a line of
+    text."""
+    from glomargridding_tpu_torch import explained_variance_clip_lowrank
+    from glomargridding_tpu_torch.ops import eigsh
+
+    converged_prefix = eigsh._converged_prefix
+    found = {}
+    try:
+        for flavour, prefix in (("locked", converged_prefix),
+                                ("joint", lambda rn, scale, tol: 0)):
+            eigsh._converged_prefix = prefix
+            widths = []
+
+            def counted(x):
+                widths.append(x.shape[1])
+                return mv(x)
+
+            sweeps = Stopwatch(counted)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            with solver_log() as log:
+                sync()
+                t0 = time.perf_counter()
+                out = explained_variance_clip_lowrank(
+                    sweeps, n=n, trace=trace,
+                    target_variance_fraction=CLIP_TARGET, generator=gen,
+                    **WIDENING_CLIP_KW)
+                sync()
+                seconds = time.perf_counter() - t0
+            check(f"clip at {n} ({flavour}): trace",
+                  abs(out.trace() - trace) / trace, TRACE_TOL)
+            if log.widenings < 1:
+                raise AssertionError(
+                    f"the clip at {n} did not widen: the flavours were not "
+                    "compared")
+            found[flavour] = seconds, (
+                f"{seconds:.3f}s,stages:{log.widenings + 1},"
+                f"sweeps:{sweeps.calls},sweeps_s:{sweeps.seconds:.3f},"
+                f"columns:{sum(widths)},"
+                f"rank:{out.rank},effective:{out.effective_rank}")
+    finally:
+        eigsh._converged_prefix = converged_prefix
+    return found
+
+
+def phase19_thresholds(dev, psd):
+    """What the port's size thresholds stand on, measured on this card:
+    ``_AUTO_PARTIAL_THRESHOLD`` (full against partial clip, K2-built f32
+    matrices of bench.py:511-524's fields, best of two),
+    ``_DENSIFY_GUARD`` (``to_dense()`` of the 64,800-cell factors) and
+    the eigensolver's locked widening (a clip that has to widen, locked
+    against joint, at 16,200, 64,800 and 259,200 cells)."""
+    from glomargridding_tpu_torch import (
+        ellipse_covariance_operator,
+        explained_variance_clip,
+    )
+    from glomargridding_tpu_torch.ops import covariance_tools
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return time.perf_counter() - t0
+
+    clip_s = {}
+    for n in THRESHOLD_SIZES:
+        lats, lons, fields = bench_fields(n)
+        C = te.ellipse_sym(te.pack_points(*ellipse_args(
+            lats, lons, fields, torch.float32, dev)), NU_NS)
+        for spectrum in ("full", "partial"):
+            clip_s[n, spectrum] = min(timed(lambda: explained_variance_clip(
+                C, CLIP_TARGET, spectrum=spectrum)) for _ in range(2))
+        del C
+    faster = [n for n in THRESHOLD_SIZES
+              if clip_s[n, "partial"] < clip_s[n, "full"]]
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dense = []
+    dense_s = timed(lambda: dense.append(psd.to_dense()))
+    dense_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    dense.clear()
+
+    # the bf16 store of the 2-degree and of the 1-degree grid (a sweep is
+    # one GEMM) and the 259,200-cell stream (a sweep rebuilds every tile)
+    widening, won = {}, []
+    for label, (lats, lons), store in (
+            ("store_16200", grid_linspace(*WIDENING_SMALL_GRID),
+             dict(store="bf16")),
+            ("store_64800", grid_1deg(), dict(store="bf16")),
+            ("stream_259200", grid_linspace(*STREAM_GRID),
+             dict(store="stream", max_dist=MAX_DIST_KM))):
+        mv, n, trace = ellipse_covariance_operator(
+            *ellipse_args(lats, lons, realistic_ellipse_params(lats, lons),
+                          torch.float32, dev), v=NU_NS, **store)
+        found = widening_flavours(mv, n, trace, dev)
+        for flavour, (_, text) in found.items():
+            widening[f"clip_{label}_{flavour}"] = text
+        if found["locked"][0] < found["joint"][0]:
+            won.append(n)
+        del mv
+    phase(19, "thresholds", clip_target=CLIP_TARGET,
+          **{f"clip_{n}_full|partial_s":
+             f"{clip_s[n, 'full']:.4f}|{clip_s[n, 'partial']:.4f}"
+             for n in THRESHOLD_SIZES},
+          partial_faster_from=min(faster) if faster else "none",
+          auto_partial_threshold=covariance_tools._AUTO_PARTIAL_THRESHOLD,
+          to_dense_64800_s=f"{dense_s:.4f}",
+          to_dense_64800_peak_gb=f"{dense_gb:.3f}",
+          device_total_gb=f"{total_gb:.1f}",
+          densify_guard=covariance_tools._DENSIFY_GUARD,
+          **widening, locked_faster_at="|".join(map(str, won)) or "none")
 
 
 if __name__ == "__main__":

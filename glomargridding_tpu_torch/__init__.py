@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of glomargridding_tpu: kriging on a GPU.
 
-Three paths. Streamed kriging (``models.kernel_kriging``) builds every
+Four paths. Streamed kriging (``models.kernel_kriging``) builds every
 stationary covariance tile with a hand-written CUDA kernel. The
 non-stationary path (``models.ellipse``) assembles the Paciorek-Schervish
 covariance, or its matvec operator, with three more, and the dense
@@ -8,6 +8,10 @@ kriging classes (``models.kriging``, ``models.stochastic``) krige against
 it. The factored path repairs the covariance operator to a positive
 semi-definite low-rank form (``ops.eigsh``, ``ops.covariance_tools``) and
 kriges and draws ensembles straight off the factors (``models.lowrank``).
+The estimation path fits the per-gridpoint ellipse parameters that the
+non-stationary path consumes from a training cube
+(``models.ellipse.EllipseBuilder`` and ``EllipseModel``, on the batched
+optimisers of ``ops.optim``), in plain PyTorch.
 On the card the kernels (``ops.cuda``) run; on the CPU, their plain
 PyTorch twins.
 Imports torch and numpy only; importing it builds nothing and changes
@@ -15,8 +19,11 @@ no global state.
 """
 
 from .constants import RADIUS_OF_EARTH_KM
+from .core.labeled import Coordinates, DataArray, Dataset
 from .models.ellipse import (
+    EllipseBuilder,
     EllipseCovarianceBuilder,
+    EllipseModel,
     build_ellipse_covariance,
     ellipse_covariance_operator,
 )
@@ -68,8 +75,13 @@ from .ops.variogram import (
 
 __all__ = [
     "RADIUS_OF_EARTH_KM",
+    "Coordinates",
     "CrossValResult",
+    "DataArray",
+    "Dataset",
+    "EllipseBuilder",
     "EllipseCovarianceBuilder",
+    "EllipseModel",
     "KrigingResult",
     "LowRankKrigingResult",
     "LowRankPSD",

@@ -11,6 +11,10 @@ imports nothing of the JAX package:
     lowrank_psd_from_arrays(np.asarray(jax_psd.vectors),
                             np.asarray(jax_psd.gains),
                             np.asarray(jax_psd.floor))
+    ellipse_model_from_params(vars(jax_ellipse_model))
+    dataset_from_arrays({k: v.values for k, v in jax_dataset.items()},
+                        dict(jax_dataset.coords.items()), jax_dataset.attrs)
+    ellipse_builder_from_dataset(params, lats, lons, v=...)
 """
 
 from typing import Any, Mapping
@@ -18,7 +22,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .models.ellipse import EllipseCovarianceBuilder
+from .core.labeled import Coordinates, DataArray, Dataset
+from .models.ellipse import EllipseCovarianceBuilder, EllipseModel
 from .models.kernel_kriging import VariogramKernel
 from .ops.covariance_tools import LowRankPSD
 from .ops.variogram import (
@@ -130,3 +135,80 @@ def lowrank_psd_from_arrays(vectors, gains, floor, device=None) -> LowRankPSD:
             f"gains {tuple(g.shape)} and floor {tuple(f.shape)} do not "
             f"match vectors {tuple(V.shape)}")
     return LowRankPSD(vectors=V, gains=g, floor=f)
+
+
+_MODEL_ATTRIBUTES = ("anisotropic", "rotated", "physical_distance", "v",
+                     "unit_sigma")
+
+
+def ellipse_model_from_params(params: Mapping[str, Any]) -> EllipseModel:
+    """The port's ``EllipseModel`` from a reference model's plain
+    attributes (``vars(model)`` will do): `anisotropic`, `rotated`,
+    `physical_distance`, `v` and `unit_sigma`; anything else in the
+    mapping is derived from these and ignored."""
+    missing = [k for k in _MODEL_ATTRIBUTES if k not in params]
+    if missing:
+        raise ValueError(f"ellipse model parameters lack {missing}")
+    return EllipseModel(
+        anisotropic=bool(params["anisotropic"]),
+        rotated=bool(params["rotated"]),
+        physical_distance=bool(params["physical_distance"]),
+        v=_plain(params["v"]),
+        unit_sigma=bool(params["unit_sigma"]),
+    )
+
+
+def dataset_from_arrays(fields: Mapping[str, Any], coords: Mapping[str, Any],
+                        attrs: Mapping[str, Any] | None = None) -> Dataset:
+    """The port's ``Dataset`` from a reference dataset taken apart:
+    `fields` maps a variable's name to its array, or to an (array, attrs)
+    pair; `coords` maps each dimension, in order, to its 1-d coordinate."""
+    coords = Coordinates({k: np.asarray(v) for k, v in coords.items()})
+    out = Dataset({}, coords, attrs=dict(attrs or {}))
+    for name, field in fields.items():
+        values, field_attrs = field if isinstance(field, tuple) else (
+            field, None)
+        out[name] = DataArray(np.asarray(values), coords, name=name,
+                              attrs=dict(field_attrs or {}))
+    return out
+
+
+def ellipse_builder_from_dataset(
+    params,
+    lats,
+    lons,
+    v,
+    mask=None,
+    delta_x_method: str = "Modified_Met_Office",
+    max_dist=None,
+    precision=np.float32,
+    covariance_method: str = "array",
+    batch_size=None,
+    use_pallas="auto",
+    device=None,
+) -> EllipseCovarianceBuilder:
+    """The port's ``EllipseCovarianceBuilder`` from the parameter fields
+    that ``EllipseBuilder.compute_params`` returns.
+
+    `params` holds (lat, lon) fields "Lx", "Ly", "theta" and
+    "standard_deviation" (a ``Dataset``, or a mapping to arrays), and,
+    where it also holds "qc_code", every point whose fit did not converge
+    (code 9) is masked out of the covariance, with the points of `mask`
+    (True = leave out) and those without a positive Lx. The remaining
+    arguments are ``EllipseCovarianceBuilder``'s."""
+    def field(name):
+        values = params[name]
+        return np.asarray(getattr(values, "values", values), dtype=float)
+
+    Lx = field("Lx")
+    drop = ~(Lx > 0)
+    if "qc_code" in params:
+        drop |= field("qc_code") == 9
+    if mask is not None:
+        drop |= np.asarray(mask, dtype=bool)
+    return ellipse_builder_from_inputs(
+        *(np.ma.masked_where(drop, a) for a in (
+            Lx, field("Ly"), field("theta"), field("standard_deviation"))),
+        lats, lons, v, delta_x_method=delta_x_method, max_dist=max_dist,
+        precision=precision, covariance_method=covariance_method,
+        batch_size=batch_size, use_pallas=use_pallas, device=device)

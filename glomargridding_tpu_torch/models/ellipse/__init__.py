@@ -1,4 +1,5 @@
-"""Non-stationary covariance from per-gridpoint ellipse parameters."""
+"""Non-stationary covariance from per-gridpoint ellipse parameters, and
+the estimation of those parameters from a training cube."""
 
 from .covariance import (
     EllipseCovarianceBuilder,
@@ -6,10 +7,17 @@ from .covariance import (
     ellipse_covariance_block,
     ellipse_covariance_operator,
 )
+from .estimate import EllipseBuilder, init_parameter_set
+from .model import EllipseModel, cov_ij_anisotropic, cov_ij_isotropic
 
 __all__ = [
+    "EllipseBuilder",
     "EllipseCovarianceBuilder",
+    "EllipseModel",
     "build_ellipse_covariance",
+    "cov_ij_anisotropic",
+    "cov_ij_isotropic",
     "ellipse_covariance_block",
     "ellipse_covariance_operator",
+    "init_parameter_set",
 ]

@@ -46,14 +46,36 @@ __all_errors__ = (PartialSpectrumError,)  # re-exported for API stability
 
 # Above this size "auto" clips switch from the full spectrum to the
 # randomized top-k path: a full eigh is O(n^3) while the clip needs only
-# the top of the spectrum + the trace. The value is the reference's; it
-# has not been measured on an NVIDIA card yet.
-_AUTO_PARTIAL_THRESHOLD = 4096
+# the top of the spectrum + the trace. Set from chip_smoke.py phase 19 on
+# an NVIDIA H100 80GB HBM3 (700 W; f32, target 0.90, K2-built matrices):
+# 2,048 is the largest measured size at which the full clip still wins
+# (0.053 s against 0.093 s); at 4,096 the partial clip wins 0.096 s
+# against 0.202 s, at 8,192 0.14 s against 1.13 s, at 16,384 0.32 s
+# against 4.93 s.
+_AUTO_PARTIAL_THRESHOLD = 2048
 
 # Above this size the parity wrappers refuse to densify a partial-clip
-# result: an (n, n) f32 materialisation at 64,800 is 16.8 GB, exactly the
-# allocation the factored path exists to avoid.
-_DENSIFY_GUARD = 32768
+# result. Set from the same run: the 64,800-cell factors (the 1-degree
+# grid) densify in 0.17 s at a peak of 17.1 GB of the card's 85 GB, so
+# the guard sits above that grid; the next grid of the package, 259,200
+# cells, would be 269 GB in f32, the allocation the factored path exists
+# to avoid. On the card the dense result must also fit beside a dense
+# input of its own size: at most this share of the device's memory, which
+# keeps the measured f32 case (17.1 GB of 85) and refuses the same grid in
+# f64 (33.6 GB beside a 33.6 GB input).
+_DENSIFY_GUARD = 65536
+_DENSIFY_MEMORY_SHARE = 0.25
+
+
+def _densify_fits(lr) -> bool:
+    """Whether a partial clip of a dense input comes back dense."""
+    n, vectors = lr.n, lr.vectors
+    if n > _DENSIFY_GUARD:
+        return False
+    if vectors.device.type != "cuda":
+        return True
+    total = torch.cuda.get_device_properties(vectors.device).total_memory
+    return n * n * vectors.element_size() <= _DENSIFY_MEMORY_SHARE * total
 
 
 def _on_device(cov, device=None):
@@ -602,12 +624,13 @@ def _partial_clip(name, lowrank, cov, spectrum, device, kwargs):
         return None
     if callable(cov):
         return lr
-    n = cov.shape[0]
-    if n > _DENSIFY_GUARD:
+    if not _densify_fits(lr):
         # LOUD: the caller handed us a dense matrix and gets a different
         # type back, and a log line is too easy to miss
         warn(
-            f"{name}: n={n} > {_DENSIFY_GUARD} returns the factored "
+            f"{name}: n={lr.n} (past {_DENSIFY_GUARD} points, or "
+            f"{_DENSIFY_MEMORY_SHARE:.0%} of the card's memory in "
+            f"{lr.vectors.dtype}) returns the factored "
             "LowRankPSD (densifying would allocate the n^2 array the "
             f"partial path avoids); call .to_dense() explicitly or use "
             f"{name}_lowrank"
@@ -629,14 +652,16 @@ def explained_variance_clip(
     replaced by their common average so the total variance is conserved.
     ``spectrum`` selects the eigensolver: "full" (the exact spectrum),
     "partial" (randomized top-k, the only path that scales past ~10k),
-    or "auto" (partial above n=4096). Both return the same matrix to
+    or "auto" (partial above n=2048). Both return the same matrix to
     solver accuracy (pinned by tests).
 
-    Return-type contract: for a DENSE input up to n=32768 the repaired
-    matrix comes back dense (a tensor on the call's device). For a
+    Return-type contract: for a DENSE input up to n=65536 (and, on the
+    card, up to a quarter of its memory: 64,800 in f32 on 80 GB, not in
+    f64) the repaired matrix comes back dense (a tensor on the call's
+    device). For a
     CALLABLE operator, or a dense input past that guard, the result is
     the factored :class:`LowRankPSD`: densifying it would allocate the
-    n x n array (16.8 GB at 64,800) that the matvec path exists to avoid;
+    n x n array (269 GB at 259,200) that the matvec path exists to avoid;
     call ``.to_dense()`` explicitly if the allocation is truly wanted, or
     use :func:`explained_variance_clip_lowrank` directly.
     """
@@ -672,7 +697,7 @@ def laloux_clip(
     ceiling (1 + sqrt(q))^2, rescale back to covariance with the original
     variances. ``spectrum`` as in :func:`explained_variance_clip`,
     including the return-type contract: callable operators and dense
-    inputs past n=32768 come back as the factored :class:`LowRankPSD`
+    inputs past n=65536 come back as the factored :class:`LowRankPSD`
     (never an implicit n x n materialisation).
     """
     if not callable(cov):

@@ -55,15 +55,6 @@ from .sampling import dense_matvec
 
 logger = logging.getLogger(__name__)
 
-# A widening locks converged Ritz pairs (sweeps at the active width) only
-# above this operator dimension: locking pays when an operator SWEEP is
-# expensive (streamed kernel-recompute operators, cost ~ n^2 per column),
-# below it the joint warm start accepts at round 0. A STATIC property of
-# the problem, not a measured wall. The value is the reference's; it has
-# not been measured on an NVIDIA card yet.
-_LOCK_MIN_N = 200_000
-
-
 class PartialSpectrumError(ValueError):
     """The adaptive partial-spectrum solve hit max_rank without
     converging (spectrum too flat for a low-rank clip)."""
@@ -265,18 +256,6 @@ def topk_eigh(
     return theta[:k], Q @ U[:, :k]
 
 
-def _ritz_residual_norms(Q, B, U, theta):
-    """Column norms of A u_i - theta_i u_i for Ritz pairs u_i = Q U_i.
-
-    Uses B = A @ Q (already computed by the iteration), so the exact
-    residual costs two (n, w) x (w, r) matmuls and no operator
-    application. |theta_i - lambda| <= resid_i (Bauer-Fike for symmetric
-    A), so these norms are a RIGOROUS accuracy certificate.
-    """
-    R = B @ U - (Q @ U) * theta[None, :]
-    return torch.sqrt(torch.sum(R * R, dim=0))
-
-
 def _resid_and_vectors(Q, B, U_r, theta_r, mask):
     """(max masked Ritz residual, retained vectors Q U_r). ``mask``
     zeroes the residuals of shape-padding columns beyond the true
@@ -359,18 +338,25 @@ def adaptive_topk_eigh(  # noqa: C901
 
     When a candidate fails only the residual gate, up to
     ``extra_rounds`` additional power iterations sharpen the SAME block
-    (one matvec each) before widening. Widening is WARM-STARTED. Above
-    ``_LOCK_MIN_N`` it uses RITZ LOCKING: the previous stage's Ritz
-    pairs are split by their MEASURED residuals, the converged leading
-    prefix is frozen (its basis and exact action carried; alignment
-    rounds the lock count DOWN to ``rank_multiple`` so no unconverged
-    pair is ever frozen), while the remaining pairs re-iterate
-    (warm-started from their current action) together with the fresh
-    random columns, deflated against the locked basis, so each widening
-    sweep costs only the ACTIVE width. Below it the whole block's action
-    is carried and re-iterated jointly. Acceptance always passes through
-    the exact-residual gate, so the flavour affects cost, never
-    correctness.
+    (one matvec each) before widening. Widening is WARM-STARTED by RITZ
+    LOCKING: the previous stage's Ritz pairs are split by their MEASURED
+    residuals, the converged leading prefix is frozen (its basis and
+    exact action carried; alignment rounds the lock count DOWN to
+    ``rank_multiple`` so no unconverged pair is ever frozen), while the
+    remaining pairs re-iterate (warm-started from their current action)
+    together with the fresh random columns, deflated against the locked
+    basis, so each widening sweep costs only the ACTIVE width. The
+    reference locks only from 200,000 points on and below that carries
+    the whole block's action and re-iterates it jointly; this port locks
+    at every size, because on an NVIDIA H100 80GB HBM3 (700 W;
+    ``chip_smoke.py`` phase 19, a clip at target 0.90 widening from 512
+    to 1,024) locking won wherever the two were measured: 0.07 s
+    against 0.09 s on the 16,200-cell bf16 store, 0.21 s against 0.33 s
+    at 64,800 (a sweep is one GEMM), 8.7 s against 11.8 s on the
+    259,200-cell stream (a sweep rebuilds every tile), with the same
+    stages, sweeps and rank. Acceptance always passes through the
+    exact-residual gate, so the two reach the same pairs to the solver's
+    tolerance.
 
     ``tol`` defaults by dtype: 1e-10 for f64, 1e-2 for f32. The f32
     default sits ABOVE the noise of a bf16 store's application, where
@@ -434,10 +420,8 @@ def adaptive_topk_eigh(  # noqa: C901
             Bn = _apply(matvec, Q)
             return Q, Bn, all_ok, _projection(Q, Bn)
         # locked widening: sweeps cost the ACTIVE width only. The active
-        # block runs n_iter + 2 sweeps: a joint warm start effectively
-        # gives carried pairs extra passes every stage, and the locked
-        # path must buy the same accuracy for its active pairs
-        # explicitly.
+        # block runs n_iter + 2 sweeps, which buys its pairs the accuracy
+        # that re-iterating the whole block would give them.
         Q_lock, B_lock, B_act = locked
         n_fresh = width - Q_lock.shape[1] - B_act.shape[1]
         Y = torch.cat([B_act, _apply(matvec, normal((n, n_fresh)))], dim=1)
@@ -469,7 +453,6 @@ def adaptive_topk_eigh(  # noqa: C901
     # the still-inaccurate pairs (warm start for re-iteration). None =
     # cold first stage.
     locked = None
-    use_lock = n >= _LOCK_MIN_N
     tiny = np.finfo(np.float32).tiny
     while True:
         width = min(n, k + oversample)
@@ -535,40 +518,18 @@ def adaptive_topk_eigh(  # noqa: C901
                 "flat for a low-rank clip; lower the target or use "
                 "spectrum='full'."
             )
-        # Widening warm-start flavour (see _LOCK_MIN_N). Ritz locking
-        # trades (a) extra acceptance rounds (the active block starts
-        # less converged than a jointly re-iterated one) against (b)
-        # sweeps at the active width instead of the full width. (b) only
-        # wins when a sweep is expensive.
+        # lock the converged leading prefix (aligned DOWN so no
+        # unconverged pair is ever frozen), carry the rest's action as
+        # the re-iteration warm start: ~2 (n, w) matmuls, no operator
+        # sweep
         align = max(1, rank_multiple)
         scale = max(abs(float(w[0])), tiny)
-        if use_lock:
-            # lock the converged leading prefix (aligned DOWN so no
-            # unconverged pair is ever frozen), carry the rest's action
-            # as the re-iteration warm start: ~2 (n, w) matmuls, no
-            # operator sweep
-            theta_sorted = torch.as_tensor(w, dtype=dtype, device=Q.device)
-            QU, BU, rn = _rotate_ritz(Q, B, U, theta_sorted)
-            n_conv = _converged_prefix(rn, scale, tol)
-            n_lock = n_conv - n_conv % align
-            locked = (QU[:, :n_lock], BU[:, :n_lock], BU[:, n_lock:])
-            del QU, BU
-        else:
-            # joint re-iteration: carry the whole block's action, lock
-            # nothing. The predict hook still needs the
-            # MEASURED-converged prefix (feeding it the full unconverged
-            # head is exactly the biased extrapolation described below),
-            # so when a prediction is wanted, pay the two (n, w)
-            # residual matmuls to find it.
-            if predict is not None:
-                theta_sorted = torch.as_tensor(w, dtype=dtype,
-                                               device=Q.device)
-                n_conv = _converged_prefix(
-                    _ritz_residual_norms(Q, B, U, theta_sorted), scale, tol)
-            else:
-                n_conv = len(w)
-            n_lock = 0
-            locked = (Q[:, :0], B[:, :0], B)
+        theta_sorted = torch.as_tensor(w, dtype=dtype, device=Q.device)
+        QU, BU, rn = _rotate_ritz(Q, B, U, theta_sorted)
+        n_conv = _converged_prefix(rn, scale, tol)
+        n_lock = n_conv - n_conv % align
+        locked = (QU[:, :n_lock], BU[:, :n_lock], BU[:, n_lock:])
+        del QU, BU
         del Q, B, T, U
 
         cap = min(n, max_rank)

@@ -41,23 +41,27 @@ def _mm_bf16_f32(A, xb):
                       for r in range(0, A.shape[0], rows)])
 
 
-def dense_matvec(cov) -> Matvec:
+def dense_matvec(cov, compute_dtype=torch.float32) -> Matvec:
     """Matvec over a dense (possibly bf16-stored) covariance tensor.
 
-    ``matvec(v)`` takes (n,) or (n, b) and returns ``cov @ v`` in v's
-    dtype. A bf16 store rounds v to bf16 and accumulates in f32, so the
-    storage costs ~3 decimal digits on the matrix entries but none on the
-    accumulation; any other store multiplies in its own dtype (true f32
-    for f32: the port never enables TF32).
+    ``matvec(v)`` takes (n,) or (n, b), rounds v to the store's dtype and
+    returns ``cov @ v`` in v's dtype, accumulated in `compute_dtype`
+    whatever the store: a bf16 store with f32 accumulation costs ~3
+    decimal digits on the matrix entries but none on the accumulation
+    (one GEMM with an f32 output); an f32 store with f64 accumulation is
+    the product of the operands widened to f64. Where the store is at
+    least as wide as `compute_dtype` the product runs in the store's own
+    dtype (true f32 for f32: the port never enables TF32).
     """
+    compute_dtype = torch.promote_types(cov.dtype, compute_dtype)
 
     def apply(v):
         v = torch.as_tensor(v, device=cov.device)
-        v2 = v if v.dim() == 2 else v[:, None]
-        if cov.dtype == torch.bfloat16:
-            y = _mm_bf16_f32(cov, v2.to(torch.bfloat16))
+        v2 = (v if v.dim() == 2 else v[:, None]).to(cov.dtype)
+        if cov.dtype == torch.bfloat16 and compute_dtype == torch.float32:
+            y = _mm_bf16_f32(cov, v2)
         else:
-            y = cov @ v2.to(cov.dtype)
+            y = cov.to(compute_dtype) @ v2.to(compute_dtype)
         y = y.to(v.dtype)
         return y if v.dim() == 2 else y[:, 0]
 

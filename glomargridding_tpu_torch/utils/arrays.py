@@ -2,12 +2,15 @@
 
 Port of ``glomargridding_tpu/utils/arrays.py`` (``adjust_small_negative``
 ``:24``, ``intersect_mtlb`` ``:80``, ``cov_2_cor`` ``:125``,
-``cor_2_cov`` ``:159``, ``get_spatial_mean`` ``:179``). A numpy array takes the reference's numpy
-branch. A tensor stays on its device: ``adjust_small_negative`` keeps the
+``cor_2_cov`` ``:159``, ``get_spatial_mean`` ``:179``; the host-side
+helpers ``find_nearest`` ``:45``, ``uncompress_masked`` ``:98``,
+``is_iter`` ``:196``, ``sizeof_fmt`` ``:205``, ``mask_array`` ``:214``).
+A numpy array takes the reference's numpy branch. A tensor stays on its device: ``adjust_small_negative`` keeps the
 numpy branch's warnings, and ``cov_2_cor`` the branch-free form that the
 reference applies to device arrays.
 """
 
+from typing import Any
 from warnings import warn
 
 import numpy as np
@@ -103,3 +106,76 @@ def get_spatial_mean(grid_obs, covx) -> float:
     u = torch.cholesky_solve(ones, torch.linalg.cholesky(covx))[:, 0]
     z = torch.as_tensor(grid_obs, dtype=covx.dtype, device=covx.device)
     return float((u @ z) / torch.sum(u))
+
+
+def find_nearest(array, values) -> tuple[np.ndarray, np.ndarray]:
+    """Indices and values in `array` nearest to each element of `values`
+    (numpy, host side). Exact midpoints between two elements resolve to
+    the lower one on the ascending grids used throughout."""
+    array = np.asarray(array)
+    values = np.asarray(values)
+    order = np.argsort(array, kind="stable")
+    sorted_arr = array[order]
+    pos = np.searchsorted(sorted_arr, values)
+    pos = np.clip(pos, 1, len(sorted_arr) - 1)
+    left = sorted_arr[pos - 1]
+    right = sorted_arr[pos]
+    take_right = np.abs(values - right) < np.abs(values - left)
+    nearest = np.clip(np.where(take_right, pos, pos - 1), 0,
+                      len(sorted_arr) - 1)
+    idx = order[nearest]
+    return idx.astype(np.int64), array[idx]
+
+
+def uncompress_masked(
+    compressed_array,
+    mask,
+    fill_value: Any = 0.0,
+    apply_mask: bool = False,
+    dtype=None,
+):
+    """Scatter a compressed (unmasked-only) vector back to full length
+    (numpy, host side; a tensor comes to the host first). With
+    `apply_mask` a ``numpy.ma.MaskedArray`` is returned; otherwise masked
+    slots hold `fill_value`."""
+    mask = np.asarray(mask, dtype=bool)
+    if isinstance(compressed_array, torch.Tensor):
+        compressed_array = compressed_array.detach().cpu().numpy()
+    compressed_array = np.asarray(compressed_array)
+    not_mask = ~mask
+    if int(not_mask.sum()) != len(compressed_array):
+        raise ValueError("Length of compressed_array does not align with mask")
+    dtype = dtype or compressed_array.dtype
+    uncompressed = np.empty_like(mask, dtype=dtype)
+    uncompressed[not_mask] = compressed_array
+    if apply_mask:
+        return np.ma.masked_where(mask, uncompressed)
+    uncompressed[mask] = fill_value
+    return uncompressed
+
+
+def is_iter(val: Any) -> bool:
+    """True if the value is iterable."""
+    try:
+        iter(val)
+        return True
+    except TypeError:
+        return False
+
+
+def sizeof_fmt(num: float, suffix: str = "B") -> str:
+    """Human-readable byte count (power-of-1024 units)."""
+    for unit in ("", "Ki", "Mi", "Gi", "Ti", "Pi", "Ei", "Zi"):
+        if abs(num) < 1024.0:
+            return f"{num:3.1f}{unit}{suffix}"
+        num /= 1024.0
+    return f"{num:.1f}Yi{suffix}"
+
+
+def mask_array(arr: np.ndarray) -> np.ma.MaskedArray:
+    """Coerce a numpy array to a MaskedArray."""
+    if isinstance(arr, np.ma.MaskedArray):
+        return arr
+    if isinstance(arr, np.ndarray):
+        return np.ma.MaskedArray(arr)
+    raise TypeError("Input is not a numpy array.")

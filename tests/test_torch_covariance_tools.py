@@ -17,7 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_eigsh import JDTYPE, damaged_kernel_cov, reference_draws
+from test_torch_eigsh import (  # noqa: F401  (the fixture is autouse)
+    JDTYPE,
+    damaged_kernel_cov,
+    reference_draws,
+    reference_locks_too,
+)
 
 from glomargridding_tpu.ops import covariance_tools as jct
 from glomargridding_tpu.utils import arrays as jarrays
@@ -147,6 +152,23 @@ def test_densify_guard_returns_the_factors(rng, monkeypatch, clip):
     assert isinstance(ours, tct.LowRankPSD)
     theirs = getattr(jct, name)(cov, spectrum="partial", **kw, **pj)
     _close(ours.to_dense(), theirs, torch.float64)
+
+
+@pytest.mark.parametrize("itemsize,n,fits", [
+    (4, 64_800, True), (8, 64_800, False), (8, 40_000, True),
+    (4, 65_537, False)])
+def test_densify_guard_counts_bytes_on_the_card(monkeypatch, itemsize, n,
+                                                fits):
+    """On a card the dense result is held to a share of its memory: the
+    1-degree grid densifies in f32 on 80 GB and not in f64."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda device: SimpleNamespace(total_memory=85_000_000_000))
+    vectors = SimpleNamespace(device=torch.device("cuda"),
+                              element_size=lambda: itemsize)
+    assert tct._densify_fits(SimpleNamespace(n=n, vectors=vectors)) is fits
 
 
 def test_flat_spectrum_falls_back_under_auto(rng, monkeypatch):

@@ -26,10 +26,14 @@ from glomargridding_tpu.models import kernel_kriging as jkk
 from glomargridding_tpu.models import kriging as jkrig
 from glomargridding_tpu.models import lowrank as jlr
 from glomargridding_tpu.models import stochastic as jst
+from glomargridding_tpu.core.labeled import Coordinates as JCoordinates
 from glomargridding_tpu.models.ellipse import covariance as jcov
+from glomargridding_tpu.models.ellipse import estimate as jest
+from glomargridding_tpu.models.ellipse import model as jmodel
 from glomargridding_tpu.ops import covariance_tools as jct
 from glomargridding_tpu.ops import distances as jdist
 from glomargridding_tpu.ops import eigsh as jeig
+from glomargridding_tpu.ops import optim as joptim
 from glomargridding_tpu.ops.variogram import MaternVariogram
 from glomargridding_tpu_torch import convert
 from glomargridding_tpu_torch.models import kernel_kriging as tkk
@@ -37,9 +41,11 @@ from glomargridding_tpu_torch.models import kriging as tkrig
 from glomargridding_tpu_torch.models import lowrank as tlr
 from glomargridding_tpu_torch.models import stochastic as tst
 from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+from glomargridding_tpu_torch.models.ellipse import estimate as test
 from glomargridding_tpu_torch.ops import covariance_tools as tct
 from glomargridding_tpu_torch.ops import distances as tdist
 from glomargridding_tpu_torch.ops import eigsh as teig
+from glomargridding_tpu_torch.ops import optim as toptim
 from glomargridding_tpu_torch.ops.cuda import ellipse as tell
 from glomargridding_tpu_torch.utils.device import resolve_device
 
@@ -400,6 +406,172 @@ def _precompute_states(rng):
             (jst.precompute_states(key, 4, covariance=cov),))
 
 
+def _distance_matrix(name):
+    def case(rng):
+        a = rng.uniform(-80, 80, (2, 7))
+        b = rng.uniform(-180, 180, (2, 7))
+        return (lambda **d: (getattr(tdist, name)(a[0], b[0], a[1], b[1],
+                                                  **d),),
+                (getattr(jdist, name)(a[0], b[0], a[1], b[1]),))
+
+    return case
+
+
+def _tau_dist_matrix(rng):
+    lats, lons = rng.uniform(-70, 70, 9), rng.uniform(-180, 180, 9)
+    return (lambda **d: (tdist.tau_dist_matrix(lats, lons, 1500.0, 800.0,
+                                               0.3, **d),),
+            (jdist.tau_dist_matrix(lats, lons, 1500.0, 800.0, 0.3),))
+
+
+def _frame_form(name):
+    """A frame form of a distance matrix: numpy out, computed on the
+    call's device (wrapped back onto it so that the card test can tell)."""
+    def case(rng):
+        pd = pytest.importorskip("pandas")
+        df = pd.DataFrame({
+            "lat": 52.0 + rng.uniform(-2, 2, 7),
+            "lon": -3.0 + rng.uniform(-2, 2, 7), "grid_lat": 52.5,
+            "grid_lon": -2.5, "grid_lx": 300.0, "grid_ly": 150.0,
+            "grid_theta": 0.4})
+        if name not in ("tau_dist_from_frame", "haversine_gaussian"):
+            df = df[["lat", "lon"]]  # these take the two columns alone
+        return (lambda **d: (torch.as_tensor(
+                    getattr(tdist, name)(df, **d),
+                    device=d.get("device", "cuda")),),
+                (getattr(jdist, name)(df),))
+
+    return case
+
+
+def _quadratics(rng, lanes=6):
+    centres = rng.uniform(-3, 3, size=(lanes, 3))
+    return centres, (np.full(3, -10.0), np.full(3, 10.0))
+
+
+def _nelder_mead(rng):
+    centres, bounds = _quadratics(rng, 1)
+    kw = dict(bounds=bounds, xatol=1e-10, fatol=1e-14, maxiter=900)
+    return (lambda **d: (toptim.nelder_mead(
+                lambda x: torch.sum((x - torch.as_tensor(
+                    centres[0], device=x.device)) ** 2),
+                np.zeros(3), **kw, **d).x,),
+            (joptim.nelder_mead(lambda x: jnp.sum((x - centres[0]) ** 2),
+                                jnp.zeros(3), **kw).x,))
+
+
+def _batched_optimiser(name, **kw):
+    """An optimiser over lanes of shifted quadratics (Nelder-Mead,
+    L-BFGS) or of straight-line fits (Levenberg-Marquardt), compared at
+    the optimum (SOLVER_TOL: a card may sum in another order and take
+    another walk to it; tests/test_torch_optim.py holds the walks)."""
+    def case(rng):
+        centres, bounds = _quadratics(rng)
+        if name == "batched_levenberg_marquardt":
+            t = np.linspace(0.0, 1.0, 16)
+            data = centres[:, :1] * t[None, :] + centres[:, 1:2]
+            x0, args, bounds = np.zeros((6, 2)), (data,), (bounds[0][:2],
+                                                           bounds[1][:2])
+
+            def tfun(x, y):
+                return x[0] * torch.as_tensor(t, device=y.device) + x[1] - y
+
+            def jfun(x, y):
+                return x[0] * t + x[1] - y
+        else:
+            x0, args = np.zeros((6, 3)), (centres,)
+
+            def tfun(x, c):
+                return torch.sum((x - c) ** 2)
+
+            def jfun(x, c):
+                return jnp.sum((x - c) ** 2)
+
+        return (lambda **d: (getattr(toptim, name)(tfun, x0, args, bounds,
+                                                   **kw, **d).x,),
+                (getattr(joptim, name)(
+                    jfun, jnp.asarray(x0), tuple(map(jnp.asarray, args)),
+                    tuple(map(jnp.asarray, bounds)), **kw).x,))
+
+    return case
+
+
+_ELLIPSE_MODEL = dict(anisotropic=True, rotated=True, physical_distance=True,
+                      v=0.5, unit_sigma=True)
+_ELLIPSE_FIT = dict(guesses=[1000.0, 1000.0, 0.0], bounds=[
+    (300.0, 10000.0), (300.0, 10000.0), (-2 * np.pi, 2 * np.pi)])
+
+
+def _ellipse_model_fit(rng):
+    """``EllipseModel.fit`` by L-BFGS with Hessian standard errors: the
+    optimum and its SEs (SOLVER_TOL: each side stops at |grad| <= 1e-9)."""
+    jm = jmodel.EllipseModel(**_ELLIPSE_MODEL)
+    X = rng.uniform(-4000, 4000, (200, 2))
+    y = np.asarray(jm._model_correlation(
+        jnp.asarray(X), jnp.asarray([1800.0, 700.0, 0.5])))
+    y = np.clip(y + rng.normal(0, 0.03, 200), -0.999, 0.999)
+    kw = dict(opt_method="L-BFGS-B", tol=1e-9, estimate_SE="hessian",
+              **_ELLIPSE_FIT)
+
+    def outputs(fit, to_tensor):
+        res, se, _ = fit
+        return res.x, to_tensor(se)
+
+    tm = convert.ellipse_model_from_params(vars(jm))
+    return (lambda **d: outputs(tm.fit(X, y, **kw, **d),
+                                lambda se: torch.as_tensor(
+                                    se, device=d.get("device", "cuda"))),
+            outputs(jm.fit(X, y, **kw), np.asarray))
+
+
+def _training_cube(rng, size=(4, 5), n_t=60):
+    lats = np.linspace(-20.0, 20.0, size[0])
+    lons = np.linspace(0.0, 30.0, size[1])
+    data = rng.normal(size=(n_t, *size)).cumsum(axis=2).cumsum(axis=1)
+    return data, {"time": np.arange(n_t), "latitude": lats,
+                  "longitude": lons}
+
+
+def _ellipse_builder(rng):
+    """``EllipseBuilder`` on a numpy cube: the correlation, and the
+    whole-grid Levenberg-Marquardt fit's (Lx, Ly, theta, qc) fields."""
+    data, coords = _training_cube(rng)
+    kw = dict(default_value=[-999.0] * 6, max_distance=8000.0, tol=1e-8,
+              opt_method="lm", **_ELLIPSE_FIT)
+    jm = jmodel.EllipseModel(**_ELLIPSE_MODEL)
+
+    def outputs(builder, to_tensor, model):
+        p = builder.compute_params(matern_ellipse=model, **kw)
+        return (builder.cor, to_tensor(np.stack(
+            [p[k].values for k in ("Lx", "Ly", "theta", "qc_code")])))
+
+    def port(**d):
+        b = test.EllipseBuilder(data, coords, **d)
+        return outputs(b, lambda a: torch.as_tensor(a, device=b.device),
+                       convert.ellipse_model_from_params(vars(jm)))
+
+    return port, outputs(jest.EllipseBuilder(data, JCoordinates(coords)),
+                         np.asarray, jm)
+
+
+def _ellipse_builder_from_dataset(rng):
+    Lx, Ly, theta, stdev, lats, lons = _ellipse_fields(rng)
+    qc = np.where(rng.random(Lx.shape) < 0.2, 9.0, 0.0)
+    fields = {"Lx": Lx.filled(-999.0), "Ly": Ly.filled(-999.0),
+              "theta": theta.filled(-999.0),
+              "standard_deviation": stdev.filled(-999.0), "qc_code": qc}
+    dataset = convert.dataset_from_arrays(
+        fields, {"latitude": lats, "longitude": lons})
+    drop = Lx.mask | (qc == 9)
+    kw = dict(v=1.5, max_dist=3000.0, precision=np.float64)
+    return (lambda **d: (convert.ellipse_builder_from_dataset(
+                dataset, lats, lons, **kw, **d).cov_ns,),
+            (jcov.EllipseCovarianceBuilder(
+                *(np.ma.masked_where(drop, fields[k]) for k in (
+                    "Lx", "Ly", "theta", "standard_deviation")),
+                lats, lons, **kw).cov_ns,))
+
+
 CASES = {
     "kriging_from_kernel": _kriging_from_kernel,
     "ensemble_from_kernel": _ensemble_from_kernel,
@@ -418,6 +590,26 @@ CASES = {
     "kriging_ordinary": _deprecated_form("kriging_ordinary", 4),
     "constraint_mask": _deprecated_form("constraint_mask", 3),
     "haversine_matrix": _haversine_matrix,
+    "euclidean_matrix": _distance_matrix("euclidean_matrix"),
+    "cartesian_euclidean_matrix": _distance_matrix(
+        "cartesian_euclidean_matrix"),
+    "tau_dist_matrix": _tau_dist_matrix,
+    "tau_dist_from_frame": _frame_form("tau_dist_from_frame"),
+    "haversine_distance_from_frame": _frame_form(
+        "haversine_distance_from_frame"),
+    "euclidean_distance": _frame_form("euclidean_distance"),
+    "cartesian_euclidean_from_frame": _frame_form(
+        "cartesian_euclidean_from_frame"),
+    "haversine_gaussian": _frame_form("haversine_gaussian"),
+    "nelder_mead": _nelder_mead,
+    "batched_nelder_mead": _batched_optimiser(
+        "batched_nelder_mead", xatol=1e-10, fatol=1e-14, maxiter=900),
+    "batched_lbfgs": _batched_optimiser("batched_lbfgs", tol=1e-10),
+    "batched_levenberg_marquardt": _batched_optimiser(
+        "batched_levenberg_marquardt"),
+    "EllipseModel.fit": _ellipse_model_fit,
+    "EllipseBuilder": _ellipse_builder,
+    "ellipse_builder_from_dataset": _ellipse_builder_from_dataset,
     "topk_eigh": _topk_eigh,
     "adaptive_topk_eigh": _adaptive_topk_eigh,
     "explained_variance_clip": _clip("explained_variance_clip",
@@ -444,14 +636,16 @@ CASES = {
 SOLVER_CASES = {
     "topk_eigh", "adaptive_topk_eigh", "explained_variance_clip",
     "laloux_clip", "eigenvalue_clip", "explained_variance_clip_lowrank",
-    "laloux_clip_lowrank",
+    "laloux_clip_lowrank", "nelder_mead", "batched_nelder_mead",
+    "batched_lbfgs", "batched_levenberg_marquardt", "EllipseModel.fit",
 }
 
 
 def tolerance(name):
     """The parity bound of a case: the stream operator's diagonal term is
     f32, everything else f64; what passes through the iterative partial
-    eigensolver is held to its convergence, not to roundoff."""
+    eigensolver or an optimiser is held to its convergence, not to
+    roundoff."""
     if name in SOLVER_CASES:
         return SOLVER_TOL
     return OPERATOR_TOL if name == "ellipse_covariance_operator" else TOL

@@ -16,10 +16,16 @@ import pytest
 import torch
 
 from glomargridding_tpu.ops import distances as jdist
+from glomargridding_tpu.ops import sampling as jsampling
 from glomargridding_tpu.ops import special as jspecial
 from glomargridding_tpu.ops import variogram as jvario
+from glomargridding_tpu.utils import arrays as jarrays
+from glomargridding_tpu.utils import frames as jframes
+from glomargridding_tpu_torch import types as ttypes
+from glomargridding_tpu_torch import utils as tutils
 from glomargridding_tpu_torch.convert import variogram_from_params
 from glomargridding_tpu_torch.ops import distances as tdist
+from glomargridding_tpu_torch.ops import sampling as tsampling
 from glomargridding_tpu_torch.ops import special as tspecial
 from glomargridding_tpu_torch.ops import variogram as tvario
 
@@ -210,3 +216,199 @@ def test_import_does_not_load_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+# --- the rest of ops/distances, the helpers and dense_matvec: f64, 1e-12
+TIGHT = dict(rtol=1e-12, atol=1e-12)
+
+
+def _frame(rng, n=8):
+    import pandas as pd
+
+    return pd.DataFrame({"lat": rng.uniform(-80, 80, n),
+                         "lon": rng.uniform(-180, 180, n)})
+
+
+@pytest.mark.parametrize("name", ["euclidean_matrix",
+                                  "cartesian_euclidean_matrix"])
+@pytest.mark.parametrize("two_sets", [False, True])
+def test_distance_matrices_match_reference(name, two_sets):
+    rng = np.random.default_rng(5)
+    a = rng.uniform(-80, 80, (2, 9))
+    b = rng.uniform(-180, 180, (2, 9))
+    args = (a[0], b[0], a[1][:5], b[1][:5]) if two_sets else (a[0], b[0])
+    ours = getattr(tdist, name)(*args, device="cpu")
+    ref = getattr(jdist, name)(*map(jnp.asarray, args))
+    assert ours.shape == ((9, 5) if two_sets else (9, 9))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TIGHT)
+
+
+def test_scalar_geometry_matches_reference():
+    ours = tdist.radial_dist(10.0, 20.0, -35.0, 140.0)
+    np.testing.assert_allclose(
+        ours.item(), float(jdist.radial_dist(10.0, 20.0, -35.0, 140.0)),
+        **TIGHT)
+    m = np.array([[3.0, 1.0], [0.5, 2.0]])
+    np.testing.assert_allclose(tdist.inv_2d(torch.as_tensor(m)).numpy(),
+                               np.asarray(jdist.inv_2d(jnp.asarray(m))),
+                               **TIGHT)
+    np.testing.assert_allclose(tdist.inv_2d(torch.as_tensor(m)).numpy(),
+                               np.linalg.inv(m), **TIGHT)
+    sigma = tdist.sigma_rot_func(torch.tensor(1500.0, dtype=torch.float64),
+                                 torch.tensor(800.0, dtype=torch.float64),
+                                 torch.tensor(0.4, dtype=torch.float64))
+    jsigma = jdist.sigma_rot_func(1500.0, 800.0, 0.4)
+    np.testing.assert_allclose(
+        tdist.tau_dist(300.0, -120.0, sigma).item(),
+        float(jdist.tau_dist(300.0, -120.0, jsigma)), **TIGHT)
+
+
+@pytest.mark.parametrize("theta", [None, 0.7])
+def test_mahal_dist_func_matches_reference(theta):
+    rng = np.random.default_rng(6)
+    dx, dy = rng.uniform(-3000, 3000, (2, 30))
+    th = None if theta is None else torch.tensor(theta, dtype=torch.float64)
+    ours = tdist.mahal_dist_func(torch.as_tensor(dx), torch.as_tensor(dy),
+                                 1500.0, 800.0, th)
+    ref = jdist.mahal_dist_func(jnp.asarray(dx), jnp.asarray(dy), 1500.0,
+                                800.0, theta)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TIGHT)
+    # the elementwise form agrees with the 2 x 2 algebra
+    if theta is not None:
+        sigma = tdist.sigma_rot_func(*(torch.tensor(v, dtype=torch.float64)
+                                       for v in (1500.0, 800.0, theta)))
+        np.testing.assert_allclose(
+            ours[0].item(), tdist.tau_dist(dx[0], dy[0], sigma).item(),
+            rtol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["Met_Office", "Modified_Met_Office"])
+def test_tau_dist_matrix_matches_reference(method):
+    rng = np.random.default_rng(7)
+    lats, lons = rng.uniform(-70, 70, 11), rng.uniform(-180, 180, 11)
+    ours = tdist.tau_dist_matrix(lats, lons, 1500.0, 800.0,
+                                 torch.tensor(0.3, dtype=torch.float64),
+                                 delta_x_method=method, device="cpu")
+    ref = jdist.tau_dist_matrix(jnp.asarray(lats), jnp.asarray(lons), 1500.0,
+                                800.0, 0.3, delta_x_method=method)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TIGHT)
+
+
+@pytest.mark.parametrize("name", [
+    "haversine_distance_from_frame", "euclidean_distance",
+    "cartesian_euclidean_from_frame", "haversine_gaussian"])
+def test_frame_forms_match_reference(name):
+    df = _frame(np.random.default_rng(8))
+    ours = getattr(tdist, name)(df, device="cpu")
+    assert isinstance(ours, np.ndarray)
+    np.testing.assert_allclose(ours, getattr(jdist, name)(df), **TIGHT)
+    renamed = df.rename(columns={"lat": "y", "lon": "x"})
+    if name != "haversine_gaussian":
+        np.testing.assert_allclose(
+            tdist.calculate_distance_matrix(
+                renamed, getattr(tdist, name), "y", "x", device="cpu"),
+            ours, **TIGHT)
+        with pytest.raises(ValueError, match="'lat' and 'lon'"):
+            getattr(tdist, name)(renamed, device="cpu")
+    else:
+        with pytest.raises(tutils.ColumnNotFoundError, match="lat, lon"):
+            tdist.haversine_gaussian(renamed, device="cpu")
+
+
+def test_tmerc_and_tau_dist_from_frame_match_reference():
+    rng = np.random.default_rng(9)
+    lats, lons = 52.0 + rng.uniform(-2, 2, 7), -3.0 + rng.uniform(-2, 2, 7)
+    for ours, ref in zip(tdist.tmerc_forward(lats, lons, 52.5, -2.5),
+                         jdist.tmerc_forward(lats, lons, 52.5, -2.5)):
+        np.testing.assert_array_equal(ours, ref)
+    df = _frame(rng, 7).assign(
+        lat=lats, lon=lons, grid_lat=52.5, grid_lon=-2.5, grid_lx=300.0,
+        grid_ly=150.0, grid_theta=0.4)
+    for displacement in ("tmerc", "tangent"):
+        np.testing.assert_allclose(
+            tdist.tau_dist_from_frame(df, displacement, device="cpu"),
+            jdist.tau_dist_from_frame(df, displacement), **TIGHT)
+    with pytest.raises(ValueError, match="unknown displacement"):
+        tdist.tau_dist_from_frame(df, "utm", device="cpu")
+    with pytest.raises(tutils.ColumnNotFoundError, match="grid_theta"):
+        tdist.tau_dist_from_frame(df.drop(columns="grid_theta"),
+                                  device="cpu")
+
+
+def test_unit_conversions_and_types_are_the_reference_values():
+    for deg in (0.5, 7.0, 50.0):
+        assert tutils.deg_to_km(deg) == jframes.deg_to_km(deg)
+        assert tutils.deg_to_nm(deg) == jframes.deg_to_nm(deg)
+        assert tutils.km_to_deg(111.0 * deg) == jframes.km_to_deg(111.0 * deg)
+    from glomargridding_tpu import types as jtypes
+
+    for name in ("ModelType", "FForm", "SuperCategory", "DeltaXMethod",
+                 "CovarianceMethod", "KrigMethod"):
+        assert getattr(ttypes, name) == getattr(jtypes, name), name
+
+
+def test_host_helpers_match_reference():
+    rng = np.random.default_rng(10)
+    mask = rng.random(20) < 0.3
+    packed = rng.normal(size=int((~mask).sum()))
+    for kw in (dict(), dict(fill_value=np.nan), dict(apply_mask=True),
+               dict(dtype=np.float32)):
+        ours = tutils.uncompress_masked(packed, mask, **kw)
+        ref = jarrays.uncompress_masked(packed, mask, **kw)
+        assert type(ours) is type(ref) and ours.dtype == ref.dtype
+        np.testing.assert_array_equal(np.ma.filled(ours, -1.0),
+                                      np.ma.filled(ref, -1.0))
+    np.testing.assert_array_equal(
+        tutils.uncompress_masked(torch.as_tensor(packed), mask),
+        jarrays.uncompress_masked(packed, mask))
+    with pytest.raises(ValueError, match="does not align"):
+        tutils.uncompress_masked(packed[:-1], mask)
+    grid = np.arange(-87.5, 90, 5.0)
+    values = np.concatenate([rng.uniform(-95, 95, 30), [0.0, -85.0, 2.5]])
+    for ours, ref in zip(tutils.find_nearest(grid, values),
+                         jarrays.find_nearest(grid, values)):
+        np.testing.assert_array_equal(ours, ref)
+    for value in ([1, 2], "ab", 3, None, np.zeros(2)):
+        assert tutils.is_iter(value) == jarrays.is_iter(value)
+    for num in (0, 1023, 1024, 5 * 1024**3, 1e30):
+        assert tutils.sizeof_fmt(num) == jarrays.sizeof_fmt(num)
+    arr = np.arange(3.0)
+    assert isinstance(tutils.mask_array(arr), np.ma.MaskedArray)
+    masked = np.ma.masked_less(arr, 1.0)
+    assert tutils.mask_array(masked) is masked
+    with pytest.raises(TypeError, match="not a numpy array"):
+        tutils.mask_array([1.0, 2.0])
+
+
+@pytest.mark.parametrize("store,compute", [
+    ("bfloat16", "float32"), ("float32", "float32"), ("float32", "float64")])
+def test_dense_matvec_store_and_accumulation(store, compute):
+    """``dense_matvec(cov, compute_dtype)`` against the reference for the
+    three store/accumulate pairs: v is rounded to the store's dtype, the
+    products are exact in the accumulator's, and the sum runs in it.
+    (bf16, f32) and (f32, f64): both sides sum exact products in a wider
+    dtype, 1e-6 / 1e-12 of max |y|; (f32, f32): the order of an f32 sum,
+    1e-5."""
+    rng = np.random.default_rng(11)
+    n = 96
+    A = rng.normal(size=(n, n)).astype(np.float32)
+    A = (A @ A.T / n).astype(np.float32)
+    v = rng.normal(size=(n, 3))
+    cov_t = torch.as_tensor(A).to(getattr(torch, store))
+    cov_j = jnp.asarray(A).astype(getattr(jnp, store))
+    mv_t = tsampling.dense_matvec(cov_t, compute_dtype=getattr(torch, compute))
+    mv_j = jsampling.dense_matvec(cov_j, compute_dtype=getattr(jnp, compute))
+    tol = {"bfloat16": 1e-6, "float32": 1e-5}[store] if (
+        compute == "float32") else 1e-12
+    for vec in (v, v[:, 0]):
+        ours = mv_t(torch.as_tensor(vec))
+        ref = np.asarray(mv_j(jnp.asarray(vec)))
+        assert ours.dtype == torch.float64 and ours.shape == ref.shape
+        scale = np.abs(ref).max()
+        assert np.abs(ours.numpy() - ref).max() <= tol * scale
+    if compute == "float64":
+        # f64 accumulation is visible: it beats the f32 product
+        exact = A.astype(np.float64) @ v.astype(np.float32).astype(np.float64)
+        f32 = tsampling.dense_matvec(cov_t)(torch.as_tensor(v)).numpy()
+        assert np.abs(mv_t(torch.as_tensor(v)).numpy() - exact).max() < (
+            0.01 * np.abs(f32 - exact).max())

@@ -1,0 +1,272 @@
+"""The port's optimisers against the JAX package's, on the CPU in f64.
+
+The same numpy inputs go through ``glomargridding_tpu.ops.optim`` and
+``glomargridding_tpu_torch.ops.optim``. Nelder-Mead is a sequence of
+comparisons, so on analytic objectives in f64 the two take the same
+decisions: `nit` is held EQUAL and the points to 1e-9. L-BFGS has its own
+line search (Armijo backtracking against optax's zoom), so it is held at
+the optimum only. Levenberg-Marquardt is a statement-for-statement port:
+`nit` equal, points to 1e-8.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from glomargridding_tpu.ops import optim as joptim
+from glomargridding_tpu_torch.ops import optim as toptim
+
+torch.set_num_threads(2)
+
+STEP_TOL = dict(rtol=1e-9, atol=1e-9)
+
+
+def rosenbrock(x):
+    return (1 - x[0]) ** 2 + 100 * (x[1] - x[0] ** 2) ** 2
+
+
+def rosen_args(x, a):
+    return (a - x[0]) ** 2 + 100 * (x[1] - x[0] ** 2) ** 2
+
+
+def _np(res):
+    return [np.asarray(part.detach().cpu() if isinstance(part, torch.Tensor)
+                       else part) for part in res]
+
+
+def _assert_same_walk(ours, ref, **tol):
+    x, f, nit, ok = _np(ours)
+    rx, rf, rnit, rok = _np(ref)
+    np.testing.assert_array_equal(nit, rnit)
+    np.testing.assert_array_equal(ok, rok)
+    np.testing.assert_allclose(x, rx, **(tol or STEP_TOL))
+    np.testing.assert_allclose(f, rf, **(tol or STEP_TOL))
+
+
+def test_nelder_mead_rosenbrock_step_for_step():
+    kw = dict(xatol=1e-6, fatol=1e-6, maxiter=1000)
+    ours = toptim.nelder_mead(rosenbrock, np.array([-1.2, 1.0]),
+                              device="cpu", **kw)
+    ref = joptim.nelder_mead(rosenbrock, jnp.array([-1.2, 1.0]), **kw)
+    assert bool(ours.success)
+    _assert_same_walk(ours, ref)
+    np.testing.assert_allclose(ours.x.numpy(), [1.0, 1.0], atol=1e-4)
+
+
+def test_nelder_mead_bounded_quadratic():
+    # minimum outside the box: converges onto the bound
+    bounds = (np.array([0.0, 0.0]), np.array([2.0, 2.0]))
+    ours = toptim.nelder_mead(lambda x: torch.sum((x - 5.0) ** 2),
+                              np.array([1.0, 1.0]), bounds=bounds,
+                              device="cpu")
+    ref = joptim.nelder_mead(lambda x: jnp.sum((x - 5.0) ** 2),
+                             jnp.array([1.0, 1.0]),
+                             bounds=tuple(map(jnp.asarray, bounds)))
+    _assert_same_walk(ours, ref)
+    np.testing.assert_allclose(ours.x.numpy(), [2.0, 2.0], atol=1e-3)
+
+
+def test_nelder_mead_maxiter_reports_failure():
+    ours = toptim.nelder_mead(rosenbrock, np.array([-1.2, 1.0]), maxiter=3,
+                              xatol=1e-12, fatol=1e-12, device="cpu")
+    assert not bool(ours.success)
+    assert int(ours.nit) == 3
+
+
+def test_batched_quadratics(rng):
+    centres = rng.uniform(-3, 3, size=(64, 3))
+    kw = dict(xatol=1e-6, fatol=1e-10, maxiter=600)
+    bounds = (np.full(3, -10.0), np.full(3, 10.0))
+    ours = toptim.batched_nelder_mead(
+        lambda x, c: torch.sum((x - c) ** 2), np.zeros((64, 3)), (centres,),
+        bounds, device="cpu", **kw)
+    ref = joptim.batched_nelder_mead(
+        lambda x, c: jnp.sum((x - c) ** 2), jnp.zeros((64, 3)),
+        (jnp.asarray(centres),), tuple(map(jnp.asarray, bounds)), **kw)
+    assert bool(ours.success.all())
+    _assert_same_walk(ours, ref)
+    np.testing.assert_allclose(ours.x.numpy(), centres, atol=1e-3)
+
+
+def _rosen_batch(rng, B=16):
+    return rng.uniform(0.5, 1.5, size=(B,)), rng.uniform(-2, 2, size=(B, 2))
+
+
+def test_batched_matches_reference_and_one_lane_oracle(rng):
+    """Rosenbrock from scattered starts mixes every branch of the
+    decision tree and converges at different per-lane rates: the stacked
+    candidate evaluation, the guarded shrink and the frozen-lane
+    bookkeeping against the reference and against the one-lane form."""
+    a, x0 = _rosen_batch(rng)
+    bounds = (np.full(2, -5.0), np.full(2, 5.0))
+    kw = dict(xatol=1e-6, fatol=1e-6, maxiter=800)
+    ours = toptim.batched_nelder_mead(rosen_args, x0, (a,), bounds,
+                                      device="cpu", **kw)
+    ref = joptim.batched_nelder_mead(rosen_args, jnp.asarray(x0),
+                                     (jnp.asarray(a),),
+                                     tuple(map(jnp.asarray, bounds)), **kw)
+    _assert_same_walk(ours, ref)
+    assert len(np.unique(ours.nit.numpy())) > 1
+    for i in (0, 7):
+        lane = toptim.nelder_mead(
+            lambda x: rosen_args(x, torch.as_tensor(a[i])), x0[i],
+            bounds=bounds, device="cpu", **kw)
+        assert int(lane.nit) == int(ours.nit[i])
+        np.testing.assert_allclose(lane.x.numpy(), ours.x[i].numpy(),
+                                   **STEP_TOL)
+
+
+def _shrink_case(rng, B=8):
+    return rng.uniform(-1, 1, size=(B, 3)), (np.full(3, -4.0),
+                                             np.full(3, 4.0))
+
+
+def test_batched_shrink_path(rng):
+    """Non-smooth max-norm objectives force genuine shrink steps."""
+    c, bounds = _shrink_case(rng)
+    kw = dict(xatol=1e-5, fatol=1e-8, maxiter=1500)
+    ours = toptim.batched_nelder_mead(
+        lambda x, c: torch.max(torch.abs(x - c)), np.zeros((8, 3)), (c,),
+        bounds, device="cpu", **kw)
+    ref = joptim.batched_nelder_mead(
+        lambda x, c: jnp.max(jnp.abs(x - c)), jnp.zeros((8, 3)),
+        (jnp.asarray(c),), tuple(map(jnp.asarray, bounds)), **kw)
+    _assert_same_walk(ours, ref)
+
+
+@pytest.mark.parametrize("case", ["rosenbrock", "shrink"])
+def test_block_size_does_not_change_a_bit(rng, case):
+    """Reading the device once per iteration or once per 32 gives every
+    lane the same bits: frozen lanes are masked on every iteration."""
+    if case == "rosenbrock":
+        a, x0 = _rosen_batch(rng)
+        call = dict(fun=rosen_args, x0=x0, args=(a,),
+                    bounds=(np.full(2, -5.0), np.full(2, 5.0)), xatol=1e-6,
+                    fatol=1e-6, maxiter=800)
+    else:
+        c, bounds = _shrink_case(rng)
+        call = dict(fun=lambda x, c: torch.max(torch.abs(x - c)),
+                    x0=np.zeros((8, 3)), args=(c,), bounds=bounds,
+                    xatol=1e-5, fatol=1e-8, maxiter=400)
+    one = toptim.batched_nelder_mead(**call, sync_every=1, device="cpu")
+    block = toptim.batched_nelder_mead(**call, sync_every=32, device="cpu")
+    for a_, b_ in zip(one, block):
+        assert torch.equal(a_, b_)
+    assert len(np.unique(one.nit.numpy())) > 1
+
+
+def test_batched_maxiter_reports_failure():
+    x0 = np.broadcast_to(np.asarray([-1.2, 1.0]), (4, 2)).copy()
+    ours = toptim.batched_nelder_mead(
+        lambda x, c: rosenbrock(x - c), x0, (np.zeros((4, 2)),), None,
+        xatol=1e-12, fatol=1e-12, maxiter=3, device="cpu")
+    assert not bool(ours.success.any())
+    np.testing.assert_array_equal(ours.nit.numpy(), 3)
+
+
+def test_lbfgs_bounded_quadratic():
+    """At the optimum, as the reference: on the bound when the minimum
+    lies outside the box, precisely when inside."""
+    def f(x):
+        return torch.sum((x - 5.0) ** 2)
+
+    def jf(x):
+        return jnp.sum((x - 5.0) ** 2)
+
+    lo = np.array([0.0, 0.0])
+    ours = toptim.lbfgs_minimize(f, np.array([1.0, 1.0]),
+                                 bounds=(lo, np.array([2.0, 2.0])),
+                                 device="cpu")
+    ref = joptim.lbfgs_minimize(jf, jnp.array([1.0, 1.0]),
+                                bounds=(jnp.asarray(lo),
+                                        jnp.array([2.0, 2.0])))
+    np.testing.assert_allclose(ours.x.numpy(), np.asarray(ref.x), atol=1e-2)
+    np.testing.assert_allclose(ours.x.numpy(), [2.0, 2.0], atol=1e-2)
+
+    ours = toptim.lbfgs_minimize(f, np.array([1.0, 1.0]),
+                                 bounds=(lo, np.array([10.0, 10.0])),
+                                 device="cpu")
+    assert bool(ours.success)
+    np.testing.assert_allclose(ours.x.numpy(), [5.0, 5.0], atol=1e-4)
+
+
+def test_batched_lbfgs(rng):
+    centres = rng.uniform(-3, 3, size=(32, 3))
+    bounds = (np.full(3, -10.0), np.full(3, 10.0))
+    ours = toptim.batched_lbfgs(lambda x, c: torch.sum((x - c) ** 2),
+                                np.zeros((32, 3)), (centres,), bounds,
+                                tol=1e-8, device="cpu")
+    ref = joptim.batched_lbfgs(lambda x, c: jnp.sum((x - c) ** 2),
+                               jnp.zeros((32, 3)), (jnp.asarray(centres),),
+                               tuple(map(jnp.asarray, bounds)), tol=1e-8)
+    assert bool(ours.success.all())
+    # both stop at |grad| <= 1e-8 in u-space: the optima agree far inside
+    # the reference test's own 1e-3
+    np.testing.assert_allclose(ours.x.numpy(), np.asarray(ref.x), atol=1e-6)
+    np.testing.assert_allclose(ours.x.numpy(), centres, atol=1e-6)
+
+
+def test_batched_lbfgs_rosenbrock_lanes_and_nan_lane(rng):
+    """Lanes that need many iterations and a line search each reach the
+    valley's floor; a NaN lane stops at once without success."""
+    a, x0 = _rosen_batch(rng, 6)
+    a[5] = np.nan
+    ours = toptim.batched_lbfgs(rosen_args, x0, (a,),
+                                (np.full(2, -5.0), np.full(2, 5.0)),
+                                maxiter=400, tol=1e-7, device="cpu")
+    assert bool(ours.success[:5].all()) and not bool(ours.success[5])
+    assert int(ours.nit[5]) == 0
+    np.testing.assert_allclose(ours.x[:5, 0].numpy(), a[:5], atol=1e-4)
+    np.testing.assert_allclose(ours.x[:5, 1].numpy(), a[:5] ** 2, atol=1e-4)
+
+
+def test_lm_success_semantics():
+    """A solvable lane and a lane that STARTS at its optimum both report
+    success; a NaN lane leaves through damping saturation with
+    success=False. Statement for statement the reference: `nit` equal."""
+    t = np.linspace(0.0, 1.0, 16)
+    y_good = 2.0 * t + 1.0
+    x0 = np.asarray([[0.5, 0.0], [2.0, 1.0], [0.5, 0.0]])
+    ys = np.stack([y_good, y_good, np.full_like(y_good, np.nan)])
+    bounds = (np.asarray([-10.0, -10.0]), np.asarray([10.0, 10.0]))
+    tt = torch.as_tensor(t)
+    ours = toptim.batched_levenberg_marquardt(
+        lambda x, y: x[0] * tt + x[1] - y, x0, (ys,), bounds, device="cpu")
+    jt = jnp.asarray(t)
+    ref = joptim.batched_levenberg_marquardt(
+        lambda x, y: x[0] * jt + x[1] - y, jnp.asarray(x0),
+        (jnp.asarray(ys),), tuple(map(jnp.asarray, bounds)))
+    assert ours.success.tolist() == [True, True, False]
+    np.testing.assert_array_equal(ours.success.numpy(),
+                                  np.asarray(ref.success))
+    np.testing.assert_array_equal(ours.nit.numpy(), np.asarray(ref.nit))
+    np.testing.assert_allclose(ours.x.numpy()[:2], np.asarray(ref.x)[:2],
+                               rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(ours.x[0].numpy(), [2.0, 1.0], atol=1e-4)
+    np.testing.assert_allclose(ours.x[1].numpy(), [2.0, 1.0], atol=1e-6)
+
+
+def test_lm_nonlinear_lanes(rng):
+    """Exponential decays from scattered starts, clipped into a box:
+    accepted and rejected steps, the damping ratchet, per-lane freezing."""
+    t = np.linspace(0.0, 2.0, 40)
+    truth = np.column_stack([rng.uniform(1, 3, 12), rng.uniform(0.5, 2, 12)])
+    ys = truth[:, :1] * np.exp(-truth[:, 1:] * t[None, :]) + rng.normal(
+        0, 0.01, (12, 40))
+    x0 = np.tile([1.0, 1.0], (12, 1))
+    bounds = (np.asarray([0.1, 0.1]), np.asarray([5.0, 5.0]))
+    tt, jt = torch.as_tensor(t), jnp.asarray(t)
+    ours = toptim.batched_levenberg_marquardt(
+        lambda x, y: x[0] * torch.exp(-x[1] * tt) - y, x0, (ys,), bounds,
+        device="cpu")
+    ref = joptim.batched_levenberg_marquardt(
+        lambda x, y: x[0] * jnp.exp(-x[1] * jt) - y, jnp.asarray(x0),
+        (jnp.asarray(ys),), tuple(map(jnp.asarray, bounds)))
+    assert bool(ours.success.all())
+    np.testing.assert_array_equal(ours.nit.numpy(), np.asarray(ref.nit))
+    np.testing.assert_allclose(ours.x.numpy(), np.asarray(ref.x), rtol=1e-8)
+    np.testing.assert_allclose(ours.fun.numpy(), np.asarray(ref.fun),
+                               rtol=1e-8)
+    np.testing.assert_allclose(ours.x.numpy(), truth, rtol=0.05)
