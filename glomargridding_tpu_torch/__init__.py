@@ -11,7 +11,12 @@ kriges and draws ensembles straight off the factors (``models.lowrank``).
 The estimation path fits the per-gridpoint ellipse parameters that the
 non-stationary path consumes from a training cube
 (``models.ellipse.EllipseBuilder`` and ``EllipseModel``, on the batched
-optimisers of ``ops.optim``), in plain PyTorch.
+optimisers of ``ops.optim``), in plain PyTorch. Sampling and fitting:
+exact stationary draws on a regular grid by spherical-harmonic synthesis
+(``ops.sphere``), matrix-free Gaussian draws by Chebyshev matvecs
+(``ops.sampling``) and variogram parameters by maximum likelihood
+(``ops.variogram_fit``); Matern orders that are not half-integer take the
+general-order K_nu of ``ops.special``.
 On the card the kernels (``ops.cuda``) run; on the CPU, their plain
 PyTorch twins.
 Imports torch and numpy only; importing it builds nothing and changes
@@ -64,6 +69,14 @@ from .ops.covariance_tools import (
     simple_clipping,
 )
 from .ops.eigsh import PartialSpectrumError, adaptive_topk_eigh, topk_eigh
+from .ops.sampling import (
+    Matvec,
+    chebyshev_apply,
+    dense_matvec,
+    estimate_spectral_range,
+    kernel_matvec,
+    sample_mvn_chebyshev,
+)
 from .ops.variogram import (
     ExponentialVariogram,
     GaussianVariogram,
@@ -72,6 +85,7 @@ from .ops.variogram import (
     Variogram,
     variogram_to_covariance,
 )
+from .ops.variogram_fit import fit_variogram_mle, gp_negative_log_likelihood
 
 __all__ = [
     "RADIUS_OF_EARTH_KM",
@@ -85,6 +99,7 @@ __all__ = [
     "KrigingResult",
     "LowRankKrigingResult",
     "LowRankPSD",
+    "Matvec",
     "OrdinaryKriging",
     "PartialSpectrumError",
     "SimpleKriging",
@@ -93,12 +108,18 @@ __all__ = [
     "adaptive_topk_eigh",
     "batched_ensemble_step",
     "build_ellipse_covariance",
+    "chebyshev_apply",
     "crossval_from_covariance",
+    "dense_matvec",
     "eigenvalue_clip",
     "ellipse_covariance_operator",
     "ensemble_from_kernel",
+    "estimate_spectral_range",
     "explained_variance_clip",
     "explained_variance_clip_lowrank",
+    "fit_variogram_mle",
+    "gp_negative_log_likelihood",
+    "kernel_matvec",
     "kriging_crossval",
     "kriging_from_kernel",
     "laloux_clip",
@@ -112,6 +133,7 @@ __all__ = [
     "mv_normal_draw",
     "pad_month_observations",
     "precompute_states",
+    "sample_mvn_chebyshev",
     "simple_clipping",
     "topk_eigh",
     "variogram_kernel",

@@ -18,10 +18,11 @@ Every tile comes from the ellipse kernels of ``ops/cuda/ellipse`` for
 nu in {0.5, 1.5, 2.5, 3.5}: K2 builds the whole matrix (``use_pallas``,
 the bf16 store), K4 the row blocks and the stream's wide applications,
 and K3 the stream's narrow (<= 8 column) applications. On the card they
-are the CUDA kernels, on the CPU their plain twins. Any other order goes
-through ``ellipse_covariance_block``, the port of the reference's jnp
-tile, whose general-order K_nu raises ``NotImplementedError`` until it
-is ported.
+are the CUDA kernels, on the CPU their plain twins. Any other order goes,
+on every device, through ``ellipse_covariance_block``, the port of the
+reference's jnp tile, with the general-order K_nu of ``ops/special``: the
+reference routes such orders the same way
+(``glomargridding_tpu/models/ellipse/covariance.py:185-192,672-680``).
 """
 
 import logging

@@ -18,8 +18,8 @@ errors.
 - bootstrap standard errors are one batched Nelder-Mead over resample
   weights.
 
-Only half-integer Matern orders have a ``K_nu`` here
-(``ops.special.xv_kv``); any other order raises ``NotImplementedError``.
+``ops.special.xv_kv`` gives ``x**v K_v(x)`` for every order: the closed
+form for half-integer orders, the Temme/Steed ``kv`` otherwise.
 """
 
 import math

@@ -24,8 +24,6 @@ What differs from the reference, and why:
   left out (the card has native f64).
 - the reference's ``_stochastic_fused*`` programs are one dispatch of the
   same steps; here the steps are written once, in ``solve``.
-- ``precompute_states``'s spectral route waits for the port of
-  ``ops.sphere``.
 
 Numpy inputs go to `device`, by default the card
 (``utils.device.resolve_device``); tensors keep their device; outputs are
@@ -38,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.covariance_tools import _eigh, _normals
+from ..ops.sphere import SphericalHarmonicSampler
 from ..utils.device import resolve_device
 from .kriging import (
     Kriging,
@@ -348,11 +347,17 @@ def precompute_states(
     """Pre-compute a batch of simulated states for StochasticKriging.
 
     One draw costs as much as two hundred, so states are worth
-    precomputing. The dense route: pass `covariance`: one Cholesky
-    factor (eigen-repaired if it fails), batched L z draws from
-    `generator` or from `noise` of shape (n_states, M). The reference's
-    spectral route (`corr_fn`, `variance` and the regular grid: exact
-    stationary draws by spherical-harmonic synthesis) is not ported yet.
+    precomputing. Two routes:
+
+    - dense: pass `covariance`: one Cholesky factor (eigen-repaired if it
+      fails), batched L z draws from `generator` or from `noise` of
+      shape (n_states, M);
+    - spectral: pass `corr_fn` (isotropic correlation of the central
+      angle), `variance` and the regular `lats_deg`/`lons_deg` grid:
+      exact stationary draws by spherical-harmonic synthesis in f32
+      (``ops.sphere.SphericalHarmonicSampler`` with its defaults), from
+      `generator` or from `noise` as ``SphericalHarmonicSampler.draw``
+      takes it.
 
     Returns (n_states, M); feed rows to ``StochasticKriging.solve`` via
     `simulated_state=`.
@@ -368,10 +373,10 @@ def precompute_states(
         raise ValueError(
             "provide either covariance or (corr_fn, variance, grid axes)"
         )
-    raise NotImplementedError(
-        "the spectral route needs SphericalHarmonicSampler (ops.sphere), "
-        "which is not ported yet; pass `covariance`"
-    )
+    sampler = SphericalHarmonicSampler(corr_fn, variance, lats_deg,
+                                       lons_deg, nugget=nugget,
+                                       device=resolve_device(device))
+    return sampler.draw(n_states, generator=generator, noise=noise)
 
 
 def batched_ensemble_step(

@@ -8,14 +8,17 @@ row-major tile of ``variance - gamma(d)`` out. It is the counterpart of
 Pallas kernel ``matern_covariance_pallas``
 (``glomargridding_tpu/ops/pallas/pairwise.py:102-168``).
 
-Dispatch is by the tensors' device, decided before any launch: a CUDA
-tensor goes to the hand-written kernel (``csrc/pairwise_tile.cu``), built
-at first use, and a CPU tensor to ``pairwise_covariance_torch``, the
-plain PyTorch version of the same function. A CUDA call never falls back:
-if the build or the launch fails, it raises. The one configuration with
-no kernel is a Matern order that is not half-integer; it raises
-``NotImplementedError`` (``ops/special.py``) on every device, so nothing
-takes its place silently.
+Dispatch is by the tensors' device and the variogram, decided before any
+launch (``tile_route``): a CUDA tensor goes to the hand-written kernel
+(``csrc/pairwise_tile.cu``), built at first use, and a CPU tensor to
+``pairwise_covariance_torch``, the plain PyTorch version of the same
+function. The kernel has templates for the Matern orders 0.5, 1.5, 2.5
+and 3.5 and the other families; a Matern order outside them takes the
+plain tile on the card too (general-order K_nu, ``ops/special``), as the
+reference sends such orders to its jnp tile
+(``glomargridding_tpu/ops/pallas/pairwise.py:19``). That route is chosen
+from nu alone and counted (``pairwise_covariance.plain_tiles``). It is
+not a fallback: a kernel that fails to build or launch raises.
 """
 
 import ctypes
@@ -58,6 +61,15 @@ def _check_inputs(la1, lo1, la2, lo2, distance):
         raise ValueError("coordinates must lie on one device")
     if not all(c.is_contiguous() for c in coords):
         raise ValueError("coordinates must be contiguous")
+
+
+def tile_route(variogram: Variogram) -> str:
+    """"kernel" (K1) or "plain" (``pairwise_covariance_torch``): the route
+    of a CUDA tile, from the variogram alone."""
+    if variogram.kind == "matern" and float(variogram.nu) not in (
+            _MATERN_ORDERS):
+        return "plain"
+    return "kernel"
 
 
 def launch_args(variogram: Variogram, distance: str, variance, radius):
@@ -127,7 +139,8 @@ def pairwise_covariance(
 ):
     """(len(la1), len(la2)) covariance tile, radians in.
 
-    CUDA tensors run the hand-written kernel; CPU tensors run
+    CUDA tensors run the hand-written kernel, or the plain tile for a
+    Matern order it has no template for (``tile_route``); CPU tensors run
     ``pairwise_covariance_torch``. `variance` defaults to the sill.
     """
     _check_inputs(la1, lo1, la2, lo2, distance)
@@ -139,10 +152,16 @@ def pairwise_covariance(
         )
     if la1.device.type != "cuda":
         raise ValueError(f"unsupported device: {la1.device}")
+    if tile_route(variogram) == "plain":
+        pairwise_covariance.plain_tiles += 1
+        return pairwise_covariance_torch(
+            la1, lo1, la2, lo2, variogram, distance, variance, radius
+        )
     return _launch(la1, lo1, la2, lo2, variogram, distance, variance, radius)
 
 
 pairwise_covariance.launches = 0  # kernel launches, for run reports
+pairwise_covariance.plain_tiles = 0  # CUDA tiles on the plain route
 
 
 def _launch(la1, lo1, la2, lo2, variogram, distance, variance, radius):
@@ -211,4 +230,5 @@ __all__ = [
     "matern_covariance_cuda",
     "pairwise_covariance",
     "pairwise_covariance_torch",
+    "tile_route",
 ]

@@ -59,6 +59,10 @@ def _vario_kernel(
         scale = matern_scale(nu, method)
         inner = scale * (d / range_)
         corr = matern_left(nu) * xv_kv(nu, inner)
+        # d == 0 takes the nugget below; a finite corr there keeps the
+        # NaN of K_nu(0) out of the gradient in psill (the reference's
+        # gradient is NaN when a distance is exactly 0)
+        corr = torch.where(d == 0.0, 1.0, corr)
         out = psill * (1.0 - corr) + nugget
         out = torch.where(d == 0.0, torch.full_like(out, 1.0) * nugget, out)
     else:

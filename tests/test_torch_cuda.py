@@ -199,10 +199,41 @@ def test_kriging_uses_the_kernel_only(monkeypatch):
                                    atol=1e-12)
 
 
-def test_wrapper_raises_on_unsupported_order():
-    c = _coords(4, 4, torch.float64)
-    with pytest.raises(NotImplementedError):
-        tpair.pairwise_covariance(*c, MaternVariogram(range=1.0, nu=4.5))
+@pytest.mark.parametrize("nu", [1.0, 4.5])
+def test_other_orders_take_the_plain_tile(nu):
+    """A Matern order K1 has no template for takes the plain tile on the
+    card, chosen from nu: no launch, one plain tile counted, the CPU
+    tile's values."""
+    c = _coords(63, 129, torch.float64)
+    vario = MaternVariogram(psill=1.2, nugget=0.1, range=1500.0, nu=nu)
+    launches, plain = (tpair.pairwise_covariance.launches,
+                       tpair.pairwise_covariance.plain_tiles)
+    out = tpair.pairwise_covariance(*c, vario)
+    torch.cuda.synchronize()
+    assert tpair.pairwise_covariance.launches == launches
+    assert tpair.pairwise_covariance.plain_tiles == plain + 1
+    cpu = tpair.pairwise_covariance(*(a.cpu() for a in c), vario)
+    assert out.is_cuda
+    assert _rel(out.cpu(), cpu, 1.3) <= 1e-12
+
+
+def test_kernel_matvec_launches_k1_per_block():
+    """``kernel_matvec`` of a half-integer kernel: one K1 launch per row
+    block and application, the CPU twin's values."""
+    from glomargridding_tpu_torch.ops.sampling import kernel_matvec
+
+    g = np.random.default_rng(2)
+    la = np.radians(g.uniform(-80, 80, 1000))
+    lo = np.radians(g.uniform(-180, 180, 1000))
+    v = g.normal(size=(1000, 5))
+    kernel = tkk.variogram_kernel(MaternVariogram(psill=1.2, range=1200.0))
+    before = tpair.pairwise_covariance.launches
+    y = kernel_matvec(kernel, la, lo, n_blocks=7)(v)
+    torch.cuda.synchronize()
+    assert tpair.pairwise_covariance.launches - before == 7
+    cpu = kernel_matvec(kernel, la, lo, n_blocks=7, device="cpu")(v)
+    assert y.is_cuda
+    assert _rel(y.cpu(), cpu, cpu.abs().max().item()) <= 1e-12
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,9 @@ from glomargridding_tpu.ops import covariance_tools as jct
 from glomargridding_tpu.ops import distances as jdist
 from glomargridding_tpu.ops import eigsh as jeig
 from glomargridding_tpu.ops import optim as joptim
+from glomargridding_tpu.ops import sampling as jsamp
+from glomargridding_tpu.ops import sphere as jsphere
+from glomargridding_tpu.ops import variogram_fit as jfit
 from glomargridding_tpu.ops.variogram import MaternVariogram
 from glomargridding_tpu_torch import convert
 from glomargridding_tpu_torch.models import kernel_kriging as tkk
@@ -46,12 +49,18 @@ from glomargridding_tpu_torch.ops import covariance_tools as tct
 from glomargridding_tpu_torch.ops import distances as tdist
 from glomargridding_tpu_torch.ops import eigsh as teig
 from glomargridding_tpu_torch.ops import optim as toptim
+from glomargridding_tpu_torch.ops import sampling as tsamp
+from glomargridding_tpu_torch.ops import sphere as tsphere
+from glomargridding_tpu_torch.ops import variogram_fit as tfit
 from glomargridding_tpu_torch.ops.cuda import ellipse as tell
 from glomargridding_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-8, atol=1e-10)
+# the spectral route of precompute_states runs in f32 (the reference's
+# sampler default); its draws are O(1)
+F32_TOL = dict(rtol=0, atol=1e-4)
 OPERATOR_TOL = dict(rtol=2e-4, atol=2e-4)
 SOLVER_TOL = dict(rtol=1e-6, atol=1e-8)
 VARIO = MaternVariogram(psill=1.2, nugget=0.0, range=2000.0, nu=1.5)
@@ -406,6 +415,116 @@ def _precompute_states(rng):
             (jst.precompute_states(key, 4, covariance=cov),))
 
 
+def _sphere_grid():
+    return (np.arange(-75.0, 76.0, 30.0), np.arange(0.0, 360.0, 45.0),
+            jsphere.matern_correlation(1.5, 3000.0))
+
+
+def _sphere_normals(key, n, L, batch, nugget, M, dtype):
+    """The reference sampler's normals for ``draw(key, n)``
+    (tests/test_torch_sphere.py)."""
+    k = key
+    if nugget > 0:
+        k, kn = jax.random.split(key)
+    n_eff = batch * (-(-n // batch))
+    noise = [np.array(jax.random.normal(kk, (n_eff, L + 1, L + 1), dtype))[:n]
+             for kk in jax.random.split(k)]
+    if nugget > 0:
+        noise.append(np.array(jax.random.normal(kn, (n, M), dtype)))
+    return noise
+
+
+def _spherical_harmonic_sampler(rng):
+    lats, lons, corr = _sphere_grid()
+    key = jax.random.key(10)
+    kw = dict(l_max=16, nugget=0.1)
+    noise = _sphere_normals(key, 3, 16, 64, 0.1, lats.size * lons.size,
+                            jnp.float64)
+    return (lambda **d: (tsphere.SphericalHarmonicSampler(
+                corr, 1.2, lats, lons, dtype=torch.float64, **kw,
+                **d).draw(3, noise=noise),),
+            (jsphere.SphericalHarmonicSampler(
+                corr, 1.2, lats, lons, dtype=jnp.float64, **kw).draw(key, 3),))
+
+
+def _precompute_states_spectral(rng):
+    lats, lons, corr = _sphere_grid()
+    key = jax.random.key(11)
+    noise = _sphere_normals(key, 2, 3 * lats.size, 64, 0.05,
+                            lats.size * lons.size, jnp.float32)
+    kw = dict(corr_fn=corr, variance=1.1, lats_deg=lats, lons_deg=lons,
+              nugget=0.05)
+    return (lambda **d: (tst.precompute_states(2, noise=noise, **kw, **d),),
+            (jst.precompute_states(key, 2, **kw),))
+
+
+def _points(rng, n=40):
+    return (np.radians(rng.uniform(-70, 70, n)),
+            np.radians(rng.uniform(-180, 180, n)))
+
+
+def _kernel_matvec(rng):
+    la, lo = _points(rng)
+    v = rng.normal(size=(la.size, 3))
+    jkern, tkern = _kernels()
+    return (lambda **d: (tsamp.kernel_matvec(tkern, la, lo, n_blocks=3,
+                                             **d)(v),),
+            (jsamp.kernel_matvec(jkern, jnp.asarray(la), jnp.asarray(lo),
+                                 n_blocks=3)(jnp.asarray(v)),))
+
+
+def _estimate_spectral_range(rng):
+    """A float pair, put back on the call's device so that the card test
+    can tell where it ran."""
+    la, lo = _points(rng)
+    jkern, tkern = _kernels()
+    key = jax.random.key(12)
+    start = np.array(jax.random.normal(key, (la.size, 1), jnp.float64))
+
+    def port(**d):
+        lams = tsamp.estimate_spectral_range(
+            tsamp.kernel_matvec(tkern, la, lo, **d), la.size,
+            dtype=torch.float64, noise=start, **d)
+        return (torch.as_tensor(lams, dtype=torch.float64,
+                                device=d.get("device", "cuda")),)
+
+    return port, (jsamp.estimate_spectral_range(
+        jsamp.kernel_matvec(jkern, jnp.asarray(la), jnp.asarray(lo)),
+        la.size, key, dtype=jnp.float64),)
+
+
+def _sample_mvn_chebyshev(rng):
+    la, lo = _points(rng)
+    jkern, tkern = _kernels()
+    key = jax.random.key(13)
+    z = np.array(jax.random.normal(key, (la.size, 3), jnp.float64))
+    kw = dict(lam_min=0.05, lam_max=40.0, degree=30)
+    return (lambda **d: (tsamp.sample_mvn_chebyshev(
+                tsamp.kernel_matvec(tkern, la, lo, **d), la.size, 3,
+                dtype=torch.float64, noise=z, **kw, **d),),
+            (jsamp.sample_mvn_chebyshev(
+                key, jsamp.kernel_matvec(jkern, jnp.asarray(la),
+                                         jnp.asarray(lo)),
+                la.size, 3, dtype=jnp.float64, **kw),))
+
+
+def _fit_variogram_mle(rng):
+    """The fitted (psill, range, nugget), put back on the call's device."""
+    glat, glon, *_ = _grid_problem(rng)
+    idx = np.sort(rng.choice(glat.size, 60, replace=False))
+    d = np.array(jdist.haversine_matrix(glat[idx], glon[idx]))
+    cov = 1.2 - np.asarray(VARIO.fit(jnp.asarray(d))) + 0.1 * np.eye(60)
+    y = rng.multivariate_normal(np.zeros(60), cov)
+    kw = dict(nu=1.5, guesses=(0.8, 1500.0, 0.2), optimizer="Nelder-Mead")
+
+    def port(**k):
+        fit = tfit.fit_variogram_mle(d, y, **kw, **k)
+        return (torch.as_tensor(fit[:3], dtype=torch.float64,
+                                device=k.get("device", "cuda")),)
+
+    return port, (np.asarray(jfit.fit_variogram_mle(d, y, **kw)[:3]),)
+
+
 def _distance_matrix(name):
     def case(rng):
         a = rng.uniform(-80, 80, (2, 7))
@@ -631,6 +750,12 @@ CASES = {
     "batched_ensemble_step": _batched_ensemble_step,
     "mv_normal_draw": _mv_normal_draw,
     "precompute_states": _precompute_states,
+    "precompute_states_spectral": _precompute_states_spectral,
+    "SphericalHarmonicSampler": _spherical_harmonic_sampler,
+    "kernel_matvec": _kernel_matvec,
+    "estimate_spectral_range": _estimate_spectral_range,
+    "sample_mvn_chebyshev": _sample_mvn_chebyshev,
+    "fit_variogram_mle": _fit_variogram_mle,
 }
 
 SOLVER_CASES = {
@@ -638,16 +763,20 @@ SOLVER_CASES = {
     "laloux_clip", "eigenvalue_clip", "explained_variance_clip_lowrank",
     "laloux_clip_lowrank", "nelder_mead", "batched_nelder_mead",
     "batched_lbfgs", "batched_levenberg_marquardt", "EllipseModel.fit",
+    "fit_variogram_mle",
 }
 
 
 def tolerance(name):
-    """The parity bound of a case: the stream operator's diagonal term is
-    f32, everything else f64; what passes through the iterative partial
+    """The parity bound of a case: the stream operator's diagonal term and
+    the spectral draws are f32, everything else f64; what passes through
+    the iterative partial
     eigensolver or an optimiser is held to its convergence, not to
     roundoff."""
     if name in SOLVER_CASES:
         return SOLVER_TOL
+    if name == "precompute_states_spectral":
+        return F32_TOL
     return OPERATOR_TOL if name == "ellipse_covariance_operator" else TOL
 
 

@@ -311,9 +311,16 @@ def test_ellipse_covariance_block_f64(rng, nu, method, use_md):
 
 
 def test_block_general_order_not_ported(rng):
-    a = _torch_args(_jax_args(_fields(rng, 5, dtype=np.float64)))
-    with pytest.raises(NotImplementedError):
-        tcov.ellipse_covariance_block(*a, *a, v=1.2)
+    """A general order, which no kernel takes, goes through the jnp-tile
+    port with the general-order K_nu: the reference's tile, f64."""
+    jargs = _jax_args(_fields(rng, 9, dtype=np.float64))
+    a = _torch_args(jargs)
+    for use_md in (False, True):
+        ours = _np(tcov.ellipse_covariance_block(
+            *a, *a, v=1.2, max_dist=1500.0, use_max_dist=use_md))
+        ref = np.asarray(jcov.ellipse_covariance_block(
+            *jargs, *jargs, v=1.2, max_dist=1500.0, use_max_dist=use_md))
+        np.testing.assert_allclose(ours, ref, **F64)
 
 
 def _builder_inputs(rng, nlat=9, nlon=12, dtype=np.float64):
@@ -382,8 +389,13 @@ def test_builder_orders(rng):
     with pytest.raises(ValueError, match="half-integer"):
         ellipse_builder_from_inputs(*inp.values(), v=1.2, use_pallas=True,
                                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        ellipse_builder_from_inputs(*inp.values(), v=1.2, device="cpu")
+    # a general order builds by row blocks through the jnp-tile port
+    general = ellipse_builder_from_inputs(*inp.values(), v=1.2,
+                                          precision=np.float64,
+                                          device="cpu").cov_ns
+    ref = jcov.EllipseCovarianceBuilder(*inp.values(), v=1.2,
+                                        precision=np.float64).cov_ns
+    np.testing.assert_allclose(_np(general), np.asarray(ref), **F64)
     with pytest.raises(ValueError, match="delta_x_method"):
         ellipse_builder_from_inputs(*inp.values(), v=0.5,
                                     delta_x_method="Cylinder", device="cpu")

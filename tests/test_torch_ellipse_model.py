@@ -83,11 +83,17 @@ def test_taxonomy_and_refusals():
 
 
 def test_general_order_is_refused_not_replaced(rng):
-    jm, _ = _models(True, True, True, 1.5)
-    tm = tmodel.EllipseModel(True, True, True, 1.2, unit_sigma=True)
+    """A general order is computed by the general-order K_nu, not replaced
+    by a half-integer one: the reference's likelihood at v = 1.2, and
+    not the v = 1.5 one."""
+    jm, tm = _models(True, True, True, 1.2)
     X, y, _, p = _training(rng, jm)
-    with pytest.raises(NotImplementedError, match="general-order"):
-        tm.negative_log_likelihood(X[6:], y[6:], p, device="cpu")
+    ours = tm.negative_log_likelihood(X[6:], y[6:], p, device="cpu")
+    ref = jm.negative_log_likelihood(X[6:], y[6:], p)
+    np.testing.assert_allclose(float(ours), float(ref), rtol=RTOL)
+    other = _models(True, True, True, 1.5)[1].negative_log_likelihood(
+        X[6:], y[6:], p, device="cpu")
+    assert abs(float(other) - float(ours)) > 1e-3 * abs(float(ours))
 
 
 @pytest.mark.parametrize("v", [0.5, 1.5])

@@ -231,8 +231,13 @@ def test_stochastic_kriging_arguments(rng):
         k.constraint_mask()
     with pytest.raises(ValueError, match="provide either"):
         tst.precompute_states(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="SphericalHarmonicSampler"):
-        tst.precompute_states(2, corr_fn=np.cos, variance=1.0, device="cpu")
+    # the spectral route (held against the JAX package in
+    # test_torch_sphere.py)
+    states = tst.precompute_states(
+        2, corr_fn=lambda g: np.exp(-g), variance=1.0,
+        lats_deg=np.arange(-60.0, 61.0, 30.0),
+        lons_deg=np.arange(0.0, 360.0, 60.0), device="cpu")
+    assert states.shape == (2, 30) and bool(torch.isfinite(states).all())
 
 
 def test_stochastic_kriging_rescues_an_indefinite_covariance(rng):
