@@ -46,7 +46,19 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
   partial clip at 2,048-16,384, ``to_dense()`` at 64,800, and a clip
   that has to widen, locking its converged pairs and locking none, on
   the bf16 store at 16,200 and 64,800 cells and on the 259,200-cell
-  stream.
+  stream;
+- phases 20-24, sampling and fitting: K_nu of general order, the sphere
+  and Chebyshev samplers, the variogram MLE, and
+  ``examples/nonstationary_1deg_pipeline.py`` with nothing cut;
+- phases 25-27, the host-side modules on their paths: the HadSST4 /
+  HadCRUT5 workflow at 5 degrees (``examples/torch_hadsst_workflow.py``:
+  the ESA-CCI ellipse fit, K2, the f64 clip, the error covariance, the
+  observations mapped to the grid, leave-one-out scores, kriging and a
+  perturbed member, for March 2014 and March 1876) against f64 and the
+  stored TPU run; the 41-March ESA-CCI scan
+  (``examples/torch_esa_months_scan.py``, K1); and 2,000,000 raw
+  observations binned on the card, a 10,000-record error covariance
+  reduced to its 5,000 gridboxes and 64,800-cell kriging (K1).
 
 Usage, from the repository root, with no arguments:
 
@@ -76,6 +88,15 @@ from itertools import product
 
 import numpy as np
 import torch
+
+from glomargridding_tpu_torch.utils.roofline import (
+    K1_FLOPS,
+    K1_POINT_TRANSCENDENTALS,
+    K1_TRANSCENDENTALS,
+    K3_CONTRACT_FLOPS,
+    bound,
+    ellipse_bound,
+)
 
 N_OBS = 5000
 N_MEMBERS = 100
@@ -293,23 +314,35 @@ PIPE_CLIP_KW = dict(k0=1024, max_rank=4096, rank_multiple=128)
 PIPE_OBS_NOISE, PIPE_E = 0.3, 0.09
 PIPE_QC0_SHARE = 0.8
 
-# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet) for the kernels'
-# bounds: HBM bytes/s, f32 flop/s outside the tensor cores (an FMA counts
-# two), and transcendentals/s (16 per clock per SM x 132 SMs x 1.98 GHz).
-HBM_BYTES_S = 3.35e12
-F32_FLOPS_S = 67e12
-TRANSCENDENTALS_S = 4.18e12
-# Work per pair, counted from the sources (csrc/*.cu). K1 (haversine,
-# Matern nu = 0.5): 43 flops and 3 transcendentals (2 sqrt, exp) a pair,
-# from each point's half-angle trig (sin and cos of lat/2 and lon/2, cos
-# lat: 5 transcendentals a point, counted once per point). The ellipse
-# pair: its cutoff test 11 flops; its value 31 flops and 3
-# transcendentals (rsqrt, sqrt, exp) at nu = 1.5, needed only for a pair
-# within the cutoff; K3 adds 32 flops per such pair (two 8-wide
-# contractions).
-K1_FLOPS, K1_TRANSCENDENTALS, K1_POINT_TRANSCENDENTALS = 43, 3, 5
-CUT_FLOPS, PAIR_FLOPS, PAIR_TRANSCENDENTALS = 11, 31, 3
-K3_CONTRACT_FLOPS = 32
+# --- the host-side paths (phases 25-27)
+# The card's machine has no h5py (``import h5py`` raises
+# ModuleNotFoundError there), so phases 25 and 26 read the workflow inputs
+# from the bundle that the port's ``io.load_array`` wrote from the netCDF
+# files (``examples/torch_workflow_data.py``), and phase 27's netCDF and
+# LowRankPSD round trips run only in the CPU tests
+# (``tests/test_torch_io.py``).
+WORKFLOW_TOL = KRIGING_TOL  # f32 against f64 on the card
+STORED_RUN = "examples/outputs/hadsst_workflow_fields.npz"
+STORED_TOL = 1e-3  # the stationary fields of the stored TPU run (f32)
+# the 5-degree ESA fit, f32 against f64 on the lanes both fit with QC 0:
+# the share of lanes within FIT_REL_TOL, Lx and Ly each (95.5-95.6% of
+# 1,483 lanes measured on an NVIDIA H100 80GB HBM3); the f32 fit at the
+# wrong order (nu = 0.5) is the control that must fall under it
+WORKFLOW_FIT_SHARE = 0.9
+SPARSE_ERA = (1876, 94)  # (year, HadSST4 member)
+# phase 27: raw observations over the main path's 5,000 cells of the
+# 1-degree grid
+RAW_OBS = 2_000_000
+RAW_MAX_PER_BOX = 800
+RAW_JITTER_DEG = 0.45
+RAW_NOISE = 0.3
+RAW_MEAN_RTOL = 1e-12
+RECORDS_PER_BOX = 2
+RECORD_SIGMA = {"ship": 0.6, "drifting_buoy": 0.25, "moored_buoy": 0.3,
+                "argo": 0.1}
+N_PLATFORMS = 400
+PLATFORM_BIAS_RANGE = (0.05, 0.3)
+GRIDBOX_ERROR_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
 def sync():
@@ -405,25 +438,6 @@ def check(label, value, bound):
     if not value <= bound:
         raise AssertionError(f"{label}: {value:.3e} > {bound}")
     return value
-
-
-def bound(bytes_moved, flops, transcendentals):
-    """(bound_ms, bound_by) of a kernel call: the larger of the bytes it
-    must move (each input read once, each output written once) over HBM's
-    rate and its operations over their peak rates."""
-    bytes_ms = bytes_moved / HBM_BYTES_S * 1e3
-    ops_ms = max(flops / F32_FLOPS_S,
-                 transcendentals / TRANSCENDENTALS_S) * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                             "operations")
-
-
-def ellipse_bound(bytes_moved, pairs, kept, extra_flops=0):
-    """The ellipse kernels' bound: every pair's cutoff test (when
-    `pairs` is nonzero) and the value of the `kept` pairs."""
-    return bound(bytes_moved,
-                 pairs * CUT_FLOPS + kept * (PAIR_FLOPS + extra_flops),
-                 kept * PAIR_TRANSCENDENTALS)
 
 
 def ptxas_summary(library, kernels):
@@ -830,6 +844,12 @@ def main():
     kernels[0]["launches"] += k1_matvec
     next(k for k in kernels if k["name"] == "ellipse_sym")[
         "launches"] += k2_pipeline
+    # phases 25-27: K2 on the 5-degree workflow, K1 on the months scan and
+    # the raw-observation kriging
+    k1_host, k2_host = host_side_paths(dev)
+    kernels[0]["launches"] += k1_host
+    next(k for k in kernels if k["name"] == "ellipse_sym")[
+        "launches"] += k2_host
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -3094,6 +3114,526 @@ def sampling_and_fitting(dev, glat, glon, obs):
     phase23_variogram_mle(dev, glat, glon, obs)
     k2_pipeline = phase24_nonstationary_pipeline(dev)
     return k1_matvec, k2_pipeline
+
+
+# ---------------------------------------------------------------------------
+# phases 25-27: the host-side modules on their paths
+# ---------------------------------------------------------------------------
+def examples_module(name):
+    """Import a module of ``examples/`` (the paths users run)."""
+    import importlib
+    import os
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    return importlib.import_module(name)
+
+
+def workflow_errs(a, b, keys):
+    """Each output of `keys` of one workflow run against another's: a
+    field relative to max |field|, an uncertainty to the sill's root, a
+    constraint mask absolute."""
+    out = {}
+    for key in keys:
+        scale = (PSILL**0.5 if key.startswith("uncert")
+                 else 1.0 if key.startswith("mask") else None)
+        if not bool(torch.isfinite(a[key]).all()):
+            raise AssertionError(f"non-finite {key}")
+        out[key] = max_rel(a[key], b[key], scale)
+    return out
+
+
+STATIONARY_KEYS = ("anom_stat", "uncert_stat", "mask_stat")
+NON_STATIONARY_KEYS = ("anom_non_stat", "uncert_non_stat", "mask_non_stat",
+                       "perturbed_anom")
+
+
+def first_call_costs(wf, dev):
+    """What the workflow's first stage spends on its first call in this
+    process, paid here so that the timed runs do not carry it: the
+    ``import pandas`` that the distance matrix makes, then the stage once
+    under cProfile (its five costliest functions by own time) and once
+    more."""
+    import cProfile
+    import importlib
+    import os
+    import pstats
+
+    loaded = "pandas" in sys.modules
+    t0 = time.perf_counter()
+    importlib.import_module("pandas")
+    pandas_s = time.perf_counter() - t0
+    grid = wf.global_grid()
+    prof = cProfile.Profile()
+    sync()
+    t0 = time.perf_counter()
+    prof.enable()
+    wf.stationary_covariance(grid, torch.float32, dev)
+    sync()
+    prof.disable()
+    first_s = time.perf_counter() - t0
+    _, second_s = timed_s(
+        lambda: wf.stationary_covariance(grid, torch.float32, dev))
+    own = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: kv[1][2], reverse=True)[:5]
+    top = "|".join(f"{os.path.basename(f)}:{name}={v[2]:.4f}"
+                   for (f, _, name), v in own)
+    print(f"phase 25 first_call pandas_loaded_before={loaded} "
+          f"pandas_import_s={pandas_s:.4f} "
+          f"stationary_covariance_first_s={first_s:.4f} (under cProfile) "
+          f"stationary_covariance_second_s={second_s:.4f} "
+          f"first_call_own_s={top}", flush=True)
+
+
+def workflow_oracle(wf, load, fields, lat, lon, dev, eras):
+    """The workflow's stages after the fit in f64 on the card, on the
+    ellipses `fields`, for each (year, member) of `eras`; returns
+    ({year: outputs}, the step pairs, K2's errors).
+
+    K2 first: its f32 and f64 builds of the fitted points are the
+    builders' covariances bit for bit, and each is held against the plain
+    K2 on the same points to ELLIPSE_RTOL, every pair included. The f64
+    covariance then takes the pairs of fitted points exactly 180 degrees
+    of longitude apart from the f32 build: at those pairs the reference's
+    formula has a step (the wrap of a +-pi longitude difference, which f32
+    and f64 take to opposite sides for a rotated ellipse; 7.1e-3 of max
+    |C| on the stored run's ellipses, 2.0e-7 at every other pair, in the
+    JAX package as in the port, ``tests/test_torch_workflow.py``), so f64
+    there would measure the step, not f32's rounding."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    f32, f64 = torch.float32, torch.float64
+    builders = {d: wf.ellipse_covariance(fields, lat, lon, d, dev)
+                for d in (f32, f64)}
+    k2_err = {}
+    for dtype, b in builders.items():
+        tag = "f64" if dtype == f64 else "f32"
+        P = builder_points(b)
+        args = (b.v, b.delta_x_method, b.max_dist)
+        k2 = te.ellipse_sym(P, *args)
+        if not torch.equal(k2, b.cov_ns):
+            raise AssertionError(f"the {tag} builder's covariance is not K2's")
+        k2_err[tag] = check(
+            f"K2 at the workflow's {P.shape[0]} points, {tag}",
+            max_rel(k2, te.ellipse_sym_torch(P, *args)), ELLIPSE_RTOL[dtype])
+        del k2
+    b32, b64 = builders[f32], builders[f64]
+    fitted = np.asarray(fields["Lx"]).reshape(-1) > 0
+    lons = np.tile(np.asarray(lon, np.float64), len(lat))[fitted]
+    step = torch.as_tensor(np.abs(lons[:, None] - lons[None, :]) == 180.0,
+                           device=dev)
+    b64.cov_ns = torch.where(step, b32.cov_ns.to(f64), b64.cov_ns)
+    covs = {"stat": wf.stationary_covariance(wf.global_grid(), f64, dev),
+            "non_stat": wf.repaired_covariance(b64)}
+    out = {}
+    for year, member in eras:
+        error_cov = wf.error_covariance(load, year)
+        idx, obs = wf.member_observations(load, wf.global_grid(), year,
+                                          member)
+        o = out[year] = {}
+        for name, cov in covs.items():
+            (o[f"anom_{name}"], o[f"uncert_{name}"],
+             o[f"mask_{name}"]) = wf.krige(cov, idx, obs, error_cov)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        o["perturbed_anom"] = wf.perturbed_member(
+            covs["non_stat"], idx, obs, error_cov, gen)
+    return out, int(step.sum()), k2_err
+
+
+def phase25_hadsst_workflow(dev):
+    """examples/torch_hadsst_workflow.py on the card with nothing cut: the
+    5-degree grid (2,592 cells), the ellipse fit on the whole 41-March
+    ESA-CCI cube, K2, the f64 clip, HadCRUT5's 2,592-cell error
+    covariance, March 2014 (member 71) and March 1876 (member 94, the
+    sparse era, the same ellipses). Each f32 run (the stationary
+    covariance and kriging, the cube, the fit and K2 in f32; the clip and
+    what follows it in f64, as the example has it) against the same
+    stages in f64 on the card, on the f32 run's ellipses
+    (``workflow_oracle``, which also holds K2 at these points against its
+    plain twin); the f32 fit against the f64 fit by share of lanes, and
+    the f32 fit at the wrong order (nu = 0.5) as the control that must
+    fall under that bound; the stationary fields against the stored TPU
+    run. Returns K2's launches."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    wf = examples_module("torch_hadsst_workflow")
+    load = examples_module("torch_workflow_data").bundle_loader()
+    f32, f64 = torch.float32, torch.float64
+
+    def run(dtype, **kw):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return wf.run(device=dev, dtype=dtype, load=load, generator=gen,
+                      verbose=False, **kw)
+
+    first_call_costs(wf, dev)
+    reset_ellipse_counts()
+    out32, wall = timed_s(lambda: run(f32))
+    k2 = require_launches("K2 on the 5-degree workflow",
+                          te.ellipse_sym.launches)
+    params = out32["ellipse_params"]
+    sparse = dict(zip(("year", "member"), SPARSE_ERA))
+    reset_ellipse_counts()
+    old32, old_wall = timed_s(lambda: run(f32, ellipse_params=params,
+                                          **sparse))
+    k2 += require_launches("K2 on the 1876 workflow",
+                           te.ellipse_sym.launches)
+
+    cube, lat, lon, coords = wf.training_cube(load, f64)
+    fit64, fit64_s = timed_s(lambda: wf.fit_ellipses(cube, coords, dev))
+    cube, _, _, coords = wf.training_cube(load, f32)
+    wrong, wrong_s = timed_s(lambda: wf.fit_ellipses(cube, coords, dev,
+                                                     v=0.5))
+    del cube
+
+    def rows(p):
+        return np.stack([np.asarray(p[n].values).reshape(-1)
+                         for n in ("Lx", "Ly", "theta")], axis=1)
+
+    def qc0(p):
+        return np.asarray(p["qc_code"].values).reshape(-1) == 0
+
+    fitted = rows(params)[:, 0] > 0
+    if not np.array_equal(fitted, rows(fit64)[:, 0] > 0):
+        raise AssertionError("the f32 and f64 fits cover other points")
+    keep = fitted & qc0(params) & qc0(fit64)
+    dev_fit = fit_deviation(rows(params), rows(fit64), keep)
+    shares = {n: share_within(dev_fit, [n]) for n in dev_fit}
+    keep_wrong = fitted & qc0(wrong) & qc0(fit64)
+    dev_wrong = fit_deviation(rows(wrong), rows(fit64), keep_wrong)
+    wrong_shares = {n: share_within(dev_wrong, [n]) for n in dev_wrong}
+    for name in ("Lx_rel", "Ly_rel"):
+        check(f"workflow fit {name}: share of lanes off the f64 fit",
+              1.0 - shares[name], 1.0 - WORKFLOW_FIT_SHARE)
+        if not wrong_shares[name] < WORKFLOW_FIT_SHARE:
+            raise AssertionError(
+                f"the nu = 0.5 control passes the fit's bound on {name}: "
+                f"{wrong_shares[name]:.4f} >= {WORKFLOW_FIT_SHARE}")
+    fields = {n: params[n].values for n in ("Lx", "Ly", "theta",
+                                            "standard_deviation")}
+    oracle, step_pairs, k2_err = workflow_oracle(
+        wf, load, fields, lat, lon, dev,
+        ((wf.YEAR, wf.MEMBER), SPARSE_ERA))
+    errs = workflow_errs(out32, oracle[wf.YEAR],
+                         STATIONARY_KEYS + NON_STATIONARY_KEYS)
+    errs_old = workflow_errs(old32, oracle[SPARSE_ERA[0]],
+                             STATIONARY_KEYS + NON_STATIONARY_KEYS)
+    for label, e in (("2014", errs), ("1876", errs_old)):
+        bad = {k: v for k, v in e.items() if not v <= WORKFLOW_TOL}
+        if bad:
+            raise AssertionError(f"workflow {label}: f32 vs f64 {bad}")
+    cv = {f"{k}_{s}": float(getattr(out32[f"cv_{k}"], s))
+          for k in ("stat", "non_stat") for s in ("rmse", "mssr")}
+
+    with np.load(STORED_RUN) as z:
+        stored = {k: torch.as_tensor(z[k], device=dev) for k in z.files}
+    if not np.array_equal(out32["grid_idx"], stored["grid_idx"].cpu()):
+        raise AssertionError("the 2014 gridboxes differ from the stored run")
+    vs_stored = {
+        "anom_stat": check("stationary field vs the stored run",
+                           max_rel(out32["anom_stat"], stored["anom_stat"]),
+                           STORED_TOL),
+        "uncert_stat": check("stationary uncertainty vs the stored run",
+                             max_rel(out32["uncert_stat"],
+                                     stored["uncert_stat"], PSILL**0.5),
+                             STORED_TOL)}
+    # not bounded: the stored non-stationary fields come from another
+    # state of the fit (its ellipses differ from today's f64 fit)
+    gap = (out32["anom_non_stat"].double() - stored["anom_non_stat"]).abs()
+    stored_rel = max_rel(out32["anom_non_stat"], stored["anom_non_stat"])
+    stored_share = {
+        n: float(np.mean(np.abs(np.asarray(fit64[n].values)[fitted.reshape(
+            36, 72)] / stored[f"ellipse_{n}"].cpu().numpy()[fitted.reshape(
+                36, 72)] - 1.0) <= FIT_REL_TOL)) for n in ("Lx", "Ly")}
+    phase(25, "hadsst_workflow_5deg", cells=2592,
+          fitted=int(fitted.sum()), obs_2014=len(out32["grid_idx"]),
+          obs_1876=len(old32["grid_idx"]), k2_launches=k2, tol=WORKFLOW_TOL,
+          **{f"k2_vs_plain_{k}": f"{v:.3e}" for k, v in k2_err.items()},
+          k2_bounds=f"f64:{ELLIPSE_RTOL[f64]}|f32:{ELLIPSE_RTOL[f32]}",
+          **{f"f32_vs_f64_{k}": f"{v:.3e}" for k, v in errs.items()},
+          **{f"f32_vs_f64_1876_{k}": f"{v:.3e}"
+             for k, v in errs_old.items()},
+          step_pairs=step_pairs,
+          **{f"fit_share_{k}": f"{v:.4f}" for k, v in shares.items()},
+          fit_lanes=int(keep.sum()), fit_share_bound=WORKFLOW_FIT_SHARE,
+          **{f"control_nu05_share_{k}": f"{v:.4f}"
+             for k, v in wrong_shares.items()},
+          control_lanes=int(keep_wrong.sum()),
+          **{f"stored_{k}": f"{v:.3e}" for k, v in vs_stored.items()},
+          stored_tol=STORED_TOL,
+          stored_non_stat_max_abs=f"{gap.max().item():.4f}",
+          stored_non_stat_rel=f"{stored_rel:.3e}",
+          **{f"stored_ellipse_share_{k}": f"{v:.4f}"
+             for k, v in stored_share.items()},
+          **{f"cv_{k}": f"{v:.4f}" for k, v in cv.items()},
+          run_2014_s=f"{wall:.3f}", run_1876_s=f"{old_wall:.3f}",
+          fit_f64_s=f"{fit64_s:.3f}", fit_nu05_f32_s=f"{wrong_s:.3f}",
+          inputs="bundle")
+    print("phase 25 stages_s " + " ".join(
+        f"{k.replace(' ', '_')}={v:.4f}" for k, v in out32["times"].items()),
+        flush=True)
+    print("phase 25 stages_1876_s " + " ".join(
+        f"{k.replace(' ', '_')}={v:.4f}" for k, v in old32["times"].items()),
+        flush=True)
+    return k2
+
+
+def scan_tiles_vs_plain(scan, load, dev):
+    """K1 on every tile the months scan asks of it (each month's K over
+    its padded slots and its row blocks over the grid, as
+    ``months_scan_kriging`` cuts them), in f32 and f64, against the plain
+    tile on the same inputs, relative to the kernel's variance, to
+    TILE_RTOL. Returns the largest error of each precision."""
+    from glomargridding_tpu_torch.models.kernel_kriging import _blocks, _grid
+    from glomargridding_tpu_torch.ops.cuda.pairwise import (
+        pairwise_covariance_torch,
+    )
+
+    kernel = scan.scan_kernel()
+    plain = (kernel.variogram, kernel.distance, kernel.var, kernel.radius)
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        glat, glon, idx_m, *_ = scan.month_observations(load, dtype)
+        la, lo = _grid(glat, glon, dev)
+        idx_m = torch.as_tensor(idx_m, device=dev).long()
+        worst[tag] = 0.0
+        for t in range(idx_m.shape[0]):
+            la_o, lo_o = la[idx_m[t]], lo[idx_m[t]]
+            blocks = _blocks(la.shape[0], scan.N_BLOCKS)
+            cols = [(la_o, lo_o)] + [(la[a:b], lo[a:b]) for a, b in blocks]
+            for la_c, lo_c in cols:
+                rel = max_rel(kernel(la_o, lo_o, la_c, lo_c),
+                              pairwise_covariance_torch(
+                                  la_o, lo_o, la_c, lo_c, *plain),
+                              kernel.var)
+                worst[tag] = max(worst[tag], check(
+                    f"K1 scan tile {tag} month {t} "
+                    f"{la_o.shape[0]}x{la_c.shape[0]}", rel,
+                    TILE_RTOL[dtype]))
+    return worst
+
+
+def phase26_esa_months_scan(dev):
+    """examples/torch_esa_months_scan.py on the card: 41 Marches, padded
+    and kriged by ``months_scan_kriging`` (K1 tiles), without and with
+    the diagnostics, f32 against f64. Returns K1's launches."""
+    from glomargridding_tpu_torch.ops.cuda.pairwise import (
+        pairwise_covariance,
+    )
+
+    scan = examples_module("torch_esa_months_scan")
+    load = examples_module("torch_workflow_data").bundle_loader()
+    pairwise_covariance.launches = 0
+    out32 = scan.run(device=dev, dtype=torch.float32, load=load,
+                     verbose=False)
+    sync()
+    k1 = require_launches("K1 on the months scan",
+                          pairwise_covariance.launches)
+    out64 = scan.run(device=dev, dtype=torch.float64, load=load,
+                     verbose=False)
+    k1_err = scan_tiles_vs_plain(scan, load, dev)
+    keys = {"fields": None, "fields_only": None,
+            "uncertainty": PSILL**0.5, "constraint_mask": 1.0}
+    errs = {}
+    for key, scale in keys.items():
+        if not bool(torch.isfinite(out32[key]).all()):
+            raise AssertionError(f"non-finite {key}")
+        errs[key] = check(f"months scan {key}, f32 vs f64",
+                          max_rel(out32[key], out64[key], scale),
+                          WORKFLOW_TOL)
+    n_months = out32["fields"].shape[0]
+    if tuple(out32["fields"].shape) != (41, 2592):
+        raise AssertionError(f"fields {tuple(out32['fields'].shape)}")
+    counts = out32["counts"]
+    phase(26, "esa_months_scan", months=n_months,
+          obs_per_month=f"{min(counts)}..{max(counts)}", k1_launches=k1,
+          **{f"k1_vs_plain_{k}": f"{v:.3e}" for k, v in k1_err.items()},
+          k1_bounds=f"f64:{TILE_RTOL[torch.float64]}"
+                    f"|f32:{TILE_RTOL[torch.float32]}",
+          tol=WORKFLOW_TOL,
+          **{f"f32_vs_f64_{k}": f"{v:.3e}" for k, v in errs.items()},
+          **{f"f32_{k.replace(' ', '_').replace('+', '_')}_ms_per_month":
+             f"{v / n_months * 1e3:.4f}" for k, v in out32["times"].items()},
+          **{f"f64_{k.replace(' ', '_').replace('+', '_')}_ms_per_month":
+             f"{v / n_months * 1e3:.4f}" for k, v in out64["times"].items()})
+    return k1
+
+
+def raw_observations(glat, glon, idx, y):
+    """RAW_OBS raw observations over the cells `idx` (sorted): 1 to
+    RAW_MAX_PER_BOX a box, summing to RAW_OBS, positions jittered within
+    RAW_JITTER_DEG of the centre, values y + N(0, RAW_NOISE). numpy f64;
+    also the box each came from."""
+    rng = np.random.default_rng(SEED + 27)
+    n = idx.size
+    weights = rng.integers(1, RAW_MAX_PER_BOX + 1, n)
+    counts = np.clip(np.floor(weights * RAW_OBS / weights.sum()), 1,
+                     RAW_MAX_PER_BOX).astype(np.int64)
+    while counts.sum() != RAW_OBS:  # top up (or trim) boxes in range
+        short = RAW_OBS - counts.sum()
+        room = np.nonzero(counts < RAW_MAX_PER_BOX if short > 0
+                          else counts > 1)[0]
+        pick = rng.choice(room, min(abs(short), room.size), replace=False)
+        counts[pick] += np.sign(short)
+    box = np.repeat(idx, counts)
+    lats = glat[box] + rng.uniform(-RAW_JITTER_DEG, RAW_JITTER_DEG, RAW_OBS)
+    lons = glon[box] + rng.uniform(-RAW_JITTER_DEG, RAW_JITTER_DEG, RAW_OBS)
+    values = np.repeat(y, counts) + RAW_NOISE * rng.normal(size=RAW_OBS)
+    return lats, lons, values, box, counts
+
+
+def observation_records(glat, glon, idx):
+    """RECORDS_PER_BOX records a box: a frame with the box's 1-d index,
+    position, a data type and a platform."""
+    import pandas as pd
+
+    rng = np.random.default_rng(SEED + 28)
+    box = np.repeat(idx, RECORDS_PER_BOX)
+    n = box.size
+    return pd.DataFrame({
+        "grid_idx": box,
+        "lat": glat[box] + rng.uniform(-RAW_JITTER_DEG, RAW_JITTER_DEG, n),
+        "lon": glon[box] + rng.uniform(-RAW_JITTER_DEG, RAW_JITTER_DEG, n),
+        "data_type": rng.choice(list(RECORD_SIGMA), n),
+        "platform": rng.integers(0, N_PLATFORMS, n),
+    })
+
+
+def phase27_raw_observations(dev):
+    """Raw observations to a 1-degree field: RAW_OBS observations over the
+    main path's 5,000 cells through ``aggregate_observations`` on the
+    card against a numpy f64 oracle; 2 records a box through the
+    observation-error components, ``get_weights`` and
+    ``gridbox_error_covariance`` (a dense 5,000^2 error covariance); then
+    ``kriging_from_kernel`` at 64,800 cells (K1), f32 against f64.
+    Returns K1's launches."""
+    from glomargridding_tpu_torch import (
+        aggregate_observations,
+        correlated_components,
+        get_weights,
+        grid_from_resolution,
+        gridbox_error_covariance,
+        kriging_from_kernel,
+        uncorrelated_components,
+        variogram_kernel,
+        MaternVariogram,
+    )
+    from glomargridding_tpu_torch.ops.cuda.pairwise import (
+        pairwise_covariance,
+    )
+
+    grid = grid_from_resolution(1, [(-89.5, 90), (-179.5, 180)],
+                                ["lat", "lon"])
+    glat = np.repeat(grid.coords["lat"], grid.shape[1])
+    glon = np.tile(grid.coords["lon"], grid.shape[0])
+    idx_t, y_t, _ = observations(glat.size, dev)
+    idx, y = idx_t.cpu().numpy(), y_t.cpu().numpy().astype(np.float64)
+    (lats, lons, values, box, counts), gen_s = timed_s(
+        lambda: raw_observations(glat, glon, idx, y))
+
+    def ingest():
+        return aggregate_observations(lats, lons, values, grid, device=dev)
+
+    (u, means, n), first_s = timed_s(ingest)
+    walls = []
+    for _ in range(REPEATS):
+        walls.append(timed_s(ingest)[1])
+    ingest_s = statistics.median(walls)
+    t0 = time.perf_counter()
+    oracle_sum = np.bincount(box, weights=values, minlength=glat.size)
+    oracle_count = np.bincount(box, minlength=glat.size)
+    oracle_box = np.nonzero(oracle_count)[0]
+    oracle_mean = oracle_sum[oracle_box] / oracle_count[oracle_box]
+    oracle_s = time.perf_counter() - t0
+    # a box's sum is conditioned by the sum of its values' magnitudes:
+    # summed in any order its error is below (count - 1) u sum |v|
+    # (Higham, Accuracy and Stability, 4.2), so each mean is held
+    # relative to its box's mean |value|, which any order of atomics
+    # meets with room (800 x 1.1e-16); relative to the mean itself a box
+    # whose values cancel has no bound, and that is printed only
+    oracle_abs = (np.bincount(box, weights=np.abs(values),
+                              minlength=glat.size)[oracle_box]
+                  / oracle_count[oracle_box])
+    if not (np.array_equal(u.cpu().numpy(), oracle_box)
+            and np.array_equal(n.cpu().numpy(), oracle_count[oracle_box])
+            and np.array_equal(oracle_box, idx)):
+        raise AssertionError("aggregate_observations: boxes or counts "
+                             "differ from the numpy oracle")
+    mean_gap = np.abs(means.cpu().numpy() - oracle_mean)
+    mean_rel = check("aggregate_observations means vs numpy f64",
+                     float(np.max(mean_gap / oracle_abs)), RAW_MEAN_RTOL)
+
+    t0 = time.perf_counter()
+    records = observation_records(glat, glon, idx)
+    rng = np.random.default_rng(SEED + 29)
+    bias = dict(enumerate(rng.uniform(*PLATFORM_BIAS_RANGE, N_PLATFORMS)))
+    E = uncorrelated_components(records, "data_type",
+                                obs_sig_map=RECORD_SIGMA)
+    E += correlated_components(records, "platform", bias_sig_map=bias)
+    W = get_weights(records)
+    host_s = time.perf_counter() - t0
+    Eg = {dtype: gridbox_error_covariance(W.astype(np_dtype), E,
+                                          device=dev)
+          for dtype, np_dtype in ((torch.float32, np.float32),
+                                  (torch.float64, np.float64))}
+    wewt_ms = cuda_time_ms(lambda: gridbox_error_covariance(
+        W.astype(np.float32), E, device=dev), iters=3)
+    wewt_err = check("W E W' f32 vs f64", max_rel(Eg[torch.float32],
+                                                  Eg[torch.float64]),
+                     GRIDBOX_ERROR_RTOL[torch.float32])
+    # the f64 product against the host's
+    host_wewt = W @ E @ W.T
+    wewt_host_err = check(
+        "W E W' f64 on the card vs numpy", max_rel(
+            Eg[torch.float64], torch.as_tensor(host_wewt, device=dev)),
+        GRIDBOX_ERROR_RTOL[torch.float64])
+    del E, W, host_wewt
+
+    kernel = variogram_kernel(MaternVariogram(psill=PSILL, range=RANGE_KM,
+                                              nu=0.5), distance="haversine")
+    glat_t = torch.as_tensor(glat, device=dev)
+    glon_t = torch.as_tensor(glon, device=dev)
+
+    def krige(dtype):
+        return kriging_from_kernel(
+            kernel, glat_t.to(dtype), glon_t.to(dtype), u, means.to(dtype),
+            error_cov=Eg[dtype], variance=PSILL, method="ordinary",
+            n_blocks=16)
+
+    pairwise_covariance.launches = 0
+    res32, krige_s = timed_s(lambda: krige(torch.float32))
+    k1 = require_launches("K1 on the raw-observation kriging",
+                          pairwise_covariance.launches)
+    errs = check_kriging(res32, krige(torch.float64), PSILL,
+                         "raw-observation kriging")
+    phase(27, "raw_observations_1deg", raw_obs=RAW_OBS, boxes=int(u.numel()),
+          counts=f"{int(counts.min())}..{int(counts.max())}",
+          boxes_and_counts="exact", mean_max_rel=f"{mean_rel:.3e}",
+          mean_rtol=RAW_MEAN_RTOL,
+          mean_max_rel_to_the_mean=f"{np.max(mean_gap / np.abs(oracle_mean)):.3e}", records=len(records),
+          k1_launches=k1, tol=KRIGING_TOL,
+          **{f"f32_vs_f64_{k}": f"{v:.3e}" for k, v in errs.items()},
+          wewt_f32_vs_f64=f"{wewt_err:.3e}",
+          wewt_f64_vs_numpy=f"{wewt_host_err:.3e}",
+          generate_s=f"{gen_s:.4f}", ingest_first_s=f"{first_s:.4f}",
+          ingest_s=f"{ingest_s:.4f}",
+          ingest_mobs_per_s=f"{RAW_OBS / ingest_s / 1e6:.2f}",
+          numpy_oracle_s=f"{oracle_s:.4f}",
+          error_components_host_s=f"{host_s:.4f}",
+          wewt_f32_ms=f"{wewt_ms:.4f}", kriging_f32_s=f"{krige_s:.4f}",
+          netcdf_roundtrip="CPU tests only (no h5py on the card's machine)")
+    return k1
+
+
+def host_side_paths(dev):
+    """Phases 25-27; returns K2's launches on the workflow and K1's on the
+    months scan and the raw-observation kriging."""
+    k2 = phase25_hadsst_workflow(dev)
+    k1 = phase26_esa_months_scan(dev)
+    k1 += phase27_raw_observations(dev)
+    return k1, k2
 
 
 if __name__ == "__main__":

@@ -16,15 +16,27 @@ exact stationary draws on a regular grid by spherical-harmonic synthesis
 (``ops.sphere``), matrix-free Gaussian draws by Chebyshev matvecs
 (``ops.sampling``) and variogram parameters by maximum likelihood
 (``ops.variogram_fit``); Matern orders that are not half-integer take the
-general-order K_nu of ``ops.special``.
+general-order K_nu of ``ops.special``. The host side: grids, masks and
+climatology (``grid``), netCDF (``io``), the raw-observation binning on
+the card (``native``), the observation-error covariance
+(``ops.error_covariance``) and the host utilities (``utils``, ``config``).
 On the card the kernels (``ops.cuda``) run; on the CPU, their plain
 PyTorch twins.
-Imports torch and numpy only; importing it builds nothing and changes
-no global state.
+Imports torch and numpy only (pandas and h5py are imported by the
+functions that need them); importing it builds nothing and changes no
+global state.
 """
 
 from .constants import RADIUS_OF_EARTH_KM
 from .core.labeled import Coordinates, DataArray, Dataset
+from .grid.grid import (
+    aggregate_observations,
+    assign_to_grid,
+    cross_coords,
+    grid_from_resolution,
+    grid_to_distance_matrix,
+    map_to_grid,
+)
 from .models.ellipse import (
     EllipseBuilder,
     EllipseCovarianceBuilder,
@@ -68,6 +80,13 @@ from .ops.covariance_tools import (
     laloux_clip_lowrank,
     simple_clipping,
 )
+from .ops.error_covariance import (
+    correlated_components,
+    dist_weight,
+    get_weights,
+    gridbox_error_covariance,
+    uncorrelated_components,
+)
 from .ops.eigsh import PartialSpectrumError, adaptive_topk_eigh, topk_eigh
 from .ops.sampling import (
     Matvec,
@@ -106,11 +125,16 @@ __all__ = [
     "StochasticKriging",
     "VariogramKernel",
     "adaptive_topk_eigh",
+    "aggregate_observations",
+    "assign_to_grid",
     "batched_ensemble_step",
     "build_ellipse_covariance",
     "chebyshev_apply",
+    "correlated_components",
+    "cross_coords",
     "crossval_from_covariance",
     "dense_matvec",
+    "dist_weight",
     "eigenvalue_clip",
     "ellipse_covariance_operator",
     "ensemble_from_kernel",
@@ -118,7 +142,11 @@ __all__ = [
     "explained_variance_clip",
     "explained_variance_clip_lowrank",
     "fit_variogram_mle",
+    "get_weights",
     "gp_negative_log_likelihood",
+    "grid_from_resolution",
+    "grid_to_distance_matrix",
+    "gridbox_error_covariance",
     "kernel_matvec",
     "kriging_crossval",
     "kriging_from_kernel",
@@ -129,6 +157,7 @@ __all__ = [
     "lowrank_kriging",
     "lowrank_members_from_states",
     "lowrank_months_scan",
+    "map_to_grid",
     "months_scan_kriging",
     "mv_normal_draw",
     "pad_month_observations",
@@ -136,6 +165,7 @@ __all__ = [
     "sample_mvn_chebyshev",
     "simple_clipping",
     "topk_eigh",
+    "uncorrelated_components",
     "variogram_kernel",
     "ExponentialVariogram",
     "GaussianVariogram",

@@ -26,19 +26,25 @@ from glomargridding_tpu.models import kernel_kriging as jkk
 from glomargridding_tpu.models import kriging as jkrig
 from glomargridding_tpu.models import lowrank as jlr
 from glomargridding_tpu.models import stochastic as jst
+from glomargridding_tpu import io as jio
 from glomargridding_tpu.core.labeled import Coordinates as JCoordinates
+from glomargridding_tpu.grid import grid as jgrid
 from glomargridding_tpu.models.ellipse import covariance as jcov
 from glomargridding_tpu.models.ellipse import estimate as jest
 from glomargridding_tpu.models.ellipse import model as jmodel
 from glomargridding_tpu.ops import covariance_tools as jct
 from glomargridding_tpu.ops import distances as jdist
 from glomargridding_tpu.ops import eigsh as jeig
+from glomargridding_tpu.ops import error_covariance as jerr
 from glomargridding_tpu.ops import optim as joptim
 from glomargridding_tpu.ops import sampling as jsamp
 from glomargridding_tpu.ops import sphere as jsphere
 from glomargridding_tpu.ops import variogram_fit as jfit
+from glomargridding_tpu.native import gridbin as jgb
 from glomargridding_tpu.ops.variogram import MaternVariogram
 from glomargridding_tpu_torch import convert
+from glomargridding_tpu_torch import io as tio
+from glomargridding_tpu_torch.grid import grid as tgrid
 from glomargridding_tpu_torch.models import kernel_kriging as tkk
 from glomargridding_tpu_torch.models import kriging as tkrig
 from glomargridding_tpu_torch.models import lowrank as tlr
@@ -47,7 +53,9 @@ from glomargridding_tpu_torch.models.ellipse import covariance as tcov
 from glomargridding_tpu_torch.models.ellipse import estimate as test
 from glomargridding_tpu_torch.ops import covariance_tools as tct
 from glomargridding_tpu_torch.ops import distances as tdist
+from glomargridding_tpu_torch.native import gridbin as tgb
 from glomargridding_tpu_torch.ops import eigsh as teig
+from glomargridding_tpu_torch.ops import error_covariance as terr
 from glomargridding_tpu_torch.ops import optim as toptim
 from glomargridding_tpu_torch.ops import sampling as tsamp
 from glomargridding_tpu_torch.ops import sphere as tsphere
@@ -525,6 +533,73 @@ def _fit_variogram_mle(rng):
     return port, (np.asarray(jfit.fit_variogram_mle(d, y, **kw)[:3]),)
 
 
+def _snap_to_grid(rng):
+    lats, lons = rng.uniform(-95, 95, 300), rng.uniform(-185, 185, 300)
+    grid = (-87.5, 5.0, 36, -177.5, 5.0, 72)
+    return (lambda **d: (tgb.snap_to_grid(lats, lons, *grid, **d),),
+            (jgb.snap_to_grid(lats, lons, *grid),))
+
+
+def _bin_mean(rng):
+    idx, vals = rng.integers(0, 50, 400), rng.normal(size=400)
+    return (lambda **d: tgb.bin_mean(idx, vals, 50, **d),
+            jgb.bin_mean(idx, vals, 50))
+
+
+def _aggregate_observations(rng):
+    lats, lons = rng.uniform(-90, 90, 400), rng.uniform(-180, 180, 400)
+    vals = rng.normal(size=400)
+    kw = (10, [(-85.0, 90), (-175.0, 180)], ["lat", "lon"])
+    return (lambda **d: tgrid.aggregate_observations(
+                lats, lons, vals, tgrid.grid_from_resolution(*kw), **d),
+            jgrid.aggregate_observations(lats, lons, vals,
+                                         jgrid.grid_from_resolution(*kw)))
+
+
+def _grid_to_distance_matrix(rng):
+    """The grid's distance matrix, left on the call's device (the
+    DataArray's values)."""
+    pytest.importorskip("pandas")
+    kw = (30, [(-75, 90), (-165, 180)], ["lat", "lon"])
+    return (lambda **d: (tgrid.grid_to_distance_matrix(
+                tgrid.grid_from_resolution(*kw), **d).values,),
+            (jgrid.grid_to_distance_matrix(
+                jgrid.grid_from_resolution(*kw)).values,))
+
+
+def _gridbox_error_covariance(rng):
+    codes = np.sort(rng.integers(0, 6, 30))
+    W = (codes[None, :] == np.arange(6)[:, None]).astype(float)
+    W /= W.sum(axis=1, keepdims=True)
+    A = rng.normal(size=(30, 30))
+    E = A @ A.T / 30 + np.eye(30)
+    return (lambda **d: (terr.gridbox_error_covariance(W, E, **d),),
+            (jerr.gridbox_error_covariance(W, E),))
+
+
+def _load_lowrank(rng):
+    """A factored covariance the JAX package wrote, loaded onto the
+    call's device."""
+    pytest.importorskip("h5py")
+    import atexit
+    import os
+    import tempfile
+
+    Q, _ = np.linalg.qr(rng.normal(size=(40, 4)))
+    ref = jct.LowRankPSD(jnp.asarray(Q), jnp.linspace(3.0, 1.0, 4),
+                         jnp.asarray(rng.uniform(0.1, 0.2, 40)))
+    fd, path = tempfile.mkstemp(suffix=".nc")
+    os.close(fd)
+    atexit.register(os.remove, path)
+    jio.save_lowrank(ref, path)
+
+    def port(**d):
+        psd = tio.load_lowrank(path, **d)
+        return psd.vectors, psd.gains, psd.floor
+
+    return port, (ref.vectors, ref.gains, ref.floor)
+
+
 def _distance_matrix(name):
     def case(rng):
         a = rng.uniform(-80, 80, (2, 7))
@@ -756,6 +831,12 @@ CASES = {
     "estimate_spectral_range": _estimate_spectral_range,
     "sample_mvn_chebyshev": _sample_mvn_chebyshev,
     "fit_variogram_mle": _fit_variogram_mle,
+    "snap_to_grid": _snap_to_grid,
+    "bin_mean": _bin_mean,
+    "aggregate_observations": _aggregate_observations,
+    "grid_to_distance_matrix": _grid_to_distance_matrix,
+    "gridbox_error_covariance": _gridbox_error_covariance,
+    "load_lowrank": _load_lowrank,
 }
 
 SOLVER_CASES = {
