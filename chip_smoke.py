@@ -58,7 +58,16 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
   stored TPU run; the 41-March ESA-CCI scan
   (``examples/torch_esa_months_scan.py``, K1); and 2,000,000 raw
   observations binned on the card, a 10,000-record error covariance
-  reduced to its 5,000 gridboxes and 64,800-cell kriging (K1).
+  reduced to its 5,000 gridboxes and 64,800-cell kriging (K1);
+- phase 28, the sharded paths of ``glomargridding_tpu_torch.parallel`` on
+  a mesh of four slots of the card (4 x 1, and 2 x 2 for the factored
+  path): the kriging of phase 4 with its grid columns sharded (K1), the
+  64,800-cell covariance in row blocks (K4) against K2's matrix, the
+  ring-SUMMA stream at 259,200 cells (K3, K4) and its clip at 64,800,
+  the ensemble step's blocked Cholesky at 64,800 (f32 and f64), the
+  factored kriging and ensemble, the blocked Cholesky and its solves at
+  16,384 in f64, and the whole-grid fit's lanes split over the slots,
+  each against its single-device call and with its time beside it.
 
 Usage, from the repository root, with no arguments:
 
@@ -343,6 +352,30 @@ RECORD_SIGMA = {"ship": 0.6, "drifting_buoy": 0.25, "moored_buoy": 0.3,
 N_PLATFORMS = 400
 PLATFORM_BIAS_RANGE = (0.05, 0.3)
 GRIDBOX_ERROR_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+# --- phase 28: the sharded paths (parallel/) on four slots of the card
+SHARD_SLOTS = 4
+# a sharded f32 call against the same call on one device: the same f32
+# operations on the same values, with products over row or column blocks
+# of other widths (cuBLAS picks its kernels, and so its summation order,
+# by shape): a few ulp of each output's scale, amplified at most by the
+# uncertainty's square root where the variance nearly cancels
+SHARD_TOL = 1e-5
+# the row blocks against K2's matrix, over max |C|: K4 and K2 evaluate
+# the pair function identically (EllipseCovarianceBuilder's K2 and K4
+# routes agree bit for bit, test_builder_routes_agree_bitwise), so exact
+# up to the order of the diagonal's addition
+SHARD_COV_TOL = 1e-6
+# f64 sharded against f64 single-device: f64 eps (1.1e-16) times the
+# growth through a Cholesky of cond ~357 (phase 14's K) and 32 blocks
+SHARD_F64_TOL = 1e-9
+# the blocked Cholesky and what applies it, f64 at SHARD_LINALG_N against
+# torch.linalg: eps times sqrt(cond) of the sub-block
+SHARD_LINALG_TOL = 1e-10
+SHARD_LINALG_N = 16384
+# the sharded fit against the unsharded fit of the same lanes, f64: each
+# lane's optimiser sees the same values; its batch is a quarter as wide
+SHARD_FIT_F64_RTOL = 1e-8
 
 
 def sync():
@@ -850,6 +883,14 @@ def main():
     kernels[0]["launches"] += k1_host
     next(k for k in kernels if k["name"] == "ellipse_sym")[
         "launches"] += k2_host
+    # phase 28: the sharded paths; K1 in the kriging, K4 in the row
+    # blocks, K3 and K4 in the stream and its clip
+    k1_shard, k3_shard, k4_shard = sharded_paths(dev, glat, glon,
+                                                 (idx, y, err), psd)
+    kernels[0]["launches"] += k1_shard
+    for name, count in (("ellipse_matvec", k3_shard),
+                        ("ellipse_tile", k4_shard)):
+        next(k for k in kernels if k["name"] == name)["launches"] += count
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1830,11 +1871,13 @@ def spread(values):
         np.median(v), np.percentile(v, 99), v.max()))
 
 
-def subset_fitter(builder, model, lane, tol):
+def subset_fitter(builder, model, lane, tol, slots=None):
     """``EllipseBuilder._chunk_fitter`` (``compute_params`` calls it
     too) with the fit's configuration, for fitting chosen lanes: its
     ``fit`` and ``build``, the start point, the box and the bounds the
-    QC codes are read against."""
+    QC codes are read against. With device `slots`, ``fit`` splits each
+    chunk's lanes over them as ``compute_params(mesh=...)`` does
+    (``EllipseBuilder._slot_fitter``)."""
     x0, box, bounds_out = model._fit_setup(
         FIT_KW["guesses"], FIT_KW["bounds"], builder._x_centered.dtype,
         builder.device)
@@ -1844,7 +1887,10 @@ def subset_fitter(builder, model, lane, tol):
         physical_distance=model.physical_distance,
         physical_distance_selection=True,
         max_train_cols=FIT_KW["max_train_cols"])
-    fit, build = builder._chunk_fitter(model, lane, tol, geometry, x0, box)
+    args = (model, lane, tol, geometry, x0, box)
+    fit, build = builder._chunk_fitter(*args)
+    if slots is not None:
+        fit = builder._slot_fitter(slots, *args)[0]
     return dict(fit=fit, build=build, x0=x0, box=box, bounds_out=bounds_out,
                 model=model)
 
@@ -3634,6 +3680,535 @@ def host_side_paths(dev):
     k1 = phase26_esa_months_scan(dev)
     k1 += phase27_raw_observations(dev)
     return k1, k2
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the sharded paths (parallel/) on four slots of the card
+# ---------------------------------------------------------------------------
+def timed(fn):
+    """(fn(), seconds) on the host's clock around synchronisation."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def collective_mb(path, n_dev=SHARD_SLOTS, itemsize=4, **shape):
+    """MB that would cross between slots on distinct cards in one call
+    of a sharded path, counted from the shapes (on one card nothing
+    moves): "kriging" (the factored system broadcast: n^2 + 4n values,
+    the grid slices out and the three outputs back), "stream" (per
+    application of k columns: x scattered, the ring's n_dev - 1 steps of
+    every shard's packed points and x, the result gathered), "cholesky"
+    (the diagonal factors broadcast and the panel pieces moved to the
+    slots that update against them)."""
+    if path == "kriging":
+        n, m = shape["n"], shape["m"]
+        values = (n_dev - 1) * (n * n + 4 * n) + (n_dev - 1) / n_dev * m * 5
+    elif path == "stream":
+        n, k = shape["n"], shape["k"]
+        values = (n_dev - 1) * n * (16 + k) + 2 * (n_dev - 1) / n_dev * n * k
+    else:
+        n, blocks = shape["n"], shape["blocks"]
+        nb, rows = n // blocks, n // n_dev
+        values = 0
+        for j in range(blocks - 1):
+            c1 = (j + 1) * nb
+            values += (n_dev - 1) * nb * nb
+            below = [max(0, (t + 1) * rows - max(c1, t * rows))
+                     for t in range(n_dev)]
+            values += sum(below[t] * nb for s in range(n_dev) if below[s]
+                          for t in range(s) if below[t])
+    return values * itemsize / 1e6
+
+
+def phase28a_kriging(mesh, glat, glon, obs):
+    """``sharded_kriging_from_kernel`` at 64,800 x 5,000 (phase 4's
+    kernel and observations) against ``kriging_from_kernel`` and against
+    its own f64 run; returns K1's launches."""
+    from glomargridding_tpu_torch import (
+        MaternVariogram,
+        kriging_from_kernel,
+        variogram_kernel,
+    )
+    from glomargridding_tpu_torch.models.kernel_kriging import KrigingResult
+    from glomargridding_tpu_torch.ops.cuda.pairwise import pairwise_covariance
+    from glomargridding_tpu_torch.parallel import sharded_kriging_from_kernel
+
+    idx, y, err = obs
+    dev = y.device
+    kernel = variogram_kernel(MaternVariogram(psill=PSILL, range=RANGE_KM,
+                                              nu=0.5), distance="haversine")
+    lats = torch.as_tensor(glat, device=dev)
+    lons = torch.as_tensor(glon, device=dev)
+
+    def sharded(dtype=torch.float32):
+        out = sharded_kriging_from_kernel(
+            mesh, kernel, lats.to(dtype), lons.to(dtype), idx, y.to(dtype),
+            err.to(dtype), variance=PSILL)
+        field, unc2, cmask = (o.gather() for o in out)
+        return KrigingResult(field, torch.sqrt(torch.clamp(unc2, min=0.0)),
+                             cmask)
+
+    def single(e=err):
+        return kriging_from_kernel(kernel, lats, lons, idx, y, e,
+                                   variance=PSILL)
+
+    pairwise_covariance.launches = 0
+    got = sharded()
+    sync()
+    k1 = require_launches("K1 (sharded kriging)",
+                          pairwise_covariance.launches)
+    ref = single()
+    errs = kriging_errs(got, ref, PSILL ** 0.5)
+    f64 = sharded(torch.float64)
+    errs_f64 = check_kriging(got, f64, PSILL, "sharded kriging")
+    control = single(1.1 * err)
+    fault = max(kriging_errs(control, ref, PSILL ** 0.5).values())
+    fault_f64 = max(kriging_errs(control, f64, PSILL ** 0.5).values())
+    walls = {"sharded_s": wall_median_s(sharded),
+             "single_s": wall_median_s(single)}
+    phase(28, "a_sharded_kriging_64800x5000", slots=SHARD_SLOTS,
+          k1_launches=k1, tol=SHARD_TOL,
+          **{f"vs_single_{k}": f"{v:.3e}" for k, v in errs.items()},
+          f64_tol=KRIGING_TOL,
+          **{f"vs_f64_{k}": f"{v:.3e}" for k, v in errs_f64.items()},
+          control_error_cov_x1_1=f"{fault:.3e}",
+          control_vs_f64=f"{fault_f64:.3e}", repeats=REPEATS,
+          moved_mb_on_4_cards=f"{collective_mb('kriging', n=idx.numel(), m=glat.size):.1f}",
+          **{k: f"{v:.4f}" for k, v in walls.items()})
+    for k, v in errs.items():
+        check(f"sharded kriging vs single {k}", v, SHARD_TOL)
+    if not (fault > SHARD_TOL and fault_f64 > KRIGING_TOL):
+        raise AssertionError("the sharded kriging bounds pass the control")
+    return k1
+
+
+def phase28b_covariance(mesh, glat, glon):
+    """``sharded_ellipse_covariance`` at 64,800 (nu = 1.5, phase 9's
+    fields) against K2's matrix, slot by slot; returns K4's launches."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+    from glomargridding_tpu_torch.parallel import sharded_ellipse_covariance
+
+    dev = mesh.devices[0, 0]
+    fields = realistic_ellipse_params(glat, glon)
+    reset_ellipse_counts()
+    cov, sharded_s = timed(lambda: sharded_ellipse_covariance(
+        mesh, *fields, glat, glon, v=NU_NS))
+    k4 = require_launches("K4 (sharded row blocks)", te.ellipse_tile.launches)
+    shapes = {tuple(p.shape) for p in cov.parts}
+    P = te.pack_points(*ellipse_args(glat, glon, fields, torch.float32, dev))
+    K2, k2_s = timed(lambda: te.ellipse_sym(P, NU_NS))
+    scale = torch.max(torch.abs(K2)).item()
+    rows = P.shape[0] // SHARD_SLOTS
+    worst, equal = 0.0, True
+    for s in range(SHARD_SLOTS):
+        diff = torch.max(torch.abs(
+            cov.parts[s] - K2[s * rows:(s + 1) * rows])).item()
+        equal &= diff == 0.0
+        worst = max(worst, diff / scale)
+        cov.parts[s] = None  # free the slot's block as it goes
+    control = te.ellipse_tile(P[:rows], P, 2.5)
+    control.diagonal().add_(P[:rows, 6] ** 2)
+    fault = torch.max(torch.abs(control - K2[:rows])).item() / scale
+    del control, K2, cov
+    phase(28, "b_sharded_covariance_64800", slots=SHARD_SLOTS, nu=NU_NS,
+          k4_launches=k4, blocks="|".join(f"{a}x{b}" for a, b in shapes),
+          gb=f"{P.shape[0] ** 2 * 4 / 1e9:.1f}", vs_k2=f"{worst:.3e}",
+          bitwise=equal, tol=SHARD_COV_TOL, control_nu_2_5=f"{fault:.3e}",
+          sharded_s=f"{sharded_s:.4f}", k2_single_s=f"{k2_s:.4f}")
+    check("sharded covariance vs K2", worst, SHARD_COV_TOL)
+    if not fault > SHARD_COV_TOL:
+        raise AssertionError("the covariance bound passes nu = 2.5")
+    return k4
+
+
+def phase28c_stream(mesh):
+    """The ring-SUMMA stream operator at 259,200 cells (3,000 km cutoff,
+    phase 11's fields) at 8 and 1,024 columns against the single-device
+    stream; returns (K3, K4) launches."""
+    from glomargridding_tpu_torch import ellipse_covariance_operator
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+    from glomargridding_tpu_torch.parallel import (
+        sharded_ellipse_stream_operator,
+    )
+
+    dev = mesh.devices[0, 0]
+    q_lat, q_lon = grid_linspace(*STREAM_GRID)
+    fields = realistic_ellipse_params(q_lat, q_lon)
+    n = q_lat.size
+    rng = np.random.default_rng(5)
+    x8 = torch.as_tensor(rng.normal(size=(n, 8)).astype(np.float32),
+                         device=dev)
+    x1k = torch.as_tensor(
+        rng.normal(size=(n, WIDE_COLS)).astype(np.float32), device=dev)
+    reset_ellipse_counts()
+    mv, _, trace = sharded_ellipse_stream_operator(
+        mesh, *fields, q_lat, q_lon, v=NU_NS, max_dist=MAX_DIST_KM)
+    y8 = mv(x8)
+    y1k = mv(x1k)
+    sync()
+    k3 = require_launches("K3 (sharded narrow stream)",
+                          te.ellipse_matvec.launches)
+    k4 = require_launches("K4 (sharded wide stream)",
+                          te.ellipse_tile.launches)
+    args = ellipse_args(q_lat, q_lon, fields, torch.float32, dev)
+    single, _, _ = ellipse_covariance_operator(
+        *args, v=NU_NS, store="stream", max_dist=MAX_DIST_KM)
+    errs = {"y8": max_rel(y8, single(x8)), "y1024": max_rel(y1k, single(x1k))}
+    del y1k
+    wrong, _, _ = ellipse_covariance_operator(
+        *args, v=NU_NS, store="stream", max_dist=0.9 * MAX_DIST_KM)
+    fault = max_rel(wrong(x8), y8)
+    times = {"sharded_8_ms": cuda_time_ms(lambda: mv(x8), iters=5),
+             "single_8_ms": cuda_time_ms(lambda: single(x8), iters=5),
+             "sharded_1024_ms": cuda_time_ms(lambda: mv(x1k), iters=2),
+             "single_1024_ms": cuda_time_ms(lambda: single(x1k), iters=2)}
+    stats = mv.band_stats
+    phase(28, "c_sharded_stream_259200", slots=SHARD_SLOTS,
+          max_dist_km=MAX_DIST_KM, k3_launches=k3, k4_launches=k4,
+          shard_pairs=stats["pairs"], wide_pairs=stats["wide_pairs"],
+          fused_pairs=stats["fused_pairs"], tol=STREAM_ORDER_TOL,
+          **{f"vs_single_{k}": f"{v:.3e}" for k, v in errs.items()},
+          control_cutoff_0_9=f"{fault:.3e}", trace=f"{trace:.6g}",
+          moved_mb_on_4_cards_8_1024="|".join(
+              f"{collective_mb('stream', n=n, k=k):.1f}"
+              for k in (8, WIDE_COLS)),
+          **{k: f"{v:.3f}" for k, v in times.items()})
+    for k, v in errs.items():
+        check(f"sharded stream vs single {k}", v, STREAM_ORDER_TOL)
+    if not fault > STREAM_ORDER_TOL:
+        raise AssertionError("the stream bound passes a 2,700 km cutoff")
+    return k3, k4
+
+
+def dense_sub(psd, cells, dtype=torch.float32):
+    """The densified factored covariance on the cells `cells`."""
+    V = psd.vectors[cells].to(dtype)
+    C = (V * psd.gains.to(dtype)[None, :]) @ V.T
+    C.diagonal().add_(psd.floor[cells].to(dtype))
+    return C
+
+
+def phase28d_clip(mesh, glat, glon, psd13):
+    """The explained-variance clip of the sharded stream at 64,800 (no
+    cutoff, phase 13's arguments and start blocks) against the same clip
+    of the single-device stream, densified on a 16,384-cell sub-block and
+    by trace; returns (K3, K4) launches and the sub-block's cells."""
+    from glomargridding_tpu_torch import (
+        ellipse_covariance_operator,
+        explained_variance_clip_lowrank,
+    )
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+    from glomargridding_tpu_torch.parallel import (
+        sharded_ellipse_stream_operator,
+    )
+
+    dev = mesh.devices[0, 0]
+    fields = realistic_ellipse_params(glat, glon)
+    mv, n, trace = sharded_ellipse_stream_operator(mesh, *fields, glat, glon,
+                                                   v=NU_NS)
+
+    def clip(op, target=CLIP_TARGET):
+        return explained_variance_clip_lowrank(
+            op, n=n, trace=trace, target_variance_fraction=target, **CLIP_KW)
+
+    reset_ellipse_counts()
+    psd, sharded_s = timed(lambda: clip(mv))
+    k3, k4 = te.ellipse_matvec.launches, te.ellipse_tile.launches
+    require_launches("K3 or K4 (sharded clip)", k3 + k4)
+    single, _, _ = ellipse_covariance_operator(
+        *ellipse_args(glat, glon, fields, torch.float32, dev), v=NU_NS,
+        store="stream")
+    ref, single_s = timed(lambda: clip(single))
+    cells = torch.as_tensor(np.unique(np.linspace(
+        0, n - 1, SHARD_LINALG_N).astype(np.int64)), device=dev)
+    want = dense_sub(ref, cells)
+    scale = torch.max(torch.abs(want)).item()
+    err = max_rel(dense_sub(psd, cells), want, scale)
+    vs13 = max_rel(dense_sub(psd13, cells), want, scale)
+    trace_rel = abs(psd.trace() - ref.trace()) / ref.trace()
+    trace13 = abs(psd.trace() - psd13.trace()) / psd13.trace()
+    wrong = clip(mv, CLIP_WRONG_TARGET)
+    fault = max_rel(dense_sub(wrong, cells), want, scale)
+    del wrong
+    phase(28, "d_sharded_clip_64800", slots=SHARD_SLOTS, target=CLIP_TARGET,
+          rank=psd.rank, single_rank=ref.rank, k3_launches=k3,
+          k4_launches=k4, sub_cells=int(cells.numel()),
+          vs_single_stream=f"{err:.3e}", tol=SUB_TOL,
+          vs_phase13_bf16_factors=f"{vs13:.3e}",
+          trace_vs_single=f"{trace_rel:.3e}",
+          trace_vs_phase13=f"{trace13:.3e}", trace_tol=TRACE_TOL,
+          control_target_0_8=f"{fault:.3e}", sharded_s=f"{sharded_s:.3f}",
+          single_s=f"{single_s:.3f}")
+    check("sharded clip vs single-device stream clip", err, SUB_TOL)
+    check("sharded clip trace", trace_rel, TRACE_TOL)
+    check("sharded clip trace vs phase 13", trace13, TRACE_TOL)
+    if not fault > SUB_TOL:
+        raise AssertionError("the clip bound passes the 0.80 target")
+    return k3, k4, cells
+
+
+def phase28e_ensemble(mesh, psd, obs):
+    """``ensemble_kriging_step`` at 64,800 on the densified repaired
+    covariance, 100 members, against ``batched_ensemble_step`` on the
+    same normals, in f32 and in f64."""
+    from glomargridding_tpu_torch import LowRankPSD, batched_ensemble_step
+    from glomargridding_tpu_torch.parallel import ensemble_kriging_step
+    from glomargridding_tpu_torch.parallel.linalg import resolve_blocks_padded
+
+    idx, y, err = obs
+    dev = y.device
+    n, m = psd.n, idx.numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    z_state = torch.randn((N_MEMBERS, n), generator=gen, device=dev)
+    z_obs = torch.randn((N_MEMBERS, m), generator=gen, device=dev)
+    out, walls = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        f = LowRankPSD(psd.vectors.to(dtype), psd.gains.to(dtype),
+                       psd.floor.to(dtype))
+        C = f.to_dense()
+        del f
+        noise = (z_state.to(dtype), z_obs.to(dtype))
+        E, yy = err.to(dtype), y.to(dtype)
+        torch.cuda.reset_peak_memory_stats()
+        (members, field, _), walls[f"sharded_{dtype}"] = timed(
+            lambda: ensemble_kriging_step(mesh, C, E, idx, yy, N_MEMBERS,
+                                          noise=noise))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[dtype, "sharded"] = (members.gather(), field.gather())
+        blocks = {tuple(p.shape) for p in members.parts}
+        del members, field
+        torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            control = ensemble_kriging_step(mesh, C, 1.1 * E, idx, yy,
+                                            N_MEMBERS, noise=noise)
+            out["control"] = control[0].gather()
+            del control
+        (members, field), walls[f"single_{dtype}"] = timed(
+            lambda: batched_ensemble_step(C, E, idx, yy, N_MEMBERS,
+                                          noise=noise))
+        out[dtype, "single"] = (members, field)
+        del C, members, field
+        torch.cuda.empty_cache()
+
+    def errs(a, b):
+        return (max_rel(a[0], b[0], torch.max(torch.abs(b[0])).item()),
+                max_rel(a[1], b[1]))
+
+    f32 = errs(out[torch.float32, "sharded"], out[torch.float32, "single"])
+    f64 = errs(out[torch.float64, "sharded"], out[torch.float64, "single"])
+    single64 = out[torch.float64, "single"]
+    fault = errs((out["control"], single64[1]), single64)[0]
+    fault64 = errs(out[torch.float32, "sharded"], single64)
+    phase(28, "e_sharded_ensemble_64800", slots=SHARD_SLOTS,
+          members=N_MEMBERS, blocks="|".join(f"{a}x{b}" for a, b in blocks),
+          f32_members=f"{f32[0]:.3e}", f32_field=f"{f32[1]:.3e}",
+          tol=MEMBERS_TOL, f64_members=f"{f64[0]:.3e}",
+          f64_field=f"{f64[1]:.3e}", f64_tol=SHARD_F64_TOL,
+          control_error_cov_x1_1=f"{fault:.3e}",
+          control_f32_vs_f64=f"{max(fault64):.3e}",
+          f64_peak_gb=f"{peak:.3f}",
+          cholesky_moved_mb_f32_on_4_cards=f"{collective_mb('cholesky', n=n, blocks=resolve_blocks_padded(n, SHARD_SLOTS, None)[0]):.1f}",
+          **{f"{k.replace('torch.float', 'f')}_s": f"{v:.3f}"
+             for k, v in walls.items()})
+    for label, v in (("f32 members", f32[0]), ("f32 field", f32[1])):
+        check(f"sharded ensemble {label}", v, MEMBERS_TOL)
+    for label, v in (("f64 members", f64[0]), ("f64 field", f64[1])):
+        check(f"sharded ensemble {label}", v, SHARD_F64_TOL)
+    if not (fault > MEMBERS_TOL and max(fault64) > SHARD_F64_TOL):
+        raise AssertionError("the ensemble bounds pass their controls")
+
+
+def phase28f_lowrank(mesh22, psd, obs):
+    """The sharded factored kriging and ensemble on phase 14's padded
+    factors (2 x 2 mesh) against the single-device path on the same
+    normals."""
+    from glomargridding_tpu_torch import lowrank_ensemble_step, lowrank_kriging
+    from glomargridding_tpu_torch.parallel import (
+        sharded_lowrank_ensemble_step,
+        sharded_lowrank_kriging,
+    )
+
+    idx, y, err = obs
+    dev = y.device
+    e = torch.diagonal(err).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    noise = tuple(torch.randn(shape, generator=gen, device=dev) for shape in (
+        (psd.n, N_MEMBERS), (psd.rank, N_MEMBERS), (idx.numel(), N_MEMBERS)))
+    sd_scale = float(torch.sqrt(psd.diagonal().max()))
+
+    def sharded():
+        return sharded_lowrank_ensemble_step(mesh22, psd, idx, y, e,
+                                             n_members=N_MEMBERS, noise=noise)
+
+    def single():
+        return lowrank_ensemble_step(psd, idx, y, e, n_members=N_MEMBERS,
+                                     noise=noise)
+
+    res = [o.gather() for o in sharded_lowrank_kriging(mesh22, psd, idx, y,
+                                                        e)]
+    ref = lowrank_kriging(psd, idx, y, e)
+    (res_e, members), sharded_s = timed(sharded)
+    (ref_e, members_ref), single_s = timed(single)
+    errs = {f"kriging_{k}": v
+            for k, v in kriging_errs(res, ref, sd_scale).items()}
+    errs.update({f"ensemble_{k}": v for k, v in kriging_errs(
+        [o.gather() for o in res_e], ref_e, sd_scale).items()})
+    errs["ensemble_members"] = max_rel(members.gather(), members_ref)
+    blocks = {tuple(p.shape) for p in members.parts}
+    fault = max(kriging_errs(lowrank_kriging(psd, idx, y, 1.1 * e), ref,
+                             sd_scale).values())
+    phase(28, "f_sharded_lowrank_64800", mesh="2x2", rank=psd.rank,
+          members=N_MEMBERS, blocks="|".join(f"{a}x{b}" for a, b in blocks),
+          tol=SHARD_TOL, **{k: f"{v:.3e}" for k, v in errs.items()},
+          control_error_cov_x1_1=f"{fault:.3e}",
+          sharded_ensemble_s=f"{sharded_s:.4f}",
+          single_ensemble_s=f"{single_s:.4f}")
+    for k, v in errs.items():
+        check(f"sharded lowrank {k}", v, SHARD_TOL)
+    if not fault > SHARD_TOL:
+        raise AssertionError("the lowrank bound passes the control")
+
+
+def phase28g_linalg(mesh, psd, cells):
+    """The blocked Cholesky, the triangular solve, whitening and the
+    Gaussian score at 16,384 in f64 against torch.linalg, on the
+    repaired covariance's sub-block."""
+    from glomargridding_tpu_torch.parallel import (
+        sharded_cholesky,
+        sharded_mvn_logpdf,
+        sharded_triangular_solve,
+        sharded_whiten,
+    )
+
+    dev = mesh.devices[0, 0]
+    C = dense_sub(psd, cells, torch.float64)
+    n = C.shape[0]
+    B = torch.randn((n, 8), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    L, sharded_s = timed(lambda: sharded_cholesky(mesh, C))
+    L_ref, single_s = timed(lambda: torch.linalg.cholesky(C))
+    X_ref = torch.linalg.solve_triangular(L_ref, B, upper=False)
+    logp = (-0.5 * torch.sum(X_ref * X_ref, dim=0)
+            - torch.sum(torch.log(torch.diagonal(L_ref)))
+            - 0.5 * n * float(np.log(2.0 * np.pi)))
+    errs = {
+        "cholesky": max_rel(L.gather(), L_ref),
+        "triangular_solve": max_rel(sharded_triangular_solve(mesh, L, B),
+                                    X_ref),
+        "whiten": max_rel(sharded_whiten(mesh, L, B), X_ref),
+        "mvn_logpdf": max_rel(sharded_mvn_logpdf(mesh, L, B), logp),
+    }
+    fault = max_rel(torch.linalg.cholesky(C.float()), L_ref)
+    del L, L_ref, C
+    phase(28, "g_sharded_linalg_16384_f64", slots=SHARD_SLOTS,
+          tol=SHARD_LINALG_TOL, **{k: f"{v:.3e}" for k, v in errs.items()},
+          control_f32_cholesky=f"{fault:.3e}",
+          sharded_cholesky_s=f"{sharded_s:.4f}",
+          torch_cholesky_s=f"{single_s:.4f}")
+    for k, v in errs.items():
+        check(f"sharded {k}", v, SHARD_LINALG_TOL)
+    if not fault > SHARD_LINALG_TOL:
+        raise AssertionError("the linalg bound passes an f32 factor")
+
+
+def phase28h_fit(mesh, glat, glon, psd):
+    """``compute_params(mesh=...)``'s split of a chunk's lanes over the
+    slots, on phase 16's 4,096-lane subset and phase 16's cube, against
+    the unsharded fit of the same lanes: Nelder-Mead in f64 lane for
+    lane, Levenberg-Marquardt in f32 by share."""
+    from glomargridding_tpu_torch import (
+        Coordinates,
+        EllipseBuilder,
+        EllipseModel,
+    )
+
+    dev = psd.vectors.device
+    lat_axis, lon_axis = np.unique(glat), np.unique(glon)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cube = psd.draw(T_TRAIN, generator=gen).contiguous().reshape(
+        T_TRAIN, lat_axis.size, lon_axis.size)
+
+    def builder(dtype):
+        return EllipseBuilder(
+            cube.to(torch.float64 if dtype == np.float64 else torch.float32),
+            Coordinates({
+                "time": np.arange(T_TRAIN),
+                "latitude": lat_axis.astype(dtype),
+                "longitude": lon_axis.astype(dtype)}), cor_mode="lazy")
+
+    chunks = [np.arange(s, s + FIT_KW["chunk_size"]) for s in SUBSET_STARTS]
+    slots = mesh.axis_devices("grid")
+    model = EllipseModel(**FIT_MODEL)
+    fits, walls = {}, {}
+    for tag, dtype, lane, tol, fit_model in (
+            ("f64_nm", np.float64, "nm", FIT_KW["tol"], model),
+            ("f32_lm", np.float32, "lm", LM_TOL, model),
+            ("f32_lm_nu_0_5", np.float32, "lm", LM_TOL,
+             EllipseModel(**{**FIT_MODEL, "v": 0.5}))):
+        b = builder(dtype)
+        for where in (("sharded", slots), ("single", None)):
+            if tag.endswith("nu_0_5") and where[0] == "single":
+                continue
+            fitter = subset_fitter(b, fit_model, lane, tol, where[1])
+            fits[tag, where[0]], walls[f"{tag}_{where[0]}_s"] = timed(
+                lambda: fit_lanes(fitter, chunks))
+        del b
+    (_, pm_s, qc_s, _), (_, pm_1, qc_1, _) = (fits["f64_nm", k]
+                                              for k in ("sharded", "single"))
+    both = (qc_s == 0) & (qc_1 == 0)
+    dev64 = fit_deviation(pm_s, pm_1, both)
+    f64_worst = max(float(v.max()) for v in dev64.values())
+    lm_s, lm_1 = fits["f32_lm", "sharded"], fits["f32_lm", "single"]
+    lm_keep = (lm_s[2] == 0) & (lm_1[2] == 0)
+    dev32 = fit_deviation(lm_s[1], lm_1[1], lm_keep)
+    ellipse = ("Lx_rel", "Ly_rel", "theta_abs")
+    share = share_within(dev32, ellipse)
+    wrong = fits["f32_lm_nu_0_5", "sharded"]
+    fault = share_within(fit_deviation(wrong[1], lm_1[1],
+                                       (wrong[2] == 0) & (lm_1[2] == 0)),
+                         ellipse)
+    fault64 = max(float(v.max()) for v in fit_deviation(
+        lm_s[1], pm_1, lm_keep & (qc_1 == 0)).values())
+    phase(28, "h_sharded_fit_subset", slots=SHARD_SLOTS,
+          lanes=sum(c.size for c in chunks), qc_equal_f64=bool(
+              np.array_equal(qc_s, qc_1)), qc0_in_both=int(both.sum()),
+          f64_worst_rel=f"{f64_worst:.3e}", f64_rtol=SHARD_FIT_F64_RTOL,
+          lm_f32_share=f"{share:.4f}", share_bound=FIT_SHARE_LM,
+          **{f"lm_f32_{k}_max": f"{float(v.max()):.3e}"
+             for k, v in dev32.items()},
+          control_nu_0_5_share=f"{fault:.4f}",
+          control_f32_vs_f64_worst=f"{fault64:.3e}",
+          **{k: f"{v:.3f}" for k, v in walls.items()})
+    check("sharded f64 fit vs single", f64_worst, SHARD_FIT_F64_RTOL)
+    if not share >= FIT_SHARE_LM:
+        raise AssertionError(f"sharded f32 LM: {share:.4f} of lanes within "
+                             f"the bounds, under {FIT_SHARE_LM}")
+    if not (fault < FIT_SHARE_LM and fault64 > SHARD_FIT_F64_RTOL):
+        raise AssertionError("the fit bounds pass their controls")
+
+
+def sharded_paths(dev, glat, glon, obs, psd):
+    """Phase 28, the sharded paths on four slots of the card; returns the
+    launches (K1, K3, K4) of the sharded path."""
+    from glomargridding_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_grid=SHARD_SLOTS, n_ens=1, devices=[dev] * SHARD_SLOTS)
+    mesh22 = make_mesh(n_grid=2, n_ens=2, devices=[dev] * SHARD_SLOTS)
+    torch.cuda.empty_cache()  # phase 28e's f64 step peaks near 75 GB
+    t0 = time.perf_counter()
+    k1 = phase28a_kriging(mesh, glat, glon, obs)
+    k4 = phase28b_covariance(mesh, glat, glon)
+    k3_c, k4_c = phase28c_stream(mesh)
+    k3_d, k4_d, cells = phase28d_clip(mesh, glat, glon, psd)
+    phase28e_ensemble(mesh, psd, obs)
+    phase28f_lowrank(mesh22, psd, obs)
+    phase28g_linalg(mesh, psd, cells)
+    phase28h_fit(mesh, glat, glon, psd)
+    phase(28, "sharded_paths", seconds=f"{time.perf_counter() - t0:.1f}")
+    return k1, k3_c + k3_d, k4 + k4_c + k4_d
 
 
 if __name__ == "__main__":

@@ -550,11 +550,13 @@ def _row_windows(n, block, col_starts, bw):
     ]
 
 
-def _apply_wide(P, x2, windows, v, delta_x_method, max_dist):
+def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None):
     """y = C x (no diagonal) by row blocks: each block's tile against its
     window into one reused workspace, then a true-f32 GEMM. A window
     whose tile would pass _TILE_LIMIT_BYTES goes in column chunks of about
-    _CHUNK_BYTES, accumulated in place."""
+    _CHUNK_BYTES, accumulated in place. `cols` (default `P`) are the
+    column points, which x2's rows follow: C = C(P, cols)."""
+    cols = P if cols is None else cols
     n = P.shape[0]
     item = P.element_size()
     block = max(r1 - r0 for r0, r1, _, _ in windows)
@@ -569,7 +571,8 @@ def _apply_wide(P, x2, windows, v, delta_x_method, max_dist):
         for k0 in range(c0, c1, ccw):
             k1 = min(k0 + ccw, c1)
             tile = ws[: (r1 - r0) * (k1 - k0)].view(r1 - r0, k1 - k0)
-            _tile_into(P[r0:r1], P[k0:k1], v, delta_x_method, max_dist, tile)
+            _tile_into(P[r0:r1], cols[k0:k1], v, delta_x_method, max_dist,
+                       tile)
             y[r0:r1].addmm_(tile, x2[k0:k1])
     return y
 

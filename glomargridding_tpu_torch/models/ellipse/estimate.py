@@ -14,8 +14,9 @@ parameter fields):
   optimisers of ``ops.optim``, a chunk of rows at a time to bound memory.
 
 Everything runs eagerly: there is no compiled program to cache and no
-grouped dispatch (``dispatch_chunks`` is accepted and changes nothing),
-and the multi-device fit (``mesh=``) is not ported.
+grouped dispatch (``dispatch_chunks`` is accepted and changes nothing).
+The multi-device fit (``mesh=``) splits each chunk's lanes over the
+slots of a ``parallel`` mesh.
 """
 
 import json
@@ -671,20 +672,25 @@ class EllipseBuilder:
         geo_cfg: dict,
         x0_single,
         bounds,
+        device=None,
     ):
         """``fit(sel) -> (x, nit, success, has_data)`` for one chunk of
         centre indices, and ``build(sel) -> (X, z_y, w)``: the training
         data (Fisher-transformed observations) and the batched optimiser
-        of `lane` ("nm", "lm" or "lbfgs") on it. Everything stays on the
-        device."""
-        lats_all, lons_all = self._point_coords()
+        of `lane` ("nm", "lm" or "lbfgs") on it. Everything stays on
+        `device` (default this object's), which holds its own copy of the
+        coordinates and the correlation."""
+        device = self.device if device is None else torch.device(device)
+        lats_all, lons_all = (t.to(device) for t in self._point_coords())
         lazy = isinstance(self.cor, _LazyCorrelation)
-        cor = self.cor.normalised_samples if lazy else self.cor
+        cor = (self.cor.normalised_samples if lazy else self.cor).to(device)
+        x0_single = x0_single.to(device)
+        bounds = tuple(b.to(device) for b in bounds)
 
         def build(sel):
             return _chunk_train_data(
                 lats_all, lons_all, cor,
-                torch.as_tensor(sel, device=self.device),
+                torch.as_tensor(sel, device=device),
                 **geo_cfg, fisher_z=True, lazy_cor=lazy,
             )
 
@@ -706,6 +712,35 @@ class EllipseBuilder:
             return res.x, res.nit, res.success, torch.sum(w, dim=1) > 0
 
         return fit, build
+
+    def _slot_fitter(self, slots, *fitter_args):
+        """``(fit, se)`` for a chunk of lanes split over the device
+        `slots` in equal contiguous runs (the chunk's length divides by
+        their count): each slot builds its lanes' training data against
+        its own copy of the correlation and runs the batched optimiser on
+        them (``_chunk_fitter(*fitter_args)``); ``se(fun, sel, xs)`` is
+        the Hessian standard-error pass at the optima `xs`, split the
+        same way. Results land on this object's device."""
+        fitters = [self._chunk_fitter(*fitter_args, device=d) for d in slots]
+
+        def runs(sel):
+            return np.split(np.asarray(sel), len(slots))
+
+        def fit(sel):
+            outs = [f[0](run) for f, run in zip(fitters, runs(sel))]
+            return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                         for i in range(4))
+
+        def se(fun, sel, xs):
+            width = len(sel) // len(slots)
+            return torch.cat([
+                _chunk_hessian_se(fun, f[1](run),
+                                  xs[k * width:(k + 1) * width].to(d)
+                                  ).to(self.device)
+                for k, (f, run, d) in enumerate(zip(fitters, runs(sel),
+                                                    slots))])
+
+        return fit, se
 
     def compute_params(  # noqa: C901
         self,
@@ -789,14 +824,20 @@ class EllipseBuilder:
         warning says what was assumed).
 
         `dispatch_chunks` is accepted for signature parity and changes
-        nothing: chunks are dispatched one by one. `mesh` (a multi-device
-        fit) is not ported and raises ``NotImplementedError``.
+        nothing: chunks are dispatched one by one.
+
+        `mesh` (a ``parallel.make_mesh`` mesh) splits each chunk's lanes
+        over the slots of `mesh_axis`, in contiguous runs: each slot
+        rebuilds the training rows of its own lanes against its copy of
+        the correlation and runs the batched optimiser on them, with no
+        collectives (the fits are independent, and a batched optimiser
+        freezes each lane once it converges, so the split moves no
+        lane's optimum). The per-slot (B / n_slots, N) build is what the
+        memory cap bounds, so the cap scales by the slot count;
+        `chunk_size` is rounded down to a multiple of it, with a
+        warning, and a grid smaller than one chunk rounds its row length
+        up to it. The standard errors follow the same split.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device whole-grid fit (mesh=) is not ported: "
-                "it belongs to parallel/ (ROADMAP.md, Queue 1)"
-            )
         if opt_method not in (
             "Nelder-Mead",
             "L-BFGS-B",
@@ -826,7 +867,12 @@ class EllipseBuilder:
             return params
 
         xc = self._x_centered
+        # under a mesh each slot builds (B / n_slots, N) at a time
+        slots = ([self.device] if mesh is None
+                 else mesh.axis_devices(mesh_axis))
+        n_dev = len(slots)
         cap, assumed = self._chunk_cap(n_points, xc.element_size())
+        cap *= n_dev
         if chunk_size > cap:
             cap -= cap % 256
             warn(
@@ -834,6 +880,15 @@ class EllipseBuilder:
                 f"at N={n_points} would exceed {assumed}"
             )
             chunk_size = cap
+        if mesh is not None:
+            rounded = max(n_dev, chunk_size - chunk_size % n_dev)
+            if rounded != chunk_size:
+                warn(
+                    f"chunk_size {chunk_size} -> {rounded}: the sharded "
+                    f"fit needs a multiple of the {mesh_axis!r} axis "
+                    f"size {n_dev}"
+                )
+                chunk_size = rounded
 
         x0_single, (lo, hi), bounds_out = matern_ellipse._fit_setup(
             guesses, bounds, xc.dtype, self.device
@@ -942,8 +997,10 @@ class EllipseBuilder:
                 os.replace(tmp, checkpoint)
 
         # every chunk shares ONE length: chunk_size when the grid spans
-        # several chunks, else the single short chunk
-        row_len = chunk_size if n_points > chunk_size else n_points
+        # several chunks, else the single short chunk, rounded UP to the
+        # slot count so that the slots split it evenly
+        row_len = (chunk_size if n_points > chunk_size
+                   else -(-n_points // n_dev) * n_dev)
 
         def _sel_row(start):
             """(row_len,) padded centre indices + kept count."""
@@ -965,8 +1022,9 @@ class EllipseBuilder:
             physical_distance_selection=bool(physical_distance_selection),
             max_train_cols=max_train_cols,
         )
-        fit_chunk, build_chunk = self._chunk_fitter(
-            matern_ellipse, lane, float(tol), geo_cfg, x0_single, (lo, hi))
+        fit_chunk, chunk_se = self._slot_fitter(
+            slots, matern_ellipse, lane, float(tol), geo_cfg, x0_single,
+            (lo, hi))
         for start in range(n_done, n_points, chunk_size):
             sel, n_keep = _sel_row(start)
             # results stay ON THE DEVICE until a flush: fetching here
@@ -1012,12 +1070,10 @@ class EllipseBuilder:
             se_pending = []
             for start in range(0, n_points, chunk_size):
                 sel, n_keep = _sel_row(start)
-                se_pending.append((
-                    _chunk_hessian_se(
-                        matern_ellipse._nll_fit_z, build_chunk(sel),
-                        fitted_dev[torch.as_tensor(sel, device=self.device)]),
-                    n_keep,
-                ))
+                se_pending.append((chunk_se(
+                    matern_ellipse._nll_fit_z, sel,
+                    fitted_dev[torch.as_tensor(sel, device=self.device)]),
+                    n_keep))
             ses = np.concatenate(
                 [_host(s)[:k] for s, k in se_pending], axis=0
             ).astype(float)

@@ -136,13 +136,36 @@ def _factor(kernel_fn, la, lo, idx, y, error_cov):
     return la_o, lo_o, L, uw[:, 0], uw[:, 1]
 
 
-def _kernel_kriging(
-    kernel_fn, la, lo, idx, y, error_cov, variance: float, mean: float,
-    method: str, n_blocks: int, fields_only: bool = False,
-):
+class _ObsSystem(NamedTuple):
+    """The factored observation system the column blocks are solved
+    against: u = K^-1 1, w = K^-1 y, s = sum(u), uy = u'y and, for the
+    diagnostics, Linv = L^-1 (None for fields only)."""
+
+    u: torch.Tensor
+    w: torch.Tensor
+    s: torch.Tensor
+    uy: torch.Tensor
+    Linv: torch.Tensor | None
+
+
+def _obs_system(kernel_fn, la, lo, idx, y, error_cov, fields_only=False):
+    """Observation coordinates and the ``_ObsSystem`` of K = C_obs + E."""
     la_o, lo_o, L, u, w = _factor(kernel_fn, la, lo, idx, y, error_cov)
-    s = torch.sum(u)
-    uy = u @ y
+    Linv = None
+    if not fields_only:
+        eye = torch.eye(idx.shape[0], dtype=L.dtype, device=L.device)
+        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return la_o, lo_o, _ObsSystem(u, w, torch.sum(u), u @ y, Linv)
+
+
+def _grid_columns(
+    kernel_fn, system, la_o, lo_o, la, lo, variance: float, mean: float,
+    method: str, n_blocks: int,
+):
+    """Field, uncertainty^2 and constraint mask of the grid columns
+    (la, lo), a block of columns at a time, against `system`."""
+    u, w, s, uy, Linv = system
+    fields_only = Linv is None
     # u and w stacked into one (2, n) left operand: one pass over each tile
     M2 = torch.stack([u, w], dim=0)
     m = la.shape[0]
@@ -150,9 +173,6 @@ def _kernel_kriging(
     if fields_only:
         uncert2 = cmask = None
     else:
-        n = idx.shape[0]
-        eye = torch.eye(n, dtype=L.dtype, device=L.device)
-        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
         uncert2 = torch.empty_like(field)
         cmask = torch.empty_like(field)
 
@@ -176,6 +196,16 @@ def _kernel_kriging(
             uncert2[start:stop] = variance - sv
         cmask[start:stop] = sv / variance
     return field, uncert2, cmask
+
+
+def _kernel_kriging(
+    kernel_fn, la, lo, idx, y, error_cov, variance: float, mean: float,
+    method: str, n_blocks: int, fields_only: bool = False,
+):
+    la_o, lo_o, system = _obs_system(kernel_fn, la, lo, idx, y, error_cov,
+                                     fields_only)
+    return _grid_columns(kernel_fn, system, la_o, lo_o, la, lo, variance,
+                         mean, method, n_blocks)
 
 
 def kriging_from_kernel(

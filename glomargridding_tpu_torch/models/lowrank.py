@@ -112,10 +112,15 @@ def _stacked_obs_solve(V_o, g, f_o, E, y, extra=None):
 def _field_from_uw(V, g, f, idx, u, w, y):
     """Ordinary-kriged field + Lagrange terms from u = K^{-1}1 and
     w = K^{-1}y. Returns (field, t, lam, uy)."""
+    return _field_rows(V, g, V[idx], f[idx], idx, None, u, w, y)
+
+
+def _field_rows(V, g, V_o, f_o, rows, inside, u, w, y):
+    """``_field_from_uw`` on a block of grid rows (see ``_cross_t_rows``)."""
     s = torch.sum(u)
     uy = u @ y
-    t = _cross_t_apply(V, g, f, idx, u)  # (n,) colsums of K^{-1}C_x
-    cw = _cross_t_apply(V, g, f, idx, w)
+    t = _cross_t_rows(V, g, V_o, f_o, rows, inside, u)  # K^{-1}C_x colsums
+    cw = _cross_t_rows(V, g, V_o, f_o, rows, inside, w)
     lam = (t - 1.0) / s
     field = cw - lam * uy
     return field, t, lam, uy
@@ -127,64 +132,77 @@ def _cross_t_apply(V, g, f, idx, z):
     C_cross[i, j] = V[idx_i] g V[j]' + f_j [idx_i == j], so
     C_cross' z = V (g (V_o' z)) + scatter_add(idx, f_o * z).
     """
-    V_o = V[idx]
-    f_o = f[idx]
+    return _cross_t_rows(V, g, V[idx], f[idx], idx, None, z)
+
+
+def _cross_t_rows(V, g, V_o, f_o, rows, inside, z):
+    """``_cross_t_apply`` on a block of grid rows: V the block's rows,
+    V_o = V[idx] and f_o = f[idx] of the whole grid, `rows` the
+    observations' local rows in the block and `inside` whether each lies
+    in it (None: every observation, the whole grid)."""
     if z.dim() == 1:
         out = V @ (g * (V_o.T @ z))
-        return out.index_add_(0, idx, f_o * z)
-    out = V @ (g[:, None] * (V_o.T @ z))
-    return out.index_add_(0, idx, f_o[:, None] * z)
-
-
-def _lowrank_solve(
-    V, g, f, E, idx, y, n_members: int, diagnostics: bool = True,
-    e_diag: bool = False, generator=None, noise=None,
-):
-    """Factorise K, field, diagnostics, members: the core of every entry
-    point.
-
-    n_members = 0 skips the ensemble entirely; diagnostics=False skips
-    the uncertainty/constraint diagonals (the m^2-wide part of the
-    stacked solve) and returns zeros for them; e_diag=True (set by the
-    public wrappers when E is diagonal, the common production case)
-    draws the obs noise elementwise instead of via a second m^3
-    Cholesky, and solves through the Woodbury identity.
-
-    Every right-hand side ([1, y] for the field, [V_o, I_m] for the
-    diagnostics, the simulated observations for the members) goes
-    through ONE stacked solve (see ``_stacked_obs_solve``).
-    """
-    dtype = V.dtype
-    m = idx.shape[0]
-    n = V.shape[0]
-    r = g.shape[0]
-    V_o = V[idx]
-    f_o = f[idx]
-
-    # E may be the (m,) DIAGONAL of a diagonal error covariance, the
-    # m^2-free form the public wrappers pass through for diagonal E
-    if E.dim() == 1:
-        e_vec = E
-        if not e_diag:  # caller bypassed the wrappers: stay correct
-            E = torch.diag(E)
+        fz = f_o * z
     else:
-        e_vec = torch.diagonal(E)
+        out = V @ (g[:, None] * (V_o.T @ z))
+        fz = f_o[:, None] * z
+    return out.index_add_(0, rows, _inside(fz, inside))
 
-    # draw states and simulated observations FIRST so they can join the
-    # single stacked solve
-    if n_members > 0:
-        z1, z2, zo = _normals(
-            noise, generator,
-            [(n, n_members), (r, n_members), (m, n_members)], V)
-        states = torch.sqrt(f)[:, None] * z1 + V @ (
-            torch.sqrt(g)[:, None] * z2
-        )  # (n, members)
-        if e_diag:
-            eps = torch.sqrt(e_vec)[:, None] * zo
-        else:
-            eps = torch.linalg.cholesky(E) @ zo
-        sim_obs = states[idx] + eps  # (m, members)
 
+def _inside(values, inside):
+    """`values` with the rows of observations outside the block zeroed
+    (None: all inside)."""
+    if inside is None:
+        return values
+    mask = inside.reshape(-1, *([1] * (values.dim() - 1)))
+    return torch.where(mask, values, torch.zeros_like(values))
+
+
+def _error_forms(E, e_diag):
+    """(E, e_vec): E as the solve takes it and its diagonal. E may be the
+    (m,) DIAGONAL of a diagonal error covariance, the m^2-free form the
+    public wrappers pass through for diagonal E."""
+    if E.dim() == 1:
+        if not e_diag:  # caller bypassed the wrappers: stay correct
+            return torch.diag(E), E
+        return E, E
+    return E, torch.diagonal(E)
+
+
+def _states(V, g, f, z1, z2):
+    """Exact N(0, C) states of the rows of V, f: (rows, members)."""
+    return torch.sqrt(f)[:, None] * z1 + V @ (torch.sqrt(g)[:, None] * z2)
+
+
+def _obs_noise(E, e_vec, zo, e_diag):
+    """Observation noise (m, members) with covariance E."""
+    if e_diag:
+        return torch.sqrt(e_vec)[:, None] * zo
+    return torch.linalg.cholesky(E) @ zo
+
+
+class _ObsSolve(NamedTuple):
+    """The m-sized part of the solve: u = K^{-1} 1, w = K^{-1} y,
+    A = K^{-1} sim_obs (None without members), and for the diagnostics
+    S = K^{-1} V_o and diag(K^{-1}) (None without)."""
+
+    u: torch.Tensor
+    w: torch.Tensor
+    A: torch.Tensor | None
+    S: torch.Tensor | None
+    kinv_diag: torch.Tensor | None
+
+
+def _obs_solve(V_o, g, f_o, E, e_vec, y, sim_obs, diagnostics, e_diag):
+    """Factorise K = C_obs + E and solve every right-hand side the grid
+    rows need (``_ObsSolve``), from the observed rows alone.
+
+    e_diag=True (set by the public wrappers when E is diagonal, the
+    common production case) solves through the Woodbury identity; every
+    right-hand side otherwise goes through ONE stacked solve
+    (``_stacked_obs_solve``)."""
+    dtype = V_o.dtype
+    m, r = V_o.shape
     if e_diag:
         # Woodbury route: K = D + U U' with D = diag(f_o + e) and
         # U = V_o sqrt(g), so K^{-1}Z = D^{-1}Z - D^{-1}U W^{-1}U'D^{-1}Z
@@ -217,59 +235,110 @@ def _lowrank_solve(
             X = ksolve_once(Z)
             return X + ksolve_once(Z - kmat(X))
 
-        rhs = [torch.ones((m, 1), dtype=dtype, device=V.device), y[:, None]]
-        if n_members > 0:
+        rhs = [torch.ones((m, 1), dtype=dtype, device=V_o.device),
+               y[:, None]]
+        if sim_obs is not None:
             rhs.append(sim_obs)
         sol = ksolve(torch.cat(rhs, dim=1))
-        u, w = sol[:, 0], sol[:, 1]
-        X = sol[:, 2:] if n_members > 0 else None
-    else:
-        parts = []
+        A = sol[:, 2:] if sim_obs is not None else None
+        S = kinv_diag = None
         if diagnostics:
-            parts.append(V_o)
-            parts.append(torch.eye(m, dtype=dtype, device=V.device))
-        if n_members > 0:
-            parts.append(sim_obs)
-        u, w, X = _stacked_obs_solve(
-            V_o, g, f_o, E, y, torch.cat(parts, dim=1) if parts else None,
-        )
-    field, t, lam, uy = _field_from_uw(V, g, f, idx, u, w, y)
-
-    if diagnostics:
-        # diag(C_x' K^{-1} C_x): C_x[:, j] = V_o (g V_j) + f_j e_pos(j),
-        # so the quadratic form splits into the (r x r) Gram piece
-        # V_j' g (V_o'K^{-1}V_o) g V_j, a cross piece on the m observed
-        # columns via S = K^{-1}V_o, and f_j^2 diag(K^{-1}).
-        if e_diag:
             S = ksolve(V_o)  # K^{-1} V_o, r-sized solves only
             # diag(K^{-1}) = 1/d - rowsum((Lw^{-1}DiU')^2): one narrow
             # forward substitution instead of an m-wide identity RHS
             R = torch.linalg.solve_triangular(Lw, DiU.T, upper=False)
             kinv_diag = 1.0 / d - torch.sum(R**2, dim=0)
-        else:
-            S = X[:, :r]  # K^{-1} V_o
-            kinv_diag = torch.diagonal(X[:, r:r + m])
-        M = (g[:, None] * (V_o.T @ S)) * g[None, :]  # (r, r)
-        M = 0.5 * (M + M.T)
-        sv = torch.sum((V @ M) * V, dim=1)  # (n,)
-        P = torch.sum(S * (V_o * g[None, :]), dim=1)  # (m,)
-        sv.index_add_(0, idx, 2.0 * f_o * P + f_o**2 * kinv_diag)
+        return _ObsSolve(sol[:, 0], sol[:, 1], A, S, kinv_diag)
+    parts = []
+    if diagnostics:
+        parts.append(V_o)
+        parts.append(torch.eye(m, dtype=dtype, device=V_o.device))
+    if sim_obs is not None:
+        parts.append(sim_obs)
+    u, w, X = _stacked_obs_solve(
+        V_o, g, f_o, E, y, torch.cat(parts, dim=1) if parts else None,
+    )
+    A = X[:, -sim_obs.shape[1]:] if sim_obs is not None else None
+    S = kinv_diag = None
+    if diagnostics:
+        S = X[:, :r]  # K^{-1} V_o
+        kinv_diag = torch.diagonal(X[:, r:r + m])
+    return _ObsSolve(u, w, A, S, kinv_diag)
 
-        diag = f + torch.sum(V**2 * g[None, :], dim=1)
-        wc = sv - lam * t
-        uncert2 = diag - (wc + lam) - lam
-        cmask = sv / diag
-    else:
-        uncert2 = torch.zeros_like(field)
-        cmask = torch.zeros_like(field)
 
+def _finish_rows(V, g, f, V_o, f_o, rows, inside, y, sol):
+    """Field, uncertainty^2 and constraint mask of a block of grid rows
+    (V, f the block's rows; `rows`, `inside` as in ``_cross_t_rows``) from
+    the observation solve `sol`; zeros for the diagnostics without S."""
+    field, t, lam, uy = _field_rows(V, g, V_o, f_o, rows, inside, sol.u,
+                                    sol.w, y)
+    if sol.S is None:
+        return field, torch.zeros_like(field), torch.zeros_like(field)
+    # diag(C_x' K^{-1} C_x): C_x[:, j] = V_o (g V_j) + f_j e_pos(j),
+    # so the quadratic form splits into the (r x r) Gram piece
+    # V_j' g (V_o'K^{-1}V_o) g V_j, a cross piece on the m observed
+    # columns via S = K^{-1}V_o, and f_j^2 diag(K^{-1}).
+    S = sol.S
+    M = (g[:, None] * (V_o.T @ S)) * g[None, :]  # (r, r)
+    M = 0.5 * (M + M.T)
+    sv = torch.sum((V @ M) * V, dim=1)  # (rows,)
+    P = torch.sum(S * (V_o * g[None, :]), dim=1)  # (m,)
+    sv.index_add_(0, rows, _inside(2.0 * f_o * P + f_o**2 * sol.kinv_diag,
+                                   inside))
+
+    diag = f + torch.sum(V**2 * g[None, :], dim=1)
+    wc = sv - lam * t
+    uncert2 = diag - (wc + lam) - lam
+    cmask = sv / diag
+    return field, uncert2, cmask
+
+
+def _members_rows(V, g, V_o, f_o, rows, inside, A, states, field):
+    """member = field + grid_sim - state on a block of grid rows:
+    (members, rows)."""
+    grid_sim = _cross_t_rows(V, g, V_o, f_o, rows, inside, A)
+    return field[None, :] + (grid_sim - states).T
+
+
+def _lowrank_solve(
+    V, g, f, E, idx, y, n_members: int, diagnostics: bool = True,
+    e_diag: bool = False, generator=None, noise=None,
+):
+    """Factorise K, field, diagnostics, members: the core of every entry
+    point.
+
+    n_members = 0 skips the ensemble entirely; diagnostics=False skips
+    the uncertainty/constraint diagonals (the m^2-wide part of the
+    stacked solve) and returns zeros for them; e_diag=True (set by the
+    public wrappers when E is diagonal, the common production case)
+    draws the obs noise elementwise instead of via a second m^3
+    Cholesky, and solves through the Woodbury identity.
+    ``parallel.lowrank`` runs the same pieces on row blocks.
+    """
+    m = idx.shape[0]
+    n = V.shape[0]
+    r = g.shape[0]
+    V_o = V[idx]
+    f_o = f[idx]
+    E, e_vec = _error_forms(E, e_diag)
+
+    # draw states and simulated observations FIRST so they can join the
+    # single stacked solve
+    sim_obs = None
+    if n_members > 0:
+        z1, z2, zo = _normals(
+            noise, generator,
+            [(n, n_members), (r, n_members), (m, n_members)], V)
+        states = _states(V, g, f, z1, z2)  # (n, members)
+        sim_obs = states[idx] + _obs_noise(E, e_vec, zo, e_diag)
+
+    sol = _obs_solve(V_o, g, f_o, E, e_vec, y, sim_obs, diagnostics, e_diag)
+    field, uncert2, cmask = _finish_rows(V, g, f, V_o, f_o, idx, None, y,
+                                         sol)
     if n_members == 0:
-        members = torch.zeros((0, n), dtype=dtype, device=V.device)
+        members = torch.zeros((0, n), dtype=V.dtype, device=V.device)
         return field, uncert2, cmask, members
-
-    A = X[:, -n_members:]  # K^{-1} sim_obs
-    grid_sim = _cross_t_apply(V, g, f, idx, A)  # (n, members)
-    members = field[None, :] + (grid_sim - states).T
+    members = _members_rows(V, g, V_o, f_o, idx, None, sol.A, states, field)
     return field, uncert2, cmask, members
 
 

@@ -645,3 +645,111 @@ def test_stochastic_path_on_the_card():
                                bad, 3, generator=g)
     assert draws.is_cuda and draws.shape == (3, bad.shape[0])
     assert bool(torch.isfinite(draws).all())
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths (parallel/) on four slots of the card
+# ---------------------------------------------------------------------------
+def _card_mesh(n_grid=4, n_ens=1):
+    from glomargridding_tpu_torch import parallel as tpar
+
+    return tpar.make_mesh(n_grid=n_grid, n_ens=n_ens,
+                          devices=["cuda"] * (n_grid * n_ens))
+
+
+def test_sharded_paths_launch_the_kernels(monkeypatch):
+    """Each sharded path goes through its kernels and never through the
+    plain ellipse tile: K1 in the sharded kernel kriging, K4 in the
+    sharded row blocks, K3 and K4 in the ring-SUMMA stream; each against
+    its single-device counterpart (f32: 1e-5 of the output's scale; the
+    row blocks against K2's matrix: 1e-6 of max |C|)."""
+    from glomargridding_tpu_torch import parallel as tpar
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain ellipse tile ran on the card")
+
+    monkeypatch.setattr(tcov, "ellipse_covariance_block", refuse)
+    mesh = _card_mesh()
+    rng = np.random.default_rng(3)
+    lat = np.repeat(np.arange(-86.0, 90.0, 4.0), 90)  # 44 x 90 cells
+    lon = np.tile(np.arange(-178.0, 180.0, 4.0), 44)
+    idx = np.sort(rng.choice(lat.size, 300, replace=False))
+    obs, err = rng.normal(size=300), np.diag(0.1 + 0.05 * rng.random(300))
+    kernel = tkk.variogram_kernel(MaternVariogram(psill=1.2, range=1500.0,
+                                                  nu=0.5))
+    args = (kernel, lat.astype(np.float32), lon.astype(np.float32), idx,
+            obs.astype(np.float32), err.astype(np.float32))
+    tpair.pairwise_covariance.launches = 0
+    sharded = tpar.sharded_kriging_from_kernel(mesh, *args, variance=1.2)
+    assert tpair.pairwise_covariance.launches > 0
+    single = tkk.kriging_from_kernel(*args, variance=1.2)
+    assert _rel_max(sharded[0].gather(), single.field) <= 1e-5
+
+    n = lat.size  # 3,960
+    fields = (rng.uniform(800, 2000, n), rng.uniform(400, 900, n),
+              rng.uniform(-1, 1, n), rng.uniform(0.5, 1.5, n), lat, lon)
+    fields = tuple(a.astype(np.float32) for a in fields)
+    tell.ellipse_tile.launches = 0
+    cov = tpar.sharded_ellipse_covariance(mesh, *fields, v=1.5,
+                                          max_dist=3000.0)
+    assert tell.ellipse_tile.launches == 4
+    P = tell.pack_points(*tcov._ellipse_inputs(*(
+        torch.as_tensor(a, device="cuda") for a in fields[:4]),
+        torch.deg2rad(torch.as_tensor(lat, dtype=torch.float32,
+                                      device="cuda")),
+        torch.deg2rad(torch.as_tensor(lon, dtype=torch.float32,
+                                      device="cuda"))))
+    dense = tell.ellipse_sym(P, 1.5, max_dist=3000.0)
+    assert torch.max(torch.abs(cov.gather() - dense)).item() <= (
+        1e-6 * torch.max(torch.abs(dense)).item())
+
+    mv, _, _ = tpar.sharded_ellipse_stream_operator(mesh, *fields, v=1.5,
+                                                    max_dist=3000.0)
+    ref, _, _ = tcov.ellipse_covariance_operator(
+        *tcov._ellipse_inputs(*(torch.as_tensor(a, device="cuda")
+                                for a in fields[:4]), P[:, 0], P[:, 1]),
+        v=1.5, max_dist=3000.0, store="stream")
+    for k, kernel_count in ((8, tell.ellipse_matvec), (40, tell.ellipse_tile)):
+        x = torch.randn((n, k), device="cuda")
+        kernel_count.launches = 0
+        y = mv(x)
+        assert kernel_count.launches > 0
+        assert _rel_max(y, ref(x)) <= 1e-5
+
+
+def test_sharded_factor_and_ensembles_on_the_card():
+    """f64 on a 2 x 2 mesh of the card: the blocked Cholesky against
+    ``torch.linalg`` (1e-10), the ensemble step and the factored ensemble
+    against their single-device paths on the same normals (1e-9)."""
+    from glomargridding_tpu_torch import parallel as tpar
+    from glomargridding_tpu_torch.models import lowrank as tlr
+    from glomargridding_tpu_torch.models import stochastic as tst
+    from glomargridding_tpu_torch.ops.covariance_tools import LowRankPSD
+
+    psd, idx, y, e = _factors(n=1200, r=48, m=150)
+    psd = LowRankPSD(psd.vectors.double(), psd.gains.double(),
+                     psd.floor.double())
+    C, E, y = psd.to_dense(), torch.diag(e.double()), y.double()
+    mesh = _card_mesh(2, 2)
+    L = tpar.sharded_cholesky(mesh, C, n_blocks=8)
+    assert _rel_max(L.gather(), torch.linalg.cholesky(C)) <= 1e-10
+    g = torch.Generator(device="cuda").manual_seed(4)
+    z = (torch.randn((6, 1200), dtype=torch.float64, generator=g,
+                     device="cuda"),
+         torch.randn((6, 150), dtype=torch.float64, generator=g,
+                     device="cuda"))
+    members, field, _ = tpar.ensemble_kriging_step(mesh, C, E, idx, y, 6,
+                                                   noise=z)
+    want, want_field = tst.batched_ensemble_step(C, E, idx, y, 6, noise=z)
+    assert members.parts[0].is_cuda
+    assert _rel_max(members.gather(), want) <= 1e-9
+    assert _rel_max(field.gather(), want_field) <= 1e-9
+    noise = tuple(torch.randn(s, dtype=torch.float64, generator=g,
+                              device="cuda")
+                  for s in ((1200, 6), (48, 6), (150, 6)))
+    res, mem = tpar.sharded_lowrank_ensemble_step(mesh, psd, idx, y, e, None,
+                                                  6, noise=noise)
+    res_l, mem_l = tlr.lowrank_ensemble_step(psd, idx, y, e, None, 6,
+                                             noise=noise)
+    assert _rel_max(mem.gather(), mem_l) <= 1e-9
+    assert _rel_max(res.field.gather(), res_l.field) <= 1e-9

@@ -6,8 +6,10 @@ machine without a card (here made so by ``torch.cuda.is_available``
 returning False) it raises ``RuntimeError`` instead of running on the
 CPU. With ``device="cpu"`` it still matches the JAX package on the same
 numpy inputs, f64, to the parity tests' bounds: rtol 1e-8, atol 1e-10,
-and for the stream operator (whose diagonal term is f32) its own tests'
-2e-4 against the dense product.
+and for the stream operators (whose diagonal term is f32) its own tests'
+2e-4 against the dense product. The sharded entry points of ``parallel``
+run on a mesh from ``make_mesh()``: every card, or without one a
+``RuntimeError``; ``device="cpu"`` stands for a mesh of two CPU slots.
 The card side runs the same ``CASES`` with no device named and asserts
 CUDA outputs (``tests/test_torch_cuda.py``). The deprecated function
 forms of the kriging classes are held to their DeprecationWarning here.
@@ -26,7 +28,6 @@ from glomargridding_tpu.models import kernel_kriging as jkk
 from glomargridding_tpu.models import kriging as jkrig
 from glomargridding_tpu.models import lowrank as jlr
 from glomargridding_tpu.models import stochastic as jst
-from glomargridding_tpu import io as jio
 from glomargridding_tpu.core.labeled import Coordinates as JCoordinates
 from glomargridding_tpu.grid import grid as jgrid
 from glomargridding_tpu.models.ellipse import covariance as jcov
@@ -41,9 +42,11 @@ from glomargridding_tpu.ops import sampling as jsamp
 from glomargridding_tpu.ops import sphere as jsphere
 from glomargridding_tpu.ops import variogram_fit as jfit
 from glomargridding_tpu.native import gridbin as jgb
+from glomargridding_tpu import parallel as jpar
 from glomargridding_tpu.ops.variogram import MaternVariogram
 from glomargridding_tpu_torch import convert
 from glomargridding_tpu_torch import io as tio
+from glomargridding_tpu_torch import parallel as tpar
 from glomargridding_tpu_torch.grid import grid as tgrid
 from glomargridding_tpu_torch.models import kernel_kriging as tkk
 from glomargridding_tpu_torch.models import kriging as tkrig
@@ -61,6 +64,7 @@ from glomargridding_tpu_torch.ops import sampling as tsamp
 from glomargridding_tpu_torch.ops import sphere as tsphere
 from glomargridding_tpu_torch.ops import variogram_fit as tfit
 from glomargridding_tpu_torch.ops.cuda import ellipse as tell
+from glomargridding_tpu_torch.parallel import mesh as tmesh
 from glomargridding_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(2)
@@ -582,6 +586,10 @@ def _load_lowrank(rng):
     call's device."""
     pytest.importorskip("h5py")
     import atexit
+
+    # the JAX package's io imports h5py at its top, which the card's
+    # machine lacks: imported here, this file collects there too
+    from glomargridding_tpu import io as jio
     import os
     import tempfile
 
@@ -766,6 +774,194 @@ def _ellipse_builder_from_dataset(rng):
                 lats, lons, **kw).cov_ns,))
 
 
+def _slot_mesh(d):
+    """The port's mesh in a device-rule case: every card by default (with
+    none, ``make_mesh`` raises), or two slots of the named device."""
+    if "device" in d:
+        return tpar.make_mesh(devices=[d["device"]] * 2)
+    return tpar.make_mesh()
+
+
+def _whole(*outs):
+    return tuple(o.gather() if isinstance(o, tmesh.Sharded) else o
+                 for o in outs)
+
+
+def _make_mesh(rng):
+    """A psum over the default mesh's slots: the column sums of a matrix
+    whose rows are sharded over them."""
+    A = rng.normal(size=(8, 5))
+
+    def port(**d):
+        devices = _slot_mesh(d).axis_devices("grid")
+        parts = tmesh.shard_rows(A, devices)
+        return (tmesh.psum([p.sum(0) for p in parts], devices)[0],)
+
+    return port, (jnp.sum(jnp.asarray(A), axis=0),)
+
+
+def _sharded_linalg(name):
+    """The blocked Cholesky and what applies its factor, on the default
+    mesh against the reference's 8-device mesh."""
+    def case(rng):
+        n = 64
+        M = rng.normal(size=(n, n))
+        spd = M @ M.T / n + np.eye(n)
+        B, mean = rng.normal(size=(n, 3)), rng.normal(size=n)
+        jmesh = jpar.make_mesh()
+        jL = jpar.sharded_cholesky(jmesh, spd)
+        refs = {
+            "sharded_cholesky": (jL,),
+            "sharded_triangular_solve": (
+                jpar.sharded_triangular_solve(jmesh, jL, B),),
+            "sharded_whiten": (jpar.sharded_whiten(jmesh, jL, B),),
+            "sharded_mvn_logpdf": (
+                jpar.sharded_mvn_logpdf(jmesh, jL, B, mean=mean),),
+        }
+
+        def port(**d):
+            mesh = _slot_mesh(d)
+            L = tpar.sharded_cholesky(mesh, spd)
+            if name == "sharded_cholesky":
+                return _whole(L)
+            if name == "sharded_mvn_logpdf":
+                return (tpar.sharded_mvn_logpdf(mesh, L, B, mean=mean),)
+            return (getattr(tpar, name)(mesh, L, B),)
+
+        return port, refs[name]
+
+    return case
+
+
+def _sharded_ordinary_kriging(rng):
+    cov, idx, obs, err = _spd_case(rng)
+    return (lambda **d: _whole(*tpar.sharded_ordinary_kriging(
+                _slot_mesh(d), cov, idx, obs, err)),
+            jpar.sharded_ordinary_kriging(jpar.make_mesh(), cov, idx, obs,
+                                          err))
+
+
+def _ensemble_kriging_step(rng):
+    """The reference's keyed draws replayed (80 cells: no padding on its
+    eight devices)."""
+    cov, idx, obs, err = _spd_case(rng)
+    key = jax.random.key(4)
+    k_state, k_obs = jax.random.split(key)
+    z = np.array(jax.random.normal(k_state, (80, 4), jnp.float64))
+    zo = np.array(jax.random.normal(k_obs, (4, idx.size), jnp.float64))
+    return (lambda **d: _whole(*tpar.ensemble_kriging_step(
+                _slot_mesh(d), cov, err, idx, obs, 4, noise=(z.T, zo))),
+            jpar.ensemble_kriging_step(jpar.make_mesh(), key, cov, err, idx,
+                                       obs, 4))
+
+
+def _sharded_kriging_from_kernel(rng):
+    glat, glon, idx, obs, err = _grid_problem(rng)
+    jkern, tkern = _kernels()
+    return (lambda **d: _whole(*tpar.sharded_kriging_from_kernel(
+                _slot_mesh(d), tkern, glat, glon, idx, obs, err,
+                variance=1.2)),
+            jpar.sharded_kriging_from_kernel(jpar.make_mesh(), jkern, glat,
+                                             glon, idx, obs, err,
+                                             variance=1.2))
+
+
+def _flat_ellipse_fields(rng, n=64, dtype=np.float64):
+    return tuple(a.astype(dtype) for a in (
+        rng.uniform(800, 2000, n), rng.uniform(400, 900, n),
+        rng.uniform(-1.0, 1.0, n), rng.uniform(0.5, 1.5, n),
+        np.sort(rng.uniform(-60, 60, n)), rng.uniform(-180, 180, n)))
+
+
+def _sharded_ellipse_covariance(rng):
+    fields = _flat_ellipse_fields(rng)
+    kw = dict(v=1.5, max_dist=3000.0)
+    return (lambda **d: _whole(tpar.sharded_ellipse_covariance(
+                _slot_mesh(d), *fields, **kw)),
+            (jpar.sharded_ellipse_covariance(jpar.make_mesh(), *fields,
+                                             **kw),))
+
+
+def _sharded_state_draws(rng):
+    n = 64
+    M = rng.normal(size=(n, n))
+    L = np.linalg.cholesky(M @ M.T / n + np.eye(n))
+    key = jax.random.key(6)
+    z = np.array(jax.random.normal(key, (n, 5), jnp.float64))
+    return (lambda **d: _whole(tpar.sharded_state_draws(
+                _slot_mesh(d), L, 5, noise=z.T)),
+            (jpar.sharded_state_draws(jpar.make_mesh(), key, jnp.asarray(L),
+                                      5),))
+
+
+def _sharded_ellipse_stream_operator(rng):
+    fields = _flat_ellipse_fields(rng, dtype=np.float32)
+    X = rng.normal(size=(64, 5)).astype(np.float32)
+    jmv, _, _ = jpar.sharded_ellipse_stream_operator(
+        jpar.make_mesh(), *fields, v=1.5, max_dist=3000.0)
+
+    def port(**d):
+        mv, _, _ = tpar.sharded_ellipse_stream_operator(
+            _slot_mesh(d), *fields, v=1.5, max_dist=3000.0)
+        return (mv(X), mv(X[:, :2].copy()))
+
+    return port, (jmv(X), jmv(X[:, :2]))
+
+
+def _sharded_lowrank(name):
+    """The sharded factored path: numpy factors placed by
+    ``convert.lowrank_psd_from_arrays`` on the case's device, sharded over
+    its mesh."""
+    def case(rng):
+        factors, jpsd, idx, obs, e = _factored(rng, n=160)
+        key = jax.random.key(5)
+        noise = _ensemble_noise(key, 160, 12, 20, 4)
+        jmesh = jpar.make_mesh()
+        if name == "sharded_lowrank_kriging":
+            ref = tuple(jpar.sharded_lowrank_kriging(jmesh, jpsd, idx, obs,
+                                                     e))
+        else:
+            res, mem = jpar.sharded_lowrank_ensemble_step(
+                jmesh, jpsd, idx, obs, e, key, n_members=4)
+            ref = (*res, mem)
+
+        def port(**d):
+            psd = convert.lowrank_psd_from_arrays(*factors, **d)
+            mesh = _slot_mesh(d)
+            if name == "sharded_lowrank_kriging":
+                return _whole(*tpar.sharded_lowrank_kriging(mesh, psd, idx,
+                                                            obs, e))
+            res, mem = tpar.sharded_lowrank_ensemble_step(
+                mesh, psd, idx, obs, e, n_members=4, noise=noise)
+            return _whole(*res, mem)
+
+        return port, ref
+
+    return case
+
+
+def _sharded_ellipse_builder(rng):
+    """``compute_params(mesh=...)``: the lanes of each chunk split over
+    the default mesh's slots, against the reference's unsharded fit."""
+    data, coords = _training_cube(rng)
+    kw = dict(default_value=[-999.0] * 6, max_distance=8000.0, tol=1e-8,
+              opt_method="lm", **_ELLIPSE_FIT)
+    jm = jmodel.EllipseModel(**_ELLIPSE_MODEL)
+    ref = jest.EllipseBuilder(data, JCoordinates(coords)).compute_params(
+        matern_ellipse=jm, **kw)
+
+    def port(**d):
+        b = test.EllipseBuilder(data, coords, **d)
+        p = b.compute_params(matern_ellipse=convert.ellipse_model_from_params(
+            vars(jm)), mesh=_slot_mesh(d), **kw)
+        return (torch.as_tensor(np.stack(
+            [p[k].values for k in ("Lx", "Ly", "theta", "qc_code")]),
+            device=b.device),)
+
+    return port, (np.stack([ref[k].values
+                            for k in ("Lx", "Ly", "theta", "qc_code")]),)
+
+
 CASES = {
     "kriging_from_kernel": _kriging_from_kernel,
     "ensemble_from_kernel": _ensemble_from_kernel,
@@ -837,6 +1033,21 @@ CASES = {
     "grid_to_distance_matrix": _grid_to_distance_matrix,
     "gridbox_error_covariance": _gridbox_error_covariance,
     "load_lowrank": _load_lowrank,
+    "make_mesh": _make_mesh,
+    "sharded_cholesky": _sharded_linalg("sharded_cholesky"),
+    "sharded_triangular_solve": _sharded_linalg("sharded_triangular_solve"),
+    "sharded_whiten": _sharded_linalg("sharded_whiten"),
+    "sharded_mvn_logpdf": _sharded_linalg("sharded_mvn_logpdf"),
+    "sharded_ordinary_kriging": _sharded_ordinary_kriging,
+    "ensemble_kriging_step": _ensemble_kriging_step,
+    "sharded_kriging_from_kernel": _sharded_kriging_from_kernel,
+    "sharded_ellipse_covariance": _sharded_ellipse_covariance,
+    "sharded_state_draws": _sharded_state_draws,
+    "sharded_ellipse_stream_operator": _sharded_ellipse_stream_operator,
+    "sharded_lowrank_kriging": _sharded_lowrank("sharded_lowrank_kriging"),
+    "sharded_lowrank_ensemble_step": _sharded_lowrank(
+        "sharded_lowrank_ensemble_step"),
+    "EllipseBuilder(mesh)": _sharded_ellipse_builder,
 }
 
 SOLVER_CASES = {
@@ -858,7 +1069,9 @@ def tolerance(name):
         return SOLVER_TOL
     if name == "precompute_states_spectral":
         return F32_TOL
-    return OPERATOR_TOL if name == "ellipse_covariance_operator" else TOL
+    return OPERATOR_TOL if name in (
+        "ellipse_covariance_operator", "sharded_ellipse_stream_operator"
+    ) else TOL
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

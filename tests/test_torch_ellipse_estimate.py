@@ -273,8 +273,11 @@ def test_compute_params_refuses_what_it_does_not_run(builders):
     _, tb = builders
     with pytest.raises(ValueError, match="opt_method"):
         _port_fit(tb, opt_method="Powell")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        _port_fit(tb, mesh=object())
+    # the sharded fit (mesh=) runs: it refuses an axis its mesh lacks
+    from glomargridding_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="no axis"):
+        _port_fit(tb, mesh=make_mesh(devices=["cpu"] * 2), mesh_axis="space")
 
 
 def test_chunking_and_dispatch_chunks_change_nothing(builders, monkeypatch):
