@@ -32,9 +32,9 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
 - phases 16-18, the estimation path at 64,800 cells (nu = 1.5, f32): 60
   states drawn from phase 13's repaired covariance are the training
   cube of ``EllipseBuilder`` (dense correlation, 16.8 GB), and
-  ``compute_params`` fits every cell's ellipse by batched Nelder-Mead
-  with the configuration of ``examples/nonstationary_1deg_pipeline.py``.
-  and once more by Levenberg-Marquardt. The fit is held on 4,096 lanes
+  ``compute_params`` fits every cell's ellipse by Levenberg-Marquardt
+  with the configuration of ``examples/nonstationary_1deg_pipeline.py``
+  (the whole-grid simplex is phase 29's). The fit is held on 4,096 lanes
   against the f64 run of the same code, against the Levenberg-Marquardt
   lane, and against two controls that must do worse (the likelihood
   summed in f32, a fit at the wrong order), and one chunk of polar lanes
@@ -67,7 +67,18 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
   the ensemble step's blocked Cholesky at 64,800 (f32 and f64), the
   factored kriging and ensemble, the blocked Cholesky and its solves at
   16,384 in f64, and the whole-grid fit's lanes split over the slots,
-  each against its single-device call and with its time beside it.
+  each against its single-device call and with its time beside it;
+- phase 29, ``examples/torch_nonstationary_quarter_degree.py`` at
+  259,200 cells with nothing cut, through its stage functions: the
+  training cube (f32 against f64), the lazy correlation, the whole-grid
+  ellipse fit (its chunk sizes timed, two chunks refitted, its
+  checkpoint resumed), the banded stream on the fitted fields (K3, K4)
+  against an f64 slab of the plain twin, the clip, and kriging with 100
+  members off the factors; phase 30, the three 1-degree twins
+  (``examples/torch_nonstationary_65k_lowrank.py``: K2's bf16 store and
+  its clip; ``examples/torch_large_ensemble_65k.py``: K1's tiles and the
+  members; ``examples/torch_ellipse_1deg_covariance.py``: K4 at 40,000
+  points).
 
 Usage, from the repository root, with no arguments:
 
@@ -86,6 +97,7 @@ kernel spills.
 
 import json
 import logging
+import os
 import re
 import statistics
 import subprocess
@@ -891,6 +903,15 @@ def main():
     for name, count in (("ellipse_matvec", k3_shard),
                         ("ellipse_tile", k4_shard)):
         next(k for k in kernels if k["name"] == name)["launches"] += count
+    # phase 29: the 0.5-degree twin, K3 and K4 in its stream and clip;
+    # phase 30: the 1-degree twins, K2's store, K1's tiles, K4's build
+    k3_quarter, k4_quarter = phase29_quarter_degree(dev)
+    k1_x, k2_x, k4_x = phase30_examples(dev)
+    kernels[0]["launches"] += k1_x
+    for name, count in (("ellipse_sym", k2_x),
+                        ("ellipse_matvec", k3_quarter),
+                        ("ellipse_tile", k4_quarter + k4_x)):
+        next(k for k in kernels if k["name"] == name)["launches"] += count
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1445,12 +1466,20 @@ def solver_log():
         eigsh.logger.propagate = propagate
 
 
-def clip_instrumented(mv, n, trace):
+def clip_instrumented(mv, n, trace, clip=None):
     """One clip of the operator with its sweeps, CholQR passes and
     Rayleigh-Ritz solves counted and timed (each timed call is
-    synchronised, so this run is slower than the warm ones)."""
+    synchronised, so this run is slower than the warm ones). `clip(op)`
+    runs the clip on the counted operator (default: phase 13's); its
+    result comes back first."""
     from glomargridding_tpu_torch import explained_variance_clip_lowrank
     from glomargridding_tpu_torch.ops import eigsh
+
+    if clip is None:
+        def clip(op):
+            return explained_variance_clip_lowrank(
+                op, n=n, trace=trace, target_variance_fraction=CLIP_TARGET,
+                **CLIP_KW)
 
     watch = {"sweeps": Stopwatch(mv), "cholqr": Stopwatch(eigsh._cholqr2),
              "eigh": Stopwatch(eigsh._ritz_eigh)}
@@ -1460,9 +1489,7 @@ def clip_instrumented(mv, n, trace):
         with solver_log() as log:
             sync()
             t0 = time.perf_counter()
-            psd = explained_variance_clip_lowrank(
-                watch["sweeps"], n=n, trace=trace,
-                target_variance_fraction=CLIP_TARGET, **CLIP_KW)
+            psd = clip(watch["sweeps"])
             sync()
             total = time.perf_counter() - t0
     finally:
@@ -1871,22 +1898,23 @@ def spread(values):
         np.median(v), np.percentile(v, 99), v.max()))
 
 
-def subset_fitter(builder, model, lane, tol, slots=None):
+def subset_fitter(builder, model, lane, tol, slots=None, fit_kw=None):
     """``EllipseBuilder._chunk_fitter`` (``compute_params`` calls it
-    too) with the fit's configuration, for fitting chosen lanes: its
-    ``fit`` and ``build``, the start point, the box and the bounds the
-    QC codes are read against. With device `slots`, ``fit`` splits each
-    chunk's lanes over them as ``compute_params(mesh=...)`` does
-    (``EllipseBuilder._slot_fitter``)."""
+    too) with the fit's configuration (`fit_kw`, default phase 16's
+    FIT_KW), for fitting chosen lanes: its ``fit`` and ``build``, the
+    start point, the box and the bounds the QC codes are read against.
+    With device `slots`, ``fit`` splits each chunk's lanes over them as
+    ``compute_params(mesh=...)`` does (``EllipseBuilder._slot_fitter``)."""
+    fit_kw = FIT_KW if fit_kw is None else fit_kw
     x0, box, bounds_out = model._fit_setup(
-        FIT_KW["guesses"], FIT_KW["bounds"], builder._x_centered.dtype,
+        fit_kw["guesses"], fit_kw["bounds"], builder._x_centered.dtype,
         builder.device)
     geometry = dict(
-        min_distance=0.3, max_distance=FIT_KW["max_distance"],
+        min_distance=0.3, max_distance=fit_kw["max_distance"],
         anisotropic=model.anisotropic, delta_x_method="Modified_Met_Office",
         physical_distance=model.physical_distance,
         physical_distance_selection=True,
-        max_train_cols=FIT_KW["max_train_cols"])
+        max_train_cols=fit_kw["max_train_cols"])
     args = (model, lane, tol, geometry, x0, box)
     fit, build = builder._chunk_fitter(*args)
     if slots is not None:
@@ -2030,12 +2058,27 @@ def polar_lanes(builder64, model, qc_f32):
                         if caught.any() else "none"))
 
 
-def phase16_whole_grid_fit(dev, glat, glon, psd):
-    """The ellipse MLE on every cell of the 1-degree grid, from a cube
-    drawn from the repaired covariance, and its checks on the subset.
+def check_canonical(flat):
+    """Fitted fields in the canonical form of ``estimate.
+    _postprocess_fits``, or an AssertionError: Lx >= Ly, and the angle
+    shifted once by pi into [-pi, 3 pi / 2] (a raw angle in the box
+    [-2 pi, 2 pi], a quarter turn added where the axes swapped; the ends
+    to an f32 rounding of the box)."""
+    theta = flat["theta"]
+    swapped = int((flat["Ly"] > flat["Lx"]).sum())
+    ends = (-np.pi - 1e-6, 1.5 * np.pi + 1e-6)
+    if swapped or not ((theta >= ends[0]) & (theta <= ends[1])).all():
+        raise AssertionError(
+            f"the fitted fields are not canonical: Ly > Lx on {swapped} "
+            f"lanes, theta in [{theta.min():.4f}, {theta.max():.4f}]")
 
-    - The subset's lanes through ``_chunk_fitter`` are, bit for
-      bit, the whole-grid fit's fields.
+
+def phase16_whole_grid_fit(dev, glat, glon, psd):
+    """The ellipse MLE on every cell of the 1-degree grid by
+    Levenberg-Marquardt, from a cube drawn from the repaired covariance,
+    and the simplex on the subset's lanes (the simplex's whole-grid fit,
+    and its lanes against it bit for bit, are phase 29's at 259,200
+    cells).
     - f32 against the f64 run of the same code (the lazy correlation,
       f64 coordinates), on lanes with QC 0 in both: the share of lanes
       within FIT_REL_TOL on Lx and Ly, the share within those and
@@ -2044,8 +2087,8 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
     - Levenberg-Marquardt (tol 1e-8, in f64 and in f32) against
       Nelder-Mead in f64, on lanes with QC 0 in both: the share within FIT_REL_TOL and FIT_THETA_TOL,
       and no lane fails that Nelder-Mead fitted.
-    - The whole grid once more by Levenberg-Marquardt in f32: its wall,
-      its QC codes, and its subset lanes in the comparison above.
+    - The whole grid by Levenberg-Marquardt in f32: its wall, its QC
+      codes, and its subset lanes in the comparison above.
     - The reference's summation of the likelihood (all in f32) must
       leave fewer lanes within FIT_REL_TOL than the port's f64 sum, and
       fewer within all three bounds than FIT_SHARE_NM_F32_ELLIPSE.
@@ -2090,9 +2133,12 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
     del cor
     out["calc_cov_s"] = wall_median_s(builder.calc_cov)
 
+    # the whole grid by Levenberg-Marquardt (the simplex's whole-grid
+    # fit, and its chunks against the whole grid bit for bit, are phase
+    # 29's at 259,200 cells; here the simplex fits the held lanes)
     model = EllipseModel(**FIT_MODEL)
     watch = {"build": Stopwatch(estimate._chunk_train_data),
-             "solve": Stopwatch(estimate.batched_nelder_mead)}
+             "solve": Stopwatch(estimate.batched_levenberg_marquardt)}
     iterations = []
 
     def solve(*args, **kwargs):
@@ -2100,18 +2146,21 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
         iterations.append(int(res.nit.max()))
         return res
 
-    keep = estimate._chunk_train_data, estimate.batched_nelder_mead
-    estimate._chunk_train_data, estimate.batched_nelder_mead = (
+    keep = estimate._chunk_train_data, estimate.batched_levenberg_marquardt
+    estimate._chunk_train_data, estimate.batched_levenberg_marquardt = (
         watch["build"], solve)
     try:
         torch.cuda.reset_peak_memory_stats()
         sync()
         t0 = time.perf_counter()
-        params = builder.compute_params(FIT_DEFAULTS, model, **FIT_KW)
+        params = builder.compute_params(FIT_DEFAULTS, model,
+                                        **{**FIT_KW, "tol": LM_TOL},
+                                        opt_method="lm")
         sync()
         out["fit_s"] = time.perf_counter() - t0
     finally:
-        estimate._chunk_train_data, estimate.batched_nelder_mead = keep
+        (estimate._chunk_train_data,
+         estimate.batched_levenberg_marquardt) = keep
     out["fit_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
     def fields(dataset):
@@ -2124,15 +2173,13 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
             [flat["Lx"], flat["Ly"], flat["theta"]]), flat["qc_code"].astype(
                 int)
 
-    flat, fitted, qc = fields(params)
-    nit = flat["number_of_iterations"]
+    flat_lm, fitted_lm, qc_lm32 = fields(params)
+    nit = flat_lm["number_of_iterations"]
     lo, hi = FIT_KW["bounds"][0]
     for name in ("Lx", "Ly"):
-        if flat[name].min() < lo or flat[name].max() > hi:
+        if flat_lm[name].min() < lo or flat_lm[name].max() > hi:
             raise AssertionError(f"{name} left its box")
-    if (flat["Ly"] > flat["Lx"]).any() or (
-            np.abs(flat["theta"]) > np.pi).any():
-        raise AssertionError("the fitted fields are not canonical")
+    check_canonical(flat_lm)
     chunk = FIT_KW["chunk_size"]
     n_chunks = -(-n // chunk)
     if watch["solve"].calls != n_chunks or watch["build"].calls != n_chunks:
@@ -2146,13 +2193,13 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
     truth = np.column_stack([np.where(swap, tLy, tLx),
                              np.where(swap, tLx, tLy),
                              tth + swap * np.pi / 2])
-    good = qc == 0
-    recovery = fit_deviation(fitted, truth, good)
+    good = qc_lm32 == 0
+    recovery = fit_deviation(fitted_lm, truth, good)
     build_s = [dt for _, dt in watch["build"].log]
     solve_s = [dt for _, dt in watch["solve"].log]
-    codes, counts = np.unique(qc, return_counts=True)
-    phase(16, "ellipse_mle_64800", T=T_TRAIN, nu=NU_NS, lanes=n,
-          chunks=n_chunks, cols=FIT_KW["max_train_cols"],
+    codes, counts = np.unique(qc_lm32, return_counts=True)
+    phase(16, "ellipse_mle_64800_lm", T=T_TRAIN, nu=NU_NS, lanes=n,
+          chunks=n_chunks, cols=FIT_KW["max_train_cols"], tol=LM_TOL,
           cor_gb=f"{n * n * 4 / 1e9:.1f}",
           builder_s=f"{out['builder_s']:.4f}",
           calc_cov_s=f"{out['calc_cov_s']:.4f}",
@@ -2166,29 +2213,11 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
           qc_counts="|".join(f"{c}:{k}" for c, k in zip(codes, counts)),
           fit_peak_gb=f"{out['fit_peak_gb']:.3f}",
           recovery_Lx_ratio_median=(
-              f"{np.median(fitted[good, 0] / truth[good, 0]):.4f}"),
+              f"{np.median(fitted_lm[good, 0] / truth[good, 0]):.4f}"),
           recovery_Ly_ratio_median=(
-              f"{np.median(fitted[good, 1] / truth[good, 1]):.4f}"),
+              f"{np.median(fitted_lm[good, 1] / truth[good, 1]):.4f}"),
           recovery_theta_abs_median=(
               f"{np.median(recovery['theta_abs']):.4f}"))
-
-    # the same grid by Levenberg-Marquardt on the Fisher-z residuals
-    sync()
-    t0 = time.perf_counter()
-    flat_lm, fitted_lm, qc_lm32 = fields(builder.compute_params(
-        FIT_DEFAULTS, model, **{**FIT_KW, "tol": LM_TOL}, opt_method="lm"))
-    sync()
-    lm_fit_s = time.perf_counter() - t0
-    codes, counts = np.unique(qc_lm32, return_counts=True)
-    nit = flat_lm["number_of_iterations"]
-    agree = fit_deviation(fitted, fitted_lm, good & (qc_lm32 == 0))
-    phase(16, "ellipse_mle_64800_lm", tol=LM_TOL, fit_s=f"{lm_fit_s:.3f}",
-          nit_median=f"{np.median(nit):.0f}", nit_max=f"{nit.max():.0f}",
-          qc_counts="|".join(f"{c}:{k}" for c, k in zip(codes, counts)),
-          simplex_qc1_lm_qc0=int(np.sum((qc == 1) & (qc_lm32 == 0))),
-          simplex_within_rel_tol_of_lm=(
-              f"{share_within(agree, ('Lx_rel', 'Ly_rel')):.4f}"),
-          rel_tol=FIT_REL_TOL)
 
     # one chunk's build and a window of its solve: memory per pair, the
     # two gathers, and the device's idle share
@@ -2228,10 +2257,9 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
     # the subset: the same lanes through the chunk fitter
     lanes = np.concatenate(chunks)
     raw32, pm32, qc32, _ = fit_lanes(f32, chunks)
-    if not (np.array_equal(pm32, fitted[lanes])
-            and np.array_equal(qc32, qc[lanes])):
-        raise AssertionError("the chunk fitter's lanes are not the "
-                             "whole-grid fit's")
+    polar = np.arange(POLAR_START, POLAR_START + chunk)
+    qc_polar = np.full(n, -1)
+    qc_polar[polar] = fit_lanes(f32, [polar])[2]
     builder64 = EllipseBuilder(cube.double(), coords(np.float64),
                                cor_mode="lazy")
 
@@ -2256,7 +2284,7 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
     _, (_, pm_w, qc_w, _), _ = timed_fit(
         builder, EllipseModel(**{**FIT_MODEL, "v": 0.5}), "nm",
         FIT_KW["tol"])
-    polar_lanes(builder64, model, qc)
+    polar_lanes(builder64, model, qc_polar)
     del builder64
     both = (qc32 == 0) & (qc64 == 0)
     lengths = ("Lx_rel", "Ly_rel")
@@ -2285,7 +2313,8 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
     failed = {"lm_f64": int(np.sum((qc_lm == 9) & (qc64 != 9))),
               "lm_f32": int(np.sum((qc_lm32 == 9) & (qc64 != 9)))}
     phase(16, "ellipse_mle_subset", lanes=lanes.size,
-          subset_vs_whole_grid="bitwise", qc0_in_both=int(both.sum()),
+          qc0_in_both=int(both.sum()),
+          simplex_qc1_lm_qc0=int(np.sum((qc32 == 1) & (qc_lm32 == 0))),
           nm_f64_s=f"{f64_s:.3f}", nm_f64_nit_median=f"{np.median(nit64):.0f}",
           lm_f64_s=f"{lm_s:.3f}", lm_f64_nit_median=f"{np.median(nit_lm):.0f}",
           summed_f32_nit_median=f"{np.median(nit_s):.0f}",
@@ -4209,6 +4238,709 @@ def sharded_paths(dev, glat, glon, obs, psd):
     phase28h_fit(mesh, glat, glon, psd)
     phase(28, "sharded_paths", seconds=f"{time.perf_counter() - t0:.1f}")
     return k1, k3_c + k3_d, k4 + k4_c + k4_d
+
+
+# ---------------------------------------------------------------------------
+# phases 29-30: the examples' twins at full size
+# ---------------------------------------------------------------------------
+# phase 29, examples/torch_nonstationary_quarter_degree.py with nothing cut
+# the f32 cube against the f64 cube drawn from the same normals, over
+# max |cube|: f32 rounding of the spherical-harmonic synthesis
+QD_CUBE_TOL = 1e-3
+# lazy correlation rows, f32 against the same rows in f64 from the cube
+# (absolute: correlations); the control leaves the samples uncentred
+QD_ROWS = 8
+QD_ROW_TOL = 1e-5
+# fit chunk sizes timed on two chunks each (the twin's CHUNK_SIZE is the
+# fastest)
+QD_CHUNK_SIZES = (1024, 2048, 4096)
+# the share of converged fits (QC != 9) of the whole grid: the JAX run
+# converged 259,104 of 259,200 (its count of fits with QC != 9). QC 0
+# alone is printed: the simplex ends ~3% of the lanes, most of them
+# polar, on a bound (QC 1; phase 16's polar chunk). The control refits
+# the equatorial chunk with a tolerance f32 cannot meet
+QD_CONVERGED_SHARE = 0.99
+QD_CONTROL_TOL = 1e-12
+# a resumed fit off a completed checkpoint: no chunk solved
+QD_RESUME_S = 5.0
+# the stream's K3 against its wide path, and 1,024 of its rows against
+# an f64 slab of the plain twin (the cutoff decided on the f32 points, as
+# the kernels decide it), over max |C|; the control is a 2,700 km cutoff
+QD_STREAM_TOL = 1e-5
+QD_SLAB_ROWS = 1024
+QD_SLAB_TOL = 1e-5
+QD_CUTOFF_CONTROL_KM = 2700.0
+# two clips from different start blocks, densified on a sub-block, over
+# max |C|; the control clips at target 0.80 (0.112). The example's clip
+# (n_iter 3, a start block 1,032 wide for a retained rank of 975) leaves
+# the Ritz vectors at its cut converged to the solver's f32 residual gate
+# and no further: two starts agree to 5.8e-3 (NVIDIA H100 80GB HBM3,
+# 700 W), where phase 13's clip at 64,800 meets the full spectrum to
+# 6.4e-4
+QD_SUB_CELLS = 16384
+QD_CLIP_TOL = 1e-2
+# f32 kriging off the factors against the same call on f64 factors; the
+# consistency control krige the truth with the covariance x 1.5 (an
+# error variance x 1.5 moves the three together and does not break it)
+QD_FACTOR_TOL = KRIGING_TOL
+QD_COVARIANCE_CONTROL = 1.5
+
+# phase 30, the three 1-degree twins
+# K1's tiles + nugget against kernel_block's plain torch form with the
+# full arcsin (examples/torch_large_ensemble_65k.NUGGET_TOL, relative to
+# the variance); members f32 against f64 over max |member|
+LE_MEMBERS_TOL = 1e-3
+LE_ERROR_CONTROL = 1.1
+# K4's 40,000-point build against the plain twin in f64 on a block, over
+# max |C|; the control is the twin at nu = 1.5
+EC_BLOCK = 2048
+EC_TOL = 1e-5
+
+
+def qd_chunk_starts(n, chunk, lat_axis):
+    """Chunk-aligned starts of an equatorial chunk and of the chunk holding
+    85 N (the polar lanes)."""
+    n_lon = n // lat_axis.size
+    polar_cell = int(np.searchsorted(lat_axis, 85.0)) * n_lon
+    polar = polar_cell // chunk * chunk
+    if polar + chunk > n:
+        polar -= chunk
+    return ((n // 2) // chunk * chunk, polar)
+
+
+def qd_cube_and_rows(tq, dev, gen):
+    """Phase 29 a-b: the sampler build split, the f32 and f64 cubes from
+    the same normals, the lazy correlation and its rows."""
+    from glomargridding_tpu_torch.models.ellipse import estimate
+    from glomargridding_tpu_torch.ops import sphere
+
+    lat, lon, glat, glon = tq.axes()
+    r = tq.TRAIN_RANGE_KM / 3.0 / tq.EARTH_KM
+
+    def corr(ang):
+        return np.exp(-ang / r)
+
+    split = {}
+    _, split["angular_power_s"] = timed_s(
+        lambda: sphere.angular_power(corr, tq.L_MAX, 4096))
+    x = torch.as_tensor(np.sin(np.radians(lat)), device=dev)
+    _, split["device_table_s"] = timed_s(
+        lambda: sphere._legendre_table_device(x, tq.L_MAX))
+    _, split["dft_tables_s"] = timed_s(
+        lambda: sphere.dft_tables(tq.L_MAX, lon))
+    sampler, split["build_s"] = timed_s(
+        lambda: tq.training_sampler(lat, lon, torch.float32, dev))
+    noise = tq.cube_noise(sampler, gen)
+    cube, draw_s = timed_s(lambda: tq.training_cube(sampler, noise))
+    sampler64 = tq.training_sampler(lat, lon, torch.float64, dev)
+    cube64 = tq.training_cube(sampler64, noise)
+    cube_err = max_rel(cube, cube64)
+    control = tq.training_cube(sampler64, noise[:2] + [
+        torch.zeros_like(noise[2])])
+    cube_control = max_rel(control, cube64)
+    del control, sampler64, noise, cube64
+    n = glat.size
+    if cube.shape != (tq.T_TRAIN, tq.M_LAT, tq.M_LON) or not bool(
+            torch.isfinite(cube).all()):
+        raise AssertionError("the training cube is malformed")
+
+    builder, cor_s = timed_s(lambda: tq.correlation(cube, lat, lon))
+    lazy = isinstance(builder.cor, estimate._LazyCorrelation)
+    if not lazy:
+        raise AssertionError("cor_mode='auto' kept the dense correlation")
+    rows = np.linspace(0, n - 1, QD_ROWS).astype(np.int64)
+    got = torch.stack([builder.cor.row(int(i)) for i in rows])
+    x64 = cube.double().reshape(tq.T_TRAIN, n)
+
+    def rows_of(x):
+        xn = estimate._normalised_samples(x)
+        out = xn[:, torch.as_tensor(rows, device=dev)].T @ xn
+        out[torch.arange(rows.size), torch.as_tensor(rows, device=dev)] = 1.0
+        return out
+
+    want = rows_of(x64 - x64.mean(dim=0, keepdim=True))
+    row_err = torch.max(torch.abs(got.double() - want)).item()
+    row_control = torch.max(torch.abs(rows_of(x64).float().double()
+                                      - want)).item()
+    del x64, want, got
+    phase(29, "a_training_cube", T=tq.T_TRAIN, cells=n, l_max=tq.L_MAX,
+          nugget=tq.NUGGET, **{k: f"{v:.3f}" for k, v in split.items()},
+          draw_s=f"{draw_s:.4f}", f32_vs_f64=f"{cube_err:.3e}",
+          tol=QD_CUBE_TOL, control_no_nugget=f"{cube_control:.3e}")
+    phase(29, "b_lazy_correlation", cor_mode="auto", lazy=lazy,
+          dense_gb_avoided=f"{n * n * 4 / 1e9:.1f}",
+          builder_s=f"{cor_s:.4f}", rows=rows.size,
+          f32_vs_f64=f"{row_err:.3e}", tol=QD_ROW_TOL,
+          control_uncentred=f"{row_control:.3e}")
+    check("phase 29 cube f32 vs f64", cube_err, QD_CUBE_TOL)
+    check("phase 29 lazy rows f32 vs f64", row_err, QD_ROW_TOL)
+    if not cube_control > QD_CUBE_TOL or not row_control > QD_ROW_TOL:
+        raise AssertionError("a phase 29 a-b bound passes its control")
+    return cube, builder, (lat, lon, glat, glon)
+
+
+def qd_chunk_times(tq, builder, model, lat_axis):
+    """{chunk size: ms per lane} of the fit's chunk fitter, two chunks at
+    each size (the build and the solve), and what ``_chunk_cap`` allows."""
+    n = builder.small_covar_size
+    cap, _ = builder._chunk_cap(n, builder._x_centered.element_size())
+    out = {}
+    for chunk in QD_CHUNK_SIZES:
+        if chunk > cap:
+            out[chunk] = None
+            continue
+        fitter = subset_fitter(builder, model, "nm", tq.FIT_KW["tol"],
+                               fit_kw=tq.FIT_KW)
+        starts = qd_chunk_starts(n, chunk, lat_axis)
+        sync()
+        t0 = time.perf_counter()
+        for s0 in starts:
+            fitter["fit"](np.arange(s0, s0 + chunk))
+        sync()
+        out[chunk] = 1e3 * (time.perf_counter() - t0) / (len(starts) * chunk)
+    return out, cap
+
+
+def qd_fit(tq, dev, builder, axes4):
+    """Phase 29 c: the whole-grid fit through the twin, the held lanes,
+    the checkpoint's resume."""
+    import tempfile
+
+    from glomargridding_tpu_torch import EllipseBuilder, EllipseModel
+    from glomargridding_tpu_torch.models.ellipse import estimate
+
+    lat, lon, glat, glon = axes4
+    n = glat.size
+    model = EllipseModel(**tq.FIT_MODEL)
+    per_lane, cap = qd_chunk_times(tq, builder, model, lat)
+    watch = {"build": Stopwatch(estimate._chunk_train_data),
+             "solve": Stopwatch(estimate.batched_nelder_mead)}
+    iterations = []
+
+    def solve(*args, **kwargs):
+        res = watch["solve"](*args, **kwargs)
+        iterations.append(int(res.nit.max()))
+        return res
+
+    keep = estimate._chunk_train_data, estimate.batched_nelder_mead
+    estimate._chunk_train_data, estimate.batched_nelder_mead = (
+        watch["build"], solve)
+    ckpt_dir = tempfile.mkdtemp(prefix="glomar_smoke_")
+    ckpt = f"{ckpt_dir}/quarter_degree_mle.npz"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params, fit_s = timed_s(lambda: tq.fit_ellipses(builder,
+                                                        checkpoint=ckpt))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        solved = watch["solve"].calls
+        resumed, resume_s = timed_s(lambda: tq.fit_ellipses(
+            builder, checkpoint=ckpt))
+        resume_solves = watch["solve"].calls - solved
+    finally:
+        estimate._chunk_train_data, estimate.batched_nelder_mead = keep
+        for name in ("quarter_degree_mle.npz",
+                     "quarter_degree_mle.npz.tmp.npz"):
+            if os.path.exists(f"{ckpt_dir}/{name}"):
+                os.remove(f"{ckpt_dir}/{name}")
+        os.rmdir(ckpt_dir)
+    names = ("Lx", "Ly", "theta", "standard_deviation", "qc_code")
+    flat = {k: np.asarray(params[k].values, float).reshape(-1)
+            for k in names}
+    same = all(np.array_equal(flat[k], np.asarray(
+        resumed[k].values, float).reshape(-1)) for k in names)
+    qc = flat["qc_code"].astype(int)
+    fitted = np.column_stack([flat["Lx"], flat["Ly"], flat["theta"]])
+    qc0_share = float(np.mean(qc == 0))
+    converged = float(np.mean(qc != 9))
+    chunk = tq.CHUNK_SIZE
+    n_chunks = -(-n // chunk)
+    solve_s = sum(dt for _, dt in watch["solve"].log[:solved])
+    build_s = sum(dt for _, dt in watch["build"].log[:solved])
+    codes, counts = np.unique(qc, return_counts=True)
+    phase(29, "c_whole_grid_fit", lanes=n, nu=tq.FIT_MODEL["v"],
+          chunk=chunk, chunks=n_chunks, cols=tq.FIT_KW["max_train_cols"],
+          chunk_cap=cap,
+          chunk_ms_per_lane="|".join(
+              f"{c}:{'over_cap' if v is None else f'{v:.4f}'}"
+              for c, v in per_lane.items()),
+          fit_s=f"{fit_s:.3f}", chunk_build_s=f"{build_s:.3f}",
+          chunk_solve_s=f"{solve_s:.3f}",
+          loop_iterations=sum(iterations),
+          ms_per_iteration=f"{1e3 * solve_s / max(sum(iterations), 1):.3f}",
+          qc_counts="|".join(f"{c}:{k}" for c, k in zip(codes, counts)),
+          qc0_share=f"{qc0_share:.5f}", converged_share=f"{converged:.5f}",
+          converged_bound=QD_CONVERGED_SHARE,
+          fit_peak_gb=f"{peak_gb:.3f}", resume_s=f"{resume_s:.3f}",
+          resume_bound_s=QD_RESUME_S, resume_chunks_solved=resume_solves,
+          resume_bitwise=same)
+    if solved != n_chunks:
+        raise AssertionError(f"{solved} solves for {n_chunks} chunks")
+    check_canonical(flat)
+    if not converged >= QD_CONVERGED_SHARE:
+        raise AssertionError(f"{converged:.5f} of the lanes converged")
+    if not (same and resume_solves == 0 and resume_s < QD_RESUME_S):
+        raise AssertionError(
+            f"the resume: bitwise {same}, {resume_solves} chunks solved, "
+            f"{resume_s:.3f} s")
+
+    # the held lanes: an equatorial and a polar chunk
+    chunks = [np.arange(s0, s0 + chunk)
+              for s0 in qd_chunk_starts(n, chunk, lat)]
+    lanes = np.concatenate(chunks)
+    f32 = subset_fitter(builder, model, "nm", tq.FIT_KW["tol"],
+                        fit_kw=tq.FIT_KW)
+    _, pm32, qc32, _ = fit_lanes(f32, chunks)
+    if not (np.array_equal(pm32, fitted[lanes])
+            and np.array_equal(qc32, qc[lanes])):
+        raise AssertionError("the held lanes are not the whole-grid fit's")
+    # f64 on the same cube (the f32 cube's values in f64, as phase 16)
+    from glomargridding_tpu_torch import Coordinates
+
+    coords64 = {"time": np.arange(tq.T_TRAIN), "latitude":
+                lat.astype(np.float64), "longitude": lon.astype(np.float64)}
+    builder64 = EllipseBuilder(builder.data.double(),
+                               Coordinates(coords64), cor_mode="lazy")
+    (_, pm64, qc64, _), f64_s = timed_s(lambda: fit_lanes(subset_fitter(
+        builder64, model, "nm", tq.FIT_KW["tol"], fit_kw=tq.FIT_KW), chunks))
+    del builder64
+    (_, pm_lm, qc_lm, _), lm_s = timed_s(lambda: fit_lanes(subset_fitter(
+        builder, model, "lm", LM_TOL, fit_kw=tq.FIT_KW), chunks))
+    summed = dict(f32, fit=lambda sel: summed_in_f32_fit(f32, sel))
+    _, pm_s, qc_s, _ = fit_lanes(summed, chunks)
+    # the controls on the equatorial chunk alone
+    _, pm_w, qc_w, _ = fit_lanes(subset_fitter(
+        builder, EllipseModel(**{**tq.FIT_MODEL, "v": 0.5}), "lm", LM_TOL,
+        fit_kw=tq.FIT_KW), chunks[:1])
+    _, _, qc_tight, _ = fit_lanes(subset_fitter(
+        builder, model, "nm", QD_CONTROL_TOL, fit_kw=tq.FIT_KW), chunks[:1])
+    lengths = ("Lx_rel", "Ly_rel")
+    ellipse = (*lengths, "theta_abs")
+
+    def share(pm, qc_a, rows, names=ellipse):
+        return share_within(fit_deviation(pm[rows], pm64[rows], (
+            qc_a[rows] == 0) & (qc64[rows] == 0)), names)
+
+    shares = {}
+    for label, rows in (("equator", slice(0, chunk)),
+                        ("polar", slice(chunk, 2 * chunk))):
+        shares[label] = {
+            "nm_f32_vs_f64_lengths": share(pm32, qc32, rows, lengths),
+            "nm_f32_vs_f64_ellipse": share(pm32, qc32, rows),
+            "summed_f32_vs_f64_lengths": share(pm_s, qc_s, rows, lengths),
+            "summed_f32_vs_f64_ellipse": share(pm_s, qc_s, rows),
+            "lm_f32_vs_nm_f64": share(pm_lm, qc_lm, rows),
+            "qc0_in_both": int(np.sum((qc32[rows] == 0) & (qc64[rows] == 0))),
+        }
+    nu_share = share(pm_w, qc_w, slice(0, chunk))
+    tight_converged = float(np.mean(qc_tight != 9))
+    phase(29, "c_held_lanes", lanes=lanes.size,
+          starts="|".join(str(c[0]) for c in chunks),
+          subset_vs_whole_grid="bitwise", nm_f64_s=f"{f64_s:.3f}",
+          lm_f32_s=f"{lm_s:.3f}", rel_tol=FIT_REL_TOL,
+          theta_tol=FIT_THETA_TOL,
+          **{f"{label}_{k}": (v if isinstance(v, int) else f"{v:.4f}")
+             for label, d in shares.items() for k, v in d.items()},
+          phase16_share_nm_f32=f"{FIT_SHARE_NM_F32}(printed)",
+          phase16_share_nm_f32_ellipse=(
+              f"{FIT_SHARE_NM_F32_ELLIPSE}(printed)"),
+          share_bound_lm=FIT_SHARE_LM,
+          control_lm_nu_0_5_share=f"{nu_share:.4f}",
+          control_tol_1e_12_converged=f"{tight_converged:.4f}")
+    # The f32 simplex does not reach phase 16's shares here (measured on
+    # an NVIDIA H100 80GB HBM3: 44% of the equatorial lanes within 1% on
+    # the lengths against 71% at 1 degree; the 2,048 nearest columns of
+    # a 0.5-degree grid span ~1,400 km, so the likelihood is flatter and
+    # f32's rounding moves where the simplex stops): those bounds are
+    # printed against it, not held. Held: the port's f64 sum still fits
+    # more equatorial lanes than the reference's f32 sum (the polar
+    # chunk, where the simplex ends on bounds, is printed), and
+    # Levenberg-Marquardt, the lane to run in f32, below.
+    eq = shares["equator"]
+    for name in ("lengths", "ellipse"):
+        if not eq[f"nm_f32_vs_f64_{name}"] > eq[f"summed_f32_vs_f64_{name}"]:
+            raise AssertionError(
+                f"the likelihood summed in f32 fits as many {name} as the "
+                f"one summed in f64: {eq[f'summed_f32_vs_f64_{name}']:.4f}")
+    for label, d in shares.items():
+        if not d["lm_f32_vs_nm_f64"] >= FIT_SHARE_LM:
+            raise AssertionError(
+                f"f32 LM, {label}: {d['lm_f32_vs_nm_f64']:.4f}")
+    if not nu_share < FIT_SHARE_LM:
+        raise AssertionError("the LM bound passes the fit at nu = 0.5")
+    if not tight_converged < QD_CONVERGED_SHARE:
+        raise AssertionError("the convergence bound passes tol 1e-12")
+    return params
+
+
+def qd_stream_checks(tq, dev, mv, fields, glat, glon, max_dist):
+    """Phase 29 d: K3 against the wide path, rows against an f64 slab of
+    the plain twin, each with the 2,700 km control, and the walls."""
+    from glomargridding_tpu_torch.ops.cuda.ellipse import (
+        beyond_cutoff,
+        ellipse_tile_torch,
+        pack_points,
+    )
+
+    n = glat.size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    x9 = torch.randn((n, 9), generator=gen, device=dev)
+    y8 = mv(x9[:, :8].contiguous())
+    wide = mv(x9)[:, :8]
+    k3_vs_wide = max_rel(y8, wide)
+    control_mv, _, _ = tq.stream_operator(glat, glon, fields,
+                                          QD_CUTOFF_CONTROL_KM, dev)
+    k3_control = max_rel(control_mv(x9)[:, :8], wide)
+    del wide
+    r0 = n // 2
+    rows = torch.arange(r0, r0 + QD_SLAB_ROWS, device=dev)
+    E = torch.zeros((n, QD_SLAB_ROWS), device=dev)
+    E[rows, torch.arange(QD_SLAB_ROWS, device=dev)] = 1.0
+    slab = mv(E).T
+    slab_control = control_mv(E).T
+    del E, control_mv
+    P32 = pack_points(*tq.stream_inputs(glat, glon, fields, device=dev))
+    P64 = pack_points(*tq.stream_inputs(glat, glon, fields, torch.float64,
+                                        dev))
+    oracle = torch.empty((QD_SLAB_ROWS, n), dtype=torch.float64, device=dev)
+    step = 16384
+    for c0 in range(0, n, step):
+        c1 = min(c0 + step, n)
+        tile = ellipse_tile_torch(P64[rows], P64[c0:c1], 1.5)
+        far = beyond_cutoff(P32[rows], P32[c0:c1], max_dist)
+        oracle[:, c0:c1] = torch.where(far, torch.zeros_like(tile), tile)
+    oracle[torch.arange(QD_SLAB_ROWS, device=dev), rows] += (
+        P64[rows, 6] ** 2)
+    scale = torch.max(torch.abs(oracle)).item()
+    slab_err = max_rel(slab, oracle, scale)
+    slab_ctrl = max_rel(slab_control, oracle, scale)
+    del oracle, slab, slab_control, P64, P32
+    x8 = x9[:, :8].contiguous()
+    x1024 = torch.randn((n, WIDE_COLS), generator=gen, device=dev)
+    walls = {"y8_s": wall_median_s(lambda: mv(x8)),
+             "y1024_s": wall_median_s(lambda: mv(x1024))}
+    stats = mv.band_stats
+    phase(29, "d_stream", max_dist_km=max_dist, bw=stats["bw"],
+          wide_pairs=stats["wide_pairs"], fused_pairs=stats["fused_pairs"],
+          k3_vs_wide=f"{k3_vs_wide:.3e}", tol=QD_STREAM_TOL,
+          control_k3_vs_wide_2700km=f"{k3_control:.3e}",
+          slab_rows=QD_SLAB_ROWS, slab_vs_f64_plain=f"{slab_err:.3e}",
+          slab_tol=QD_SLAB_TOL, control_slab_2700km=f"{slab_ctrl:.3e}",
+          **{k: f"{v:.4f}" for k, v in walls.items()})
+    check("phase 29 K3 vs the wide path", k3_vs_wide, QD_STREAM_TOL)
+    check("phase 29 rows vs the f64 slab", slab_err, QD_SLAB_TOL)
+    if not (k3_control > QD_STREAM_TOL and slab_ctrl > QD_SLAB_TOL):
+        raise AssertionError("a phase 29 d bound passes the 2,700 km cutoff")
+
+
+def qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, watch, log,
+                   total):
+    """Phase 29 e: the clip's split, its trace and explained share, and a
+    second clip from another start block on a sub-block."""
+    trace_rel = abs(psd.trace() - trace) / trace
+    r = psd.effective_rank
+    explained = (float(psd.gains.double().sum())
+                 + r * float(psd.floor[0])) / trace
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    other, _ = tq.psd_repair(mv, n, trace, generator=gen, device=dev)
+    keep = dict(tq.CLIP_KW)
+    tq.CLIP_KW["target_variance_fraction"] = CLIP_WRONG_TARGET
+    try:
+        wrong, _ = tq.psd_repair(mv, n, trace, generator=gen, device=dev)
+    finally:
+        tq.CLIP_KW.clear()
+        tq.CLIP_KW.update(keep)
+    cells = torch.as_tensor(np.linspace(0, n - 1, QD_SUB_CELLS).astype(
+        np.int64), device=dev)
+    a = dense_sub(psd, cells)
+    scale = torch.max(torch.abs(a)).item()
+    clip_err = max_rel(dense_sub(other, cells), a, scale)
+    clip_ctrl = max_rel(dense_sub(wrong, cells), a, scale)
+    del a
+    # the retained eigenvalues of the two clips, over the largest
+    ritz = [(p.gains[:r].double() + p.floor[0].double()).cpu()
+            for p in (psd, other)]
+    ritz_err = float(torch.max(torch.abs(ritz[0] - ritz[1])) / ritz[0][0])
+    phase(29, "e_clip", target=tq.CLIP_KW["target_variance_fraction"],
+          k0=tq.CLIP_KW["k0"], max_rank=tq.CLIP_KW["max_rank"],
+          rank=f"{true_rank}->{psd.rank}", effective_rank=r,
+          other_start_rank=other.effective_rank,
+          stages=log.widenings + 1, sweeps=watch["sweeps"].calls,
+          final_resid_over_theta1=log.accepted, clip_s=f"{total:.3f}",
+          sweeps_s=f"{watch['sweeps'].seconds:.3f}",
+          cholqr_s=f"{watch['cholqr'].seconds:.3f}",
+          eigh_s=f"{watch['eigh'].seconds:.3f}",
+          eigh_f64_by_width="|".join(f"{w}:{t:.3f}"
+                                     for w, t in watch["eigh"].log),
+          trace=f"{trace:.6g}", trace_rel=f"{trace_rel:.3e}",
+          trace_tol=TRACE_TOL, explained=f"{explained:.4f}",
+          sub_cells=QD_SUB_CELLS, other_start=f"{clip_err:.3e}",
+          other_start_ritz_over_theta1=f"{ritz_err:.3e}",
+          tol=QD_CLIP_TOL, control_target_0_8=f"{clip_ctrl:.3e}")
+    check("phase 29 trace of the factors", trace_rel, TRACE_TOL)
+    if not explained >= tq.CLIP_KW["target_variance_fraction"]:
+        raise AssertionError(f"the clip explains {explained:.4f}")
+    check("phase 29 clip from another start block", clip_err, QD_CLIP_TOL)
+    if not clip_ctrl > QD_CLIP_TOL:
+        raise AssertionError("the clip bound passes the target 0.80 clip")
+
+
+def qd_ensemble_checks(tq, dev, psd):
+    """Phase 29 f: kriging and 100 members off the factors through the
+    twin, f32 against f64 factors, and the consistency of a truth drawn
+    from the factors."""
+    from glomargridding_tpu_torch import LowRankPSD, lowrank_kriging
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    idx, truth, y, E = tq.observations(psd, gen)
+    (res, members), first_s = timed_s(lambda: tq.ensemble(psd, idx, y, E,
+                                                          gen))
+    for name, got in (*zip(res._fields, res), ("members", members)):
+        if got.shape[-1] != psd.n or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"phase 29 {name} malformed")
+    warm_s = wall_median_s(lambda: tq.ensemble(psd, idx, y, E, gen))
+    psd64 = LowRankPSD(psd.vectors.double(), psd.gains.double(),
+                       psd.floor.double())
+    errs = kriging_errs(res, lowrank_kriging(psd64, idx, y.double(),
+                                             E.double()),
+                        float(torch.sqrt(psd.diagonal().max())))
+    del psd64
+    triple = tq.consistency(res, members, truth)
+    ratio = max(triple.values()) / min(triple.values())
+    wrong = LowRankPSD(psd.vectors, psd.gains * QD_COVARIANCE_CONTROL,
+                       psd.floor * QD_COVARIANCE_CONTROL)
+    res_c, members_c = tq.ensemble(wrong, idx, y, E, gen)
+    control = tq.consistency(res_c, members_c, truth)
+    control_ratio = max(control.values()) / min(control.values())
+    phase(29, "f_kriging_members", obs=tq.N_OBS, members=tq.N_MEMBERS,
+          first_s=f"{first_s:.4f}", warm_s=f"{warm_s:.4f}",
+          tol=QD_FACTOR_TOL, **{f"f32_vs_f64_{k}": f"{v:.3e}"
+                                for k, v in errs.items()},
+          **{k: f"{v:.4f}" for k, v in triple.items()},
+          ratio=f"{ratio:.4f}", ratio_bound=CONSISTENCY_RATIO,
+          control_covariance_x1_5_ratio=f"{control_ratio:.4f}")
+    for k in ("field", "uncertainty"):
+        check(f"phase 29 f32 vs f64 {k}", errs[k], QD_FACTOR_TOL)
+    check("phase 29 consistency: largest over smallest of RMSE, spread "
+          "and uncertainty", ratio, CONSISTENCY_RATIO)
+    if not control_ratio > CONSISTENCY_RATIO:
+        raise AssertionError("the consistency bound passes C x 1.5")
+
+
+def phase29_quarter_degree(dev):
+    """Phase 29: examples/torch_nonstationary_quarter_degree.py at 259,200
+    cells with nothing cut, stage by stage through the twin; returns the
+    launches (K3, K4) of its stream and clip."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    tq = examples_module("torch_nonstationary_quarter_degree")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    cube, builder, axes4 = qd_cube_and_rows(tq, dev, gen)
+    params = qd_fit(tq, dev, builder, axes4)
+    del builder, cube
+    _, _, glat, glon = axes4
+    fields, n_fit = tq.fitted_fields(params)
+    max_dist = tq.max_dist_km()
+    # the path: the stream on the fitted fields and the clip, counted
+    reset_ellipse_counts()
+    mv, n, trace = tq.stream_operator(glat, glon, fields, max_dist, dev)
+    mv(torch.ones((n,), device=dev))
+    (psd, true_rank), watch, log, total = clip_instrumented(
+        mv, n, trace, clip=lambda op: tq.psd_repair(op, n, trace, gen,
+                                                    device=dev))
+    sync()
+    k3 = require_launches("K3 (the 0.5-degree stream)",
+                          te.ellipse_matvec.launches)
+    k4 = require_launches("K4 (the 0.5-degree stream)",
+                          te.ellipse_tile.launches)
+    qd_stream_checks(tq, dev, mv, fields, glat, glon, max_dist)
+    qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, watch, log, total)
+    del mv
+    qd_ensemble_checks(tq, dev, psd)
+    phase(29, "quarter_degree", cells=n, fitted=n_fit, k3_launches=k3,
+          k4_launches=k4, seconds=f"{time.perf_counter() - t0:.1f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return k3, k4
+
+
+def clip_stage(out):
+    """The name of a twin's clip stage in its ``times``."""
+    return next(k for k in out["times"] if "PSD repair" in k)
+
+
+def phase30_lowrank_65k(dev):
+    """examples/torch_nonstationary_65k_lowrank.py: K2's bf16 store, the
+    clip, the factored ensemble; held against f64 factors as phase 14
+    holds its call. Returns K2's launches."""
+    from glomargridding_tpu_torch import LowRankPSD, lowrank_kriging
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    tm = examples_module("torch_nonstationary_65k_lowrank")
+    reset_ellipse_counts()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    out = tm.run(device=dev, generator=gen, verbose=False)
+    k2 = require_launches("K2 (the 65k low-rank store)",
+                          te.ellipse_sym.launches)
+    psd, res = out["psd"], out["result"]
+    psd64 = LowRankPSD(psd.vectors.double(), psd.gains.double(),
+                       psd.floor.double())
+    scale = float(torch.sqrt(psd.diagonal().max()))
+    idx, y, E = out["idx"], out["y"].double(), out["E"].double()
+    errs = kriging_errs(res, lowrank_kriging(psd64, idx, y, E), scale)
+    control = kriging_errs(res, lowrank_kriging(psd64, idx, y, E * 1.1),
+                           scale)
+    del psd64
+    phase(30, "a_lowrank_65k", cells=psd.n, k2_launches=k2,
+          store_build_s=f"{out['times']['bf16 operator assembly']:.4f}",
+          rank=f"{out['true_rank']}->{psd.rank}",
+          trace_rel=f"{out['trace_rel']:.3e}", trace_tol=TRACE_TOL,
+          clip_s=f"{out['times'][clip_stage(out)]:.4f}",
+          members_first_s=(
+              f"{out['times'][f'kriging + {tm.N_MEMBERS} members']:.4f}"),
+          members_warm_s=f"{out['times']['kriging + members (warm)']:.4f}",
+          rmse=f"{out['rmse']:.4f}", spread=f"{out['spread']:.4f}",
+          uncertainty=f"{out['uncertainty']:.4f}", tol=KRIGING_TOL,
+          **{f"f32_vs_f64_{k}": f"{v:.3e}" for k, v in errs.items()},
+          control_error_x1_1_field=f"{control['field']:.3e}")
+    check("phase 30 trace of the factors", out["trace_rel"], TRACE_TOL)
+    for k, v in errs.items():
+        check(f"phase 30 low-rank f32 vs f64 {k}", v, KRIGING_TOL)
+    if not control["field"] > KRIGING_TOL:
+        raise AssertionError("the 65k bound passes E x 1.1")
+    return k2
+
+
+def phase30_large_ensemble(dev):
+    """examples/torch_large_ensemble_65k.py: K1's tiles against
+    kernel_block's plain form, f32 members against f64 on the same
+    normals, draws per second. Returns K1's launches of the f32 run."""
+    from glomargridding_tpu_torch.ops.cuda.pairwise import pairwise_covariance
+
+    tl = examples_module("torch_large_ensemble_65k")
+    pairwise_covariance.launches = 0
+    out = tl.run(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 41), verbose=False)
+    k1 = require_launches("K1 (the large ensemble)",
+                          pairwise_covariance.launches)
+    out64 = tl.run(device=dev, dtype=torch.float64, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 41), verbose=False)
+    members_err = max_rel(out["members"], out64["members"])
+    field_err = max_rel(out["field"], out64["field"])
+    # the control: the f64 members with the observation errors x 1.1
+    lat, lon = tl.grid()
+    la, lo = tl.cells(lat, lon, torch.float64, dev)
+    idx, y, err = tl.observations(la.shape[0])
+    noise = tl.draw_noise(out64["sampler"], torch.Generator(
+        device=dev).manual_seed(SEED + 41))
+    states = out64["sampler"].draw(tl.N_MEMBERS, noise=noise["states"]).T
+    _, members_c = tl.krige_and_perturb(la, lo, idx, y, err * 1.1, states,
+                                        noise["obs"])
+    control = max_rel(out["members"], members_c)
+    del out64, states, members_c
+    # K1's tiles (+ nugget) against kernel_block with the full arcsin
+    tile_errs = {}
+    for dtype in (torch.float32, torch.float64):
+        la_d, lo_d = tl.cells(lat, lon, dtype, dev)
+        idx_t = torch.as_tensor(idx, device=dev)
+        width = -(-la_d.shape[0] // tl.N_BLOCKS)
+        inside = idx_t < width
+        rows = torch.arange(idx_t.numel(), device=dev)
+        la_o, lo_o = la_d[idx_t], lo_d[idx_t]
+        got = tl.kernel_block(la_o, lo_o, la_d[:width], lo_d[:width],
+                              (rows[inside], idx_t[inside]))
+        a64, o64 = la_o.double(), lo_o.double()
+        b64, p64 = la_d[:width].double(), lo_d[:width].double()
+        a = (torch.sin((a64[:, None] - b64[None, :]) / 2.0) ** 2
+             + torch.cos(a64)[:, None] * torch.cos(b64)[None, :]
+             * torch.sin((o64[:, None] - p64[None, :]) / 2.0) ** 2)
+        d = 2.0 * 6371.0 * torch.arcsin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+        want = tl.PSILL * torch.exp(-d / tl.RANGE_KM)
+        same = (torch.abs(a64[:, None] - b64[None, :]) < 1e-9) & (
+            torch.abs(o64[:, None] - p64[None, :]) < 1e-9)
+        want = want + torch.where(same, tl.NUGGET, 0.0)
+        tile_errs[dtype] = max_rel(got, want, tl.PSILL)
+        if dtype == torch.float32:
+            tile_control = max_rel(tl.covariance_block(
+                la_o, lo_o, la_d[:width], lo_d[:width]), want, tl.PSILL)
+    phase(30, "b_large_ensemble_65k", cells=la.shape[0], obs=tl.N_OBS,
+          members=tl.N_MEMBERS, k1_launches=k1,
+          l_max=out["sampler"].l_max,
+          sampler_s=f"{out['times']['sampler']:.3f}",
+          cold_s=f"{out['times']['cold']:.4f}",
+          warm_s=f"{out['times']['warm']:.4f}",
+          warm_draws_s=f"{out['times']['warm_draws']:.4f}",
+          warm_krige_s=f"{out['times']['warm_krige']:.4f}",
+          draws_per_s=f"{out['draws_per_s']:.1f}",
+          k1_tile_vs_kernel_block_f32=f"{tile_errs[torch.float32]:.3e}",
+          k1_tile_vs_kernel_block_f64=f"{tile_errs[torch.float64]:.3e}",
+          tile_tol=f"{tl.NUGGET_TOL[torch.float32]}|"
+                   f"{tl.NUGGET_TOL[torch.float64]}",
+          control_tile_without_nugget=f"{tile_control:.3e}",
+          members_f32_vs_f64=f"{members_err:.3e}",
+          field_f32_vs_f64=f"{field_err:.3e}", tol=LE_MEMBERS_TOL,
+          control_error_x1_1=f"{control:.3e}",
+          spread_mean=f"{out['spread_mean']:.4f}")
+    for dtype, err in tile_errs.items():
+        check(f"phase 30 K1 tile vs kernel_block {dtype}", err,
+              tl.NUGGET_TOL[dtype])
+    check("phase 30 members f32 vs f64", members_err, LE_MEMBERS_TOL)
+    if not (tile_control > tl.NUGGET_TOL[torch.float32]
+            and control > LE_MEMBERS_TOL):
+        raise AssertionError("a phase 30 b bound passes its control")
+    return k1
+
+
+def phase30_ellipse_40k(dev):
+    """examples/torch_ellipse_1deg_covariance.py: K4's 40,000-point build,
+    its checks, a block against the plain twin in f64. Returns K4's
+    launches."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    tc = examples_module("torch_ellipse_1deg_covariance")
+    reset_ellipse_counts()
+    out = tc.run(device=dev, verbose=False)
+    k4 = require_launches("K4 (the 40,000-point build)",
+                          te.ellipse_tile.launches)
+    cov = out["cov"]
+    lats, lons, fields = tc.points()
+    P64 = te.pack_points(*tc.kernel_inputs(lats, lons, fields,
+                                           torch.float64, dev))
+    b = EC_BLOCK
+    want = te.ellipse_tile_torch(P64[:b], P64[:b], tc.NU)
+    want.diagonal().add_(P64[:b, 6] ** 2)
+    scale = torch.max(torch.abs(want)).item()
+    err = max_rel(cov[:b, :b], want, scale)
+    control_t = te.ellipse_tile_torch(P64[:b], P64[:b], 1.5)
+    control_t.diagonal().add_(P64[:b, 6] ** 2)
+    control = max_rel(control_t, want, scale)
+    eigs = out["eigs"]
+    phase(30, "c_ellipse_40k", points=tc.N_POINTS, nu=tc.NU, k4_launches=k4,
+          gb=f"{cov.numel() * 4 / 1e9:.2f}",
+          cold_s=f"{out['times']['cold']:.4f}",
+          warm_s=f"{out['times']['warm']:.4f}",
+          gpairs_per_s=f"{out['gpairs_per_s']:.1f}", block=b,
+          vs_plain_f64=f"{err:.3e}", tol=EC_TOL,
+          control_nu_1_5=f"{control:.3e}", diag_rtol=tc.DIAG_RTOL,
+          symmetry_tol=tc.SYMMETRY_TOL,
+          spectrum=f"{eigs.min():.2e}|{eigs.max():.2e}")
+    check("phase 30 K4 block vs the plain twin in f64", err, EC_TOL)
+    if not control > EC_TOL:
+        raise AssertionError("the 40,000-point bound passes nu = 1.5")
+    return k4
+
+
+def phase30_examples(dev):
+    """Phase 30, the three 1-degree twins at full size; returns the
+    launches (K1, K2, K4) of their paths."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k2 = phase30_lowrank_65k(dev)
+    k1 = phase30_large_ensemble(dev)
+    k4 = phase30_ellipse_40k(dev)
+    phase(30, "examples_1deg", seconds=f"{time.perf_counter() - t0:.1f}")
+    return k1, k2, k4
 
 
 if __name__ == "__main__":

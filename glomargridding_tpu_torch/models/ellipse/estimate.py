@@ -654,6 +654,10 @@ class EllipseBuilder:
         per_row = _CHUNK_VALUES_PER_PAIR * itemsize * n_points
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
+            # blocks the caching allocator holds and no tensor uses are
+            # free to this build too
+            free += (torch.cuda.memory_reserved(self.device)
+                     - torch.cuda.memory_allocated(self.device))
             budget = _CHUNK_MEMORY_SHARE * free
             assumed = (f"{_CHUNK_MEMORY_SHARE:.0%} of the device's "
                        f"{free / 1e9:.1f} GB of free memory")

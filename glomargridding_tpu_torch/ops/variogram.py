@@ -2,9 +2,13 @@ r"""Stationary variogram models -> covariance, on tensors.
 
 Port of ``glomargridding_tpu/ops/variogram.py:37-272``: Spherical,
 Gaussian, Exponential and Matern (sklearn/gstat/karspeck conventions),
-``fit``/``covariance`` and ``variogram_to_covariance``. Inputs are
-ndarrays or tensors; an ndarray in gives an ndarray out. The labelled
-``DataArray`` wrapping waits for the port of ``core/labeled``.
+``fit``/``covariance`` and ``variogram_to_covariance``. Each returns the
+container it was given: an ndarray for an ndarray, a tensor for a tensor,
+and for a ``core.labeled.DataArray`` (or an ``xarray.DataArray``, where
+xarray is installed) a DataArray with the input's coords and a copy of
+its attrs, named "variogram" (``fit``) or "covariance" (``covariance``,
+``variogram_to_covariance``). A DataArray whose values are a tensor keeps
+them a tensor on their device.
 """
 
 import math
@@ -14,6 +18,7 @@ from typing import ClassVar, Literal
 import numpy as np
 import torch
 
+from ..core.labeled import DataArray
 from .special import gamma_fn, xv_kv
 
 MaternModel = Literal["sklearn", "gstat", "karspeck"]
@@ -73,12 +78,37 @@ def _vario_kernel(
 
 
 def _unwrap(x):
-    """(tensor, rewrap) for ndarray / tensor / array-like inputs."""
+    """(tensor, rewrap) for DataArray / ndarray / tensor / array-like
+    inputs; rewrap gives back the input's container type."""
+    if isinstance(x, DataArray):
+        values = x.values
+        if isinstance(values, torch.Tensor):
+            return values, lambda v: DataArray(
+                v, x.coords, name="variogram", attrs=dict(x.attrs))
+        return torch.as_tensor(np.asarray(values)), lambda v: DataArray(
+            v.cpu().numpy(), x.coords, name="variogram",
+            attrs=dict(x.attrs))
+    try:  # optional xarray support
+        import xarray as xr
+
+        if isinstance(x, xr.DataArray):
+            return torch.as_tensor(np.asarray(x.values)), lambda v: (
+                xr.DataArray(v.cpu().numpy(), coords=x.coords,
+                             name="variogram"))
+    except ImportError:
+        pass
     if isinstance(x, torch.Tensor):
         return x, lambda v: v
     if isinstance(x, np.ndarray):
         return torch.as_tensor(x), lambda v: v.cpu().numpy()
     return torch.as_tensor(x), lambda v: v
+
+
+def _renamed(out, name):
+    """`out` named `name` where it is a labelled array."""
+    if not isinstance(out, (torch.Tensor, np.ndarray)):
+        out.name = name
+    return out
 
 
 @dataclass()
@@ -108,7 +138,7 @@ class Variogram:
 
     def fit(self, distance_matrix):
         """Variogram at each entry of a distance matrix (same container
-        type out as in)."""
+        type out as in; a DataArray comes back named "variogram")."""
         d, rewrap = _unwrap(distance_matrix)
         return rewrap(self._kernel(d))
 
@@ -118,7 +148,8 @@ class Variogram:
         d, rewrap = _unwrap(distance_matrix)
         if variance is None:
             variance = self.psill + self.nugget
-        return rewrap(self._kernel(d, variance=variance, fused=True))
+        return _renamed(rewrap(self._kernel(d, variance=variance,
+                                            fused=True)), "covariance")
 
 
 def _resolve_ranges(range_, effective_range, eff_over_range: float):
@@ -210,4 +241,4 @@ class MaternVariogram(Variogram):
 def variogram_to_covariance(variogram, variance):
     """covariance = variance - variogram."""
     d, rewrap = _unwrap(variogram)
-    return rewrap(variance - d)
+    return _renamed(rewrap(variance - d), "covariance")

@@ -753,3 +753,63 @@ def test_sharded_factor_and_ensembles_on_the_card():
                                              noise=noise)
     assert _rel_max(mem.gather(), mem_l) <= 1e-9
     assert _rel_max(res.field.gather(), res_l.field) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the 0.5-degree example's twin, stage by stage, on a 5-degree grid
+# ---------------------------------------------------------------------------
+def test_quarter_degree_stages_on_the_card(tmp_path, monkeypatch):
+    """examples/torch_nonstationary_quarter_degree.py's stage functions on
+    the card at 2,592 cells (the clip's k0 cut to 512, under n): the cube
+    against the CPU's on the same normals, the whole-grid fit, its
+    checkpoint resumed, the stream (K3 and K4) against the CPU's, the
+    clip and the factored kriging against f64 factors."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+    import torch_nonstationary_quarter_degree as tq
+
+    from glomargridding_tpu_torch.ops.covariance_tools import LowRankPSD
+    from glomargridding_tpu_torch.models import lowrank as tlr
+
+    for name, value in dict(M_LAT=36, M_LON=72, N_OBS=300, N_MEMBERS=20,
+                            CHUNK_SIZE=1024).items():
+        monkeypatch.setattr(tq, name, value)
+    monkeypatch.setitem(tq.CLIP_KW, "k0", 512)
+    lat, lon, glat, glon = tq.axes()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sampler = tq.training_sampler(lat, lon)
+    assert sampler.device.type == "cuda"
+    noise = tq.cube_noise(sampler, gen)
+    cube = tq.training_cube(sampler, noise)
+    cpu = tq.training_cube(tq.training_sampler(lat, lon, device="cpu"),
+                           [z.cpu() for z in noise])
+    assert cube.is_cuda and _rel_max(cube.cpu(), cpu) <= 1e-4
+    builder = tq.correlation(cube, lat, lon)
+    ckpt = str(tmp_path / "fit.npz")
+    params = tq.fit_ellipses(builder, checkpoint=ckpt)
+    resumed = tq.fit_ellipses(builder, checkpoint=ckpt)
+    for k in ("Lx", "Ly", "theta", "qc_code"):
+        np.testing.assert_array_equal(np.asarray(params[k].values),
+                                      np.asarray(resumed[k].values))
+    fields, n_fit = tq.fitted_fields(params)
+    assert n_fit >= 0.9 * glat.size
+    tell.ellipse_matvec.launches = tell.ellipse_tile.launches = 0
+    mv, n, trace = tq.stream_operator(glat, glon, fields, 3000.0)
+    mv_cpu, _, _ = tq.stream_operator(glat, glon, fields, 3000.0, "cpu")
+    x = torch.randn((n, 9), generator=gen, device="cuda")
+    for cols in (slice(0, 8), slice(0, 9)):
+        assert _rel_max(mv(x[:, cols]).cpu(), mv_cpu(x[:, cols].cpu())) <= \
+            1e-5
+    psd, rank = tq.psd_repair(mv, n, trace, generator=gen)
+    assert tell.ellipse_matvec.launches > 0 and tell.ellipse_tile.launches > 0
+    assert psd.vectors.is_cuda and psd.rank % tq.PAD_RANK == 0
+    assert abs(psd.trace() - trace) <= 1e-5 * trace
+    idx, truth, y, E = tq.observations(psd, gen)
+    res, members = tq.ensemble(psd, idx, y, E, gen)
+    assert members.shape == (20, n) and members.is_cuda
+    psd64 = LowRankPSD(psd.vectors.double(), psd.gains.double(),
+                       psd.floor.double())
+    ref = tlr.lowrank_kriging(psd64, idx, y.double(), E.double())
+    for a, b in zip(res[:2], ref[:2]):
+        assert _rel_max(a.double(), b) <= 1e-3

@@ -16,7 +16,9 @@ forms of the kriging classes are held to their DeprecationWarning here.
 """
 
 import dataclasses
-from contextlib import nullcontext
+import os
+import sys
+from contextlib import contextmanager, nullcontext
 
 import jax
 import jax.numpy as jnp
@@ -66,6 +68,15 @@ from glomargridding_tpu_torch.ops import variogram_fit as tfit
 from glomargridding_tpu_torch.ops.cuda import ellipse as tell
 from glomargridding_tpu_torch.parallel import mesh as tmesh
 from glomargridding_tpu_torch.utils.device import resolve_device
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+
+import ellipse_1deg_covariance as jex_ellipse  # noqa: E402
+import large_ensemble_65k as jex_ensemble  # noqa: E402
+import torch_ellipse_1deg_covariance as twin_ellipse  # noqa: E402
+import torch_large_ensemble_65k as twin_ensemble  # noqa: E402
+import torch_nonstationary_65k_lowrank as twin_lowrank  # noqa: E402
+import torch_nonstationary_quarter_degree as twin_quarter  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -962,6 +973,183 @@ def _sharded_ellipse_builder(rng):
                             for k in ("Lx", "Ly", "theta", "qc_code")]),)
 
 
+@contextmanager
+def _constants(module, **values):
+    """`module`'s constants set to `values` inside the block."""
+    keep = {name: getattr(module, name) for name in values}
+    for name, value in values.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in keep.items():
+            setattr(module, name, value)
+
+
+def _start_blocks(key):
+    """The eigensolver's f32 start blocks from a JAX key (one split per
+    stage)."""
+    state = {"key": key}
+
+    def draw(shape, dtype):
+        state["key"], sub = jax.random.split(state["key"])
+        return torch.from_numpy(np.array(jax.random.normal(
+            sub, shape, jnp.float32)))
+
+    return draw
+
+
+# the examples' twins at a few dozen cells: the clip at a width that
+# holds the 0.90 target in one stage
+_TWIN_CLIP = dict(target_variance_fraction=0.9, k0=32, max_rank=64,
+                  n_iter=3, rank_multiple=8)
+_TWIN = dict(M_LAT=6, M_LON=12, N_OBS=10, N_MEMBERS=3, CLIP_KW=_TWIN_CLIP,
+             PAD_RANK=8)
+
+
+def _jax_factored_uncertainty(jmv, n, trace, idx):
+    """The JAX script's clip (key 1) padded to 8, densified, and its
+    kriging uncertainty at `idx` (error 0.09): both independent of the
+    Ritz vectors' signs."""
+    lock = jeig._LOCK_MIN_N
+    jeig._LOCK_MIN_N = 0  # the scripts' size takes the locked widening
+    try:
+        jpsd = jct.explained_variance_clip_lowrank(
+            jmv, n=n, trace=float(trace), key=jax.random.key(1),
+            dtype=jnp.float32, **_TWIN_CLIP).pad_rank(8)
+    finally:
+        jeig._LOCK_MIN_N = lock
+    m = idx.size
+    unc = jlr.lowrank_kriging(jpsd, idx, np.zeros(m, np.float32),
+                              np.full(m, 0.09, np.float32)).uncertainty
+    return jpsd.to_dense(), unc
+
+
+def _twin_outputs(out):
+    return out["psd"].to_dense(), out["result"].uncertainty
+
+
+def _twin_quarter_degree(rng):
+    """``run`` from given ellipse fields: the stream operator, the clip
+    and the factored kriging against the JAX script's stages."""
+    with _constants(twin_quarter, **_TWIN):
+        _, _, glat, glon = twin_quarter.axes()
+    shape = (_TWIN["M_LAT"], _TWIN["M_LON"])
+    params = {"Lx": rng.uniform(2500, 3500, shape),
+              "Ly": rng.uniform(1500, 2500, shape),
+              "theta": rng.uniform(-0.5, 0.5, shape),
+              "standard_deviation": rng.uniform(0.8, 1.2, shape),
+              "qc_code": np.zeros(shape)}
+    fields, _ = twin_quarter.fitted_fields(params)
+    s00, s01, _, s11 = jdist.sigma_rot_flat(
+        *(jnp.asarray(fields[k]) for k in ("Lx", "Ly", "theta")))
+    jmv, n, trace = jcov.ellipse_covariance_operator(
+        jnp.radians(jnp.asarray(glat)), jnp.radians(jnp.asarray(glon)),
+        jnp.stack([s00, s01, s11], axis=-1), jnp.sqrt(s00 * s11 - s01 * s01),
+        jnp.asarray(fields["standard_deviation"]), v=1.5, store="stream",
+        max_dist=3000.0)
+    idx = np.sort(np.random.default_rng(7).choice(n, _TWIN["N_OBS"],
+                                                  replace=False))
+
+    def port(**d):
+        with _constants(twin_quarter, **_TWIN):
+            out = twin_quarter.run(ellipse_params=params, verbose=False,
+                                   draw=_start_blocks(jax.random.key(1)),
+                                   **d)
+        return _twin_outputs(out)
+
+    return port, _jax_factored_uncertainty(jmv, n, trace, idx)
+
+
+def _twin_lowrank_65k(rng):
+    """``run``: the bf16 store, the clip and the factored kriging against
+    the JAX script's stages."""
+    with _constants(twin_lowrank, **_TWIN):
+        glat, glon = twin_lowrank.grid()
+    fields = twin_lowrank.ellipse_fields(glat)
+    s00, s01, _, s11 = jdist.sigma_rot_flat(
+        *(jnp.asarray(fields[k]) for k in ("Lx", "Ly", "theta")))
+    jmv, n, trace = jcov.ellipse_covariance_operator(
+        jnp.radians(jnp.asarray(glat)), jnp.radians(jnp.asarray(glon)),
+        jnp.stack([s00, s01, s11], axis=-1), jnp.sqrt(s00 * s11 - s01 * s01),
+        jnp.asarray(fields["stdev"]), v=1.5, store="bf16")
+    idx = np.sort(np.random.default_rng(7).choice(n, _TWIN["N_OBS"],
+                                                  replace=False))
+
+    def port(**d):
+        with _constants(twin_lowrank, **_TWIN):
+            out = twin_lowrank.run(draw=_start_blocks(jax.random.key(1)),
+                                   verbose=False, **d)
+        return _twin_outputs(out)
+
+    return port, _jax_factored_uncertainty(jmv, n, trace, idx)
+
+
+_ENSEMBLE = dict(M_LAT=8, M_LON=16, N_OBS=20, N_MEMBERS=3)
+
+
+def _twin_large_ensemble(rng):
+    """``run`` on the JAX key's normals: the script's field and members,
+    composed from its ``kernel_block`` and Cholesky solves."""
+    with _constants(twin_ensemble, **_ENSEMBLE):
+        lat, lon = twin_ensemble.grid()
+        m = lat.size * lon.size
+        idx, y, err = twin_ensemble.observations(m)
+        l_max = 3 * lat.size
+    jsampler = jsphere.SphericalHarmonicSampler(
+        jsphere.matern_correlation(0.5, twin_ensemble.RANGE_KM),
+        twin_ensemble.PSILL, lat, lon, nugget=twin_ensemble.NUGGET)
+    k_state, k_obs = jax.random.split(jax.random.key(0))
+    members = _ENSEMBLE["N_MEMBERS"]
+    states = np.asarray(jsampler.draw(k_state, members)).T
+    obs_z = np.array(jax.random.normal(k_obs, (idx.size, members),
+                                       jnp.float32))
+    k, kn = jax.random.split(k_state)
+    kc, ks = jax.random.split(k)
+    noise = {"states": [np.array(jax.random.normal(
+        kk, (64, l_max + 1, l_max + 1), jnp.float32))[:members]
+        for kk in (kc, ks)] + [np.array(jax.random.normal(
+            kn, (members, m), jnp.float32))], "obs": obs_z}
+    la = np.radians(np.repeat(lat, lon.size))
+    lo = np.radians(np.tile(lon, lat.size))
+    with _constants(jex_ensemble, **_ENSEMBLE):
+        K = np.asarray(jex_ensemble.kernel_block(
+            la[idx], lo[idx], la[idx], lo[idx]), np.float64) + np.diag(err)
+        C = np.asarray(jex_ensemble.kernel_block(la[idx], lo[idx], la, lo),
+                       np.float64)
+    V = np.linalg.solve(K, C)
+    u = np.linalg.solve(K, np.ones(idx.size))
+    lam = (V.sum(axis=0) - 1.0) / u.sum()
+    field = V.T @ y - lam * (u @ y)
+    sim = V.T @ (states[idx] + obs_z * np.sqrt(err)[:, None])
+    ref_members = (field[:, None] + sim - states).T
+
+    def port(**d):
+        with _constants(twin_ensemble, **_ENSEMBLE):
+            out = twin_ensemble.run(noise=noise, verbose=False, **d)
+        return out["field"], out["members"]
+
+    return port, (field, ref_members)
+
+
+def _twin_ellipse_covariance(rng):
+    """``run``: K4's matrix against the JAX script's Pallas build."""
+    with _constants(twin_ellipse, N_POINTS=100):
+        lats, lons, fields = twin_ellipse.points()
+    s00, s01, _, s11 = jdist.sigma_rot_flat(
+        *(jnp.asarray(fields[k]) for k in ("Lx", "Ly", "theta")))
+    ref = jex_ellipse.ellipse_covariance_pallas(
+        jnp.radians(jnp.asarray(lats)), jnp.radians(jnp.asarray(lons)),
+        jnp.stack([s00, s01, s11], axis=-1), jnp.sqrt(s00 * s11 - s01 * s01),
+        jnp.asarray(fields["stdev"]), v=0.5)
+
+    def port(**d):
+        with _constants(twin_ellipse, N_POINTS=100):
+            return (twin_ellipse.run(verbose=False, **d)["cov"],)
+
+    return port, (ref,)
+
+
 CASES = {
     "kriging_from_kernel": _kriging_from_kernel,
     "ensemble_from_kernel": _ensemble_from_kernel,
@@ -1048,7 +1236,13 @@ CASES = {
     "sharded_lowrank_ensemble_step": _sharded_lowrank(
         "sharded_lowrank_ensemble_step"),
     "EllipseBuilder(mesh)": _sharded_ellipse_builder,
+    "torch_nonstationary_quarter_degree.run": _twin_quarter_degree,
+    "torch_nonstationary_65k_lowrank.run": _twin_lowrank_65k,
+    "torch_large_ensemble_65k.run": _twin_large_ensemble,
+    "torch_ellipse_1deg_covariance.run": _twin_ellipse_covariance,
 }
+# the examples' twins run their stages in f32, as the scripts do
+TWIN_CASES = {name for name in CASES if name.startswith("torch_")}
 
 SOLVER_CASES = {
     "topk_eigh", "adaptive_topk_eigh", "explained_variance_clip",
@@ -1059,6 +1253,11 @@ SOLVER_CASES = {
 }
 
 
+# the 65k twin's clip of its bf16 store: the store's rounding against
+# the reference's moves the clip's cut by ~8e-4 at 72 cells
+BF16_CLIP_TOL = dict(rtol=0, atol=2e-3)
+
+
 def tolerance(name):
     """The parity bound of a case: the stream operator's diagonal term and
     the spectral draws are f32, everything else f64; what passes through
@@ -1067,7 +1266,9 @@ def tolerance(name):
     roundoff."""
     if name in SOLVER_CASES:
         return SOLVER_TOL
-    if name == "precompute_states_spectral":
+    if name == "torch_nonstationary_65k_lowrank.run":
+        return BF16_CLIP_TOL
+    if name == "precompute_states_spectral" or name in TWIN_CASES:
         return F32_TOL
     return OPERATOR_TOL if name in (
         "ellipse_covariance_operator", "sharded_ellipse_stream_operator"

@@ -613,3 +613,26 @@ def test_slice_end_to_end_cube_to_covariance():
         np.sqrt(np.diag(cov.numpy())),
         uncompress_masked(np.sqrt(tb.cov_diagonal), tb.mask_1D)[~bad.ravel()],
         rtol=1e-12)
+
+
+def test_chunk_cap_counts_the_allocators_unused_blocks(monkeypatch):
+    """On the card a chunk's build may take the blocks the caching
+    allocator holds and no tensor uses: after a larger earlier build the
+    CUDA runtime reports little free memory, and the cap must not fall to
+    that (it cut a 259,200-lane fit from 2,048 to 256 lanes a chunk)."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (2e9, 80e9))
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda device=None: 70e9)
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: 6e9)
+    card = SimpleNamespace(device=torch.device("cuda"))
+    cap, assumed = test_mod.EllipseBuilder._chunk_cap(card, 259_200, 4)
+    per_row = test_mod._CHUNK_VALUES_PER_PAIR * 4 * 259_200
+    assert cap == int(test_mod._CHUNK_MEMORY_SHARE * 66e9 / per_row)
+    assert cap >= 2048 and "66.0 GB" in assumed
+    cpu = SimpleNamespace(device=torch.device("cpu"))
+    cap_cpu, _ = test_mod.EllipseBuilder._chunk_cap(cpu, 259_200, 4)
+    assert cap_cpu == int(test_mod._CPU_CHUNK_BUDGET_BYTES / per_row)
