@@ -111,6 +111,7 @@ import numpy as np
 import torch
 
 from glomargridding_tpu_torch.utils.roofline import (
+    F32_FLOPS_S,
     K1_FLOPS,
     K1_POINT_TRANSCENDENTALS,
     K1_TRANSCENDENTALS,
@@ -322,17 +323,9 @@ MLE_OPT_RTOL = 1e-3
 # K_nu: ~11 KB of saved tensors per pair in f64 (measured on the CPU),
 # 280 GB at 5,000 observations, so it runs on the first 1,000 (8.5 GB)
 MLE_GENERAL_N = 1000
-# examples/nonstationary_1deg_pipeline.py:86-239, as written
-PIPE_DEG, PIPE_T = 1.0, 60
-PIPE_R_KM = 1000.0  # the exponential's e-folding length, 3,000 km / 3
-PIPE_NUGGET, PIPE_L_MAX = 0.05, 256
+# examples/torch_nonstationary_1deg_pipeline.py (the twin of
+# examples/nonstationary_1deg_pipeline.py:86-239), as written
 PIPE_OCEAN = 44420
-PIPE_FIT_KW = dict(
-    max_distance=6000.0, guesses=[2000.0, 2000.0, 0.0],
-    bounds=[(300.0, 30000.0), (300.0, 30000.0), (-2.0 * np.pi, 2.0 * np.pi)],
-    tol=1e-3, chunk_size=2048, dispatch_chunks=4, max_train_cols=4096)
-PIPE_CLIP_KW = dict(k0=1024, max_rank=4096, rank_multiple=128)
-PIPE_OBS_NOISE, PIPE_E = 0.3, 0.09
 PIPE_QC0_SHARE = 0.8
 
 # --- the host-side paths (phases 25-27)
@@ -647,23 +640,87 @@ def main():
     if precision != "highest" or allow_tf32:
         raise SystemExit(f"chip_smoke: f32 matmul precision is {precision!r}"
                          f", allow_tf32={allow_tf32}: TF32 must be off")
-
-    from glomargridding_tpu_torch import (
-        MaternVariogram,
-        ensemble_from_kernel,
-        kriging_from_kernel,
-        variogram_kernel,
-    )
-    from glomargridding_tpu_torch.ops.cuda import build
-    from glomargridding_tpu_torch.ops.cuda.pairwise import (
-        DISTANCES,
-        pairwise_covariance,
-        pairwise_covariance_torch,
-    )
-
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    walled("1-2", device_and_build, precision, allow_tf32)
+    glat, glon = grid_1deg()
+    idx, y, err = observations(glat.size, dev)
+    kernels = [walled("3-7", stationary_path, dev, glat, glon,
+                      (idx, y, err))]
+    kernels += walled("8-12", nonstationary, dev, glat, glon, (idx, y, err))
+    launches = later_phases(dev, glat, glon, (idx, y, err))
+    for k in kernels:
+        k["launches"] += launches.get(k["name"], 0)
+    print("phase walls " + " ".join(f"{k}={v:.1f}s" for k, v in PHASE_WALLS
+                                    .items())
+          + f" total={time.perf_counter() - t0:.1f}s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
 
-    # 1. device
+
+PHASE_WALLS = {}
+
+
+def walled(label, fn, *args):
+    """fn(*args), its wall kept under `label` in PHASE_WALLS."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    PHASE_WALLS[label] = time.perf_counter() - t0
+    return out
+
+
+def later_phases(dev, glat, glon, obs):
+    """Phases 13-31; returns each kernel's launches on their paths."""
+    launches = {"pairwise_tile": 0, "ellipse_sym": 0, "ellipse_matvec": 0,
+                "ellipse_tile": 0}
+
+    def add(**counts):
+        for name, count in counts.items():
+            launches[name] += count
+
+    # phases 13-15 run K2 once more, for the repair's bf16 store, and
+    # phase 17 once, on the fitted fields
+    psd, k2_repair = walled("13-15", repaired_pipeline, dev, glat, glon,
+                            obs)
+    add(ellipse_sym=k2_repair + walled("16-18", estimation_path, dev, glat,
+                                       glon, psd))
+    walled("19", phase19_thresholds, dev, psd)
+    # phase 22 launches K1 through kernel_matvec, phase 24 K2 once
+    k1_matvec, k2_pipeline = walled("20-24", sampling_and_fitting, dev, glat,
+                                    glon, obs)
+    add(pairwise_tile=k1_matvec, ellipse_sym=k2_pipeline)
+    # phases 25-27: K2 on the 5-degree workflow, K1 on the months scan and
+    # the raw-observation kriging
+    k1_host, k2_host = walled("25-27", host_side_paths, dev)
+    add(pairwise_tile=k1_host, ellipse_sym=k2_host)
+    # phase 28: the sharded paths; K1 in the kriging, K4 in the row
+    # blocks, K3 and K4 in the stream and its clip
+    k1_shard, k3_shard, k4_shard = walled("28", sharded_paths, dev, glat,
+                                          glon, obs, psd)
+    add(pairwise_tile=k1_shard, ellipse_matvec=k3_shard,
+        ellipse_tile=k4_shard)
+    del psd
+    # phase 29: the 0.5-degree twin, K3 and K4 in its stream and clip;
+    # phase 30: the 1-degree twins, K2's store, K1's tiles, K4's build
+    k3_quarter, k4_quarter = walled("29", phase29_quarter_degree, dev)
+    k1_x, k2_x, k4_x = walled("30", phase30_examples, dev)
+    add(pairwise_tile=k1_x, ellipse_sym=k2_x, ellipse_matvec=k3_quarter,
+        ellipse_tile=k4_quarter + k4_x)
+    # phase 31: the 0.1-degree twin, K4 in its application and clip
+    add(ellipse_tile=walled("31", phase31_tenth_degree, dev))
+    return launches
+
+
+def device_and_build(precision, allow_tf32):
+    """Phases 1-2: the card, and K1-K4 built from the sources in this
+    checkout, one nvcc each, all started together; no kernel may spill."""
+    from glomargridding_tpu_torch.ops.cuda import build
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -673,9 +730,6 @@ def main():
     phase(1, "device", torch=torch.__version__, cuda=torch.version.cuda,
           gpu=torch.cuda.get_device_name(0), matmul_precision=precision,
           allow_tf32=allow_tf32)
-
-    # 2. build K1-K4 from the sources in this checkout, one nvcc each,
-    # all started together
     t0 = time.perf_counter()
     libraries = ("pairwise_tile", "ellipse_tile")
     with ThreadPoolExecutor(len(libraries)) as pool:
@@ -694,42 +748,58 @@ def main():
         if ptxas[name][1] != 0 or ptxas[name][0] == 0:
             raise AssertionError(f"{name}: ptxas reports {ptxas[name]}")
 
-    # 3. K1 against its plain twin at the main path's tile shapes
-    glat, glon = grid_1deg()
-    m = glat.size
-    idx, y, err = observations(m, dev)
-    la = torch.deg2rad(torch.as_tensor(glat, device=dev))
-    lo = torch.deg2rad(torch.as_tensor(glon, device=dev))
-    la_o, lo_o = la[idx], lo[idx]
-    # the 64.8k call's C_cross tiles (a full block and its last), the
-    # 259.2k call's last, a width with n % 4 != 0, and K
-    shapes = {"5000x4096": slice(0, 4096), "5000x3360": slice(61440, 64800),
-              "5000x1152": slice(0, 1152), "5000x4133": slice(7000, 11133),
-              "5000x5000(K)": None}
-    worst = {torch.float32: 0.0, torch.float64: 0.0}
-    for dtype in (torch.float32, torch.float64):
-        for nu in (0.5, 1.5, 2.5, 3.5):
-            vario = MaternVariogram(psill=PSILL, nugget=0.05, range=RANGE_KM,
-                                    nu=nu)
-            for distance in DISTANCES:
-                for label, cols in shapes.items():
-                    rows = (la_o.to(dtype), lo_o.to(dtype))
-                    col = rows if cols is None else (
-                        la[cols].to(dtype), lo[cols].to(dtype))
-                    args = (*rows, *col, vario, distance)
-                    k = pairwise_covariance(*args)
-                    p = pairwise_covariance_torch(*args)
-                    sync()
-                    if not bool(torch.isfinite(k).all()):
-                        raise AssertionError(f"non-finite K1 tile {label}")
-                    rel = max_rel(k, p, vario.psill + vario.nugget)
-                    if not rel <= TILE_RTOL[dtype]:
-                        raise AssertionError(
-                            f"K1 {dtype} nu={nu} {distance} {label}: "
-                            f"{rel:.3e} > {TILE_RTOL[dtype]}"
-                        )
-                    worst[dtype] = max(worst[dtype], rel)
-        del k, p
+
+# the main path's K1 tiles: the 64.8k call's C_cross tiles (a full block
+# and its last), the 259.2k call's last, a width with n % 4 != 0, and K
+K1_SHAPES = {"5000x4096": slice(0, 4096), "5000x3360": slice(61440, 64800),
+             "5000x1152": slice(0, 1152), "5000x4133": slice(7000, 11133),
+             "5000x5000(K)": None}
+
+
+def k1_case_err(la, lo, la_o, lo_o, dtype, nu, distance):
+    """The worst K1 tile against its plain twin over K1_SHAPES, relative
+    to the variance."""
+    from glomargridding_tpu_torch import MaternVariogram
+    from glomargridding_tpu_torch.ops.cuda.pairwise import (
+        pairwise_covariance,
+        pairwise_covariance_torch,
+    )
+
+    vario = MaternVariogram(psill=PSILL, nugget=0.05, range=RANGE_KM, nu=nu)
+    worst = 0.0
+    for label, cols in K1_SHAPES.items():
+        rows = (la_o.to(dtype), lo_o.to(dtype))
+        col = rows if cols is None else (la[cols].to(dtype),
+                                         lo[cols].to(dtype))
+        args = (*rows, *col, vario, distance)
+        k = pairwise_covariance(*args)
+        p = pairwise_covariance_torch(*args)
+        sync()
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"non-finite K1 tile {label}")
+        rel = max_rel(k, p, vario.psill + vario.nugget)
+        if not rel <= TILE_RTOL[dtype]:
+            raise AssertionError(f"K1 {dtype} nu={nu} {distance} {label}: "
+                                 f"{rel:.3e} > {TILE_RTOL[dtype]}")
+        worst = max(worst, rel)
+    return worst
+
+
+def phase3_k1_parity(la, lo, la_o, lo_o):
+    """Phase 3: K1 against its plain twin at the main path's tile shapes,
+    every order and distance; returns the main path's tile arguments and
+    their max abs error."""
+    from glomargridding_tpu_torch import MaternVariogram
+    from glomargridding_tpu_torch.ops.cuda.pairwise import (
+        DISTANCES,
+        pairwise_covariance,
+        pairwise_covariance_torch,
+    )
+
+    worst = {dtype: max(k1_case_err(la, lo, la_o, lo_o, dtype, nu, d)
+                        for nu, d in product((0.5, 1.5, 2.5, 3.5),
+                                             DISTANCES))
+             for dtype in (torch.float32, torch.float64)}
     # the main path's own configuration, for the kernel report
     main_vario = MaternVariogram(psill=PSILL, range=RANGE_KM, nu=0.5)
     tile_args = (la_o, lo_o, la[:4096].contiguous(), lo[:4096].contiguous(),
@@ -737,16 +807,83 @@ def main():
     main_abs_err = torch.max(torch.abs(
         pairwise_covariance(*tile_args) - pairwise_covariance_torch(*tile_args)
     )).item()
-    phase(3, "k1_parity", shapes="|".join(shapes), nus="0.5|1.5|2.5|3.5",
+    phase(3, "k1_parity", shapes="|".join(K1_SHAPES), nus="0.5|1.5|2.5|3.5",
           distances="|".join(DISTANCES),
           f32_max_rel=f"{worst[torch.float32]:.3e}",
           f32_bound=TILE_RTOL[torch.float32],
           f64_max_rel=f"{worst[torch.float64]:.3e}",
           f64_bound=TILE_RTOL[torch.float64],
           main_f32_max_abs=f"{main_abs_err:.3e}")
+    return tile_args, main_abs_err
+
+
+def small_card_vs_cpu(kernel):
+    """Phase 4's small f64 problem: the card (K1) against the CPU (the
+    plain twin), over every output."""
+    from glomargridding_tpu_torch import kriging_from_kernel
+
+    rng = np.random.default_rng(SEED)
+    s_lat = np.repeat(np.arange(-82.5, 90, 15.0), 24)
+    s_lon = np.tile(np.arange(-172.5, 180, 15.0), 12)
+    s_idx = np.sort(rng.choice(s_lat.size, 20, replace=False))
+    s_obs = rng.normal(size=20)
+    s_err = np.diag(0.1 + 0.05 * rng.random(20))
+    small = [
+        kriging_from_kernel(kernel, s_lat, s_lon, s_idx, s_obs, s_err,
+                            variance=PSILL, n_blocks=3, device=d)
+        for d in (torch.device("cuda"), "cpu")
+    ]
+    small_err = max(
+        max_rel(a.cpu(), b) for a, b in zip(small[0], small[1])
+    )
+    if not small_err <= SMALL_RTOL:
+        raise AssertionError(f"card vs CPU small f64: {small_err:.3e}")
+    return small_err
+
+
+def check_ensemble(members, field_e, ordinary, m):
+    """Phase 5's checks: the ensemble's field against ordinary kriging,
+    its shape, and its spread against variance x constraint mask."""
+    field_err = max_rel(field_e, ordinary.field)
+    if not field_err <= ENSEMBLE_FIELD_TOL:
+        raise AssertionError(f"ensemble field vs ordinary: {field_err:.3e}")
+    if members.shape != (N_MEMBERS, m) or not bool(
+        torch.isfinite(members).all()
+    ):
+        raise AssertionError("ensemble members malformed")
+    # each member's perturbation is simple-kriged unit noise through K, so
+    # its variance at a cell is c' K^-1 c = variance * constraint mask
+    spread = torch.var(members - field_e, dim=0).mean().item()
+    expected = (PSILL * ordinary.constraint_mask).mean().item()
+    if not 0.8 <= spread / expected <= 1.25:
+        raise AssertionError(f"ensemble spread ratio {spread / expected:.3f}")
+    return field_err, spread / expected
+
+
+def stationary_path(dev, glat, glon, obs):
+    """Phases 3-7, the main path: K1's parity, 64,800-cell kriging from
+    5,000 observations against f64, the ensemble, 259,200 cells and the
+    warm times; returns K1's entry of the kernel report."""
+    from glomargridding_tpu_torch import (
+        MaternVariogram,
+        ensemble_from_kernel,
+        kriging_from_kernel,
+        variogram_kernel,
+    )
+    from glomargridding_tpu_torch.ops.cuda.pairwise import (
+        pairwise_covariance,
+        pairwise_covariance_torch,
+    )
+
+    idx, y, err = obs
+    m = glat.size
+    la = torch.deg2rad(torch.as_tensor(glat, device=dev))
+    lo = torch.deg2rad(torch.as_tensor(glon, device=dev))
+    tile_args, main_abs_err = phase3_k1_parity(la, lo, la[idx], lo[idx])
 
     # 4. the main path: 64,800 cells x 5,000 observations
-    kernel = variogram_kernel(main_vario, distance="haversine")
+    kernel = variogram_kernel(MaternVariogram(psill=PSILL, range=RANGE_KM,
+                                              nu=0.5), distance="haversine")
     glat_t = torch.as_tensor(glat, device=dev)
     glon_t = torch.as_tensor(glon, device=dev)
 
@@ -772,24 +909,7 @@ def main():
                            PSILL, "simple")
     if ordinary.field.shape != (m,):
         raise AssertionError(f"field shape {tuple(ordinary.field.shape)}")
-
-    # small f64 problem: card (K1) against CPU (plain twin)
-    rng = np.random.default_rng(SEED)
-    s_lat = np.repeat(np.arange(-82.5, 90, 15.0), 24)
-    s_lon = np.tile(np.arange(-172.5, 180, 15.0), 12)
-    s_idx = np.sort(rng.choice(s_lat.size, 20, replace=False))
-    s_obs = rng.normal(size=20)
-    s_err = np.diag(0.1 + 0.05 * rng.random(20))
-    small = [
-        kriging_from_kernel(kernel, s_lat, s_lon, s_idx, s_obs, s_err,
-                            variance=PSILL, n_blocks=3, device=d)
-        for d in (dev, "cpu")
-    ]
-    small_err = max(
-        max_rel(a.cpu(), b) for a, b in zip(small[0], small[1])
-    )
-    if not small_err <= SMALL_RTOL:
-        raise AssertionError(f"card vs CPU small f64: {small_err:.3e}")
+    small_err = small_card_vs_cpu(kernel)
     phase(4, "kriging_64800x5000", k1_launches=main_launches,
           tol=KRIGING_TOL,
           **{f"ordinary_{k}": f"{v:.3e}" for k, v in errs_o.items()},
@@ -804,21 +924,9 @@ def main():
 
     field_e, members = ensemble()
     sync()
-    field_err = max_rel(field_e, ordinary.field)
-    if not field_err <= ENSEMBLE_FIELD_TOL:
-        raise AssertionError(f"ensemble field vs ordinary: {field_err:.3e}")
-    if members.shape != (N_MEMBERS, m) or not bool(
-        torch.isfinite(members).all()
-    ):
-        raise AssertionError("ensemble members malformed")
-    # each member's perturbation is simple-kriged unit noise through K, so
-    # its variance at a cell is c' K^-1 c = variance * constraint mask
-    spread = torch.var(members - field_e, dim=0).mean().item()
-    expected = (PSILL * ordinary.constraint_mask).mean().item()
-    if not 0.8 <= spread / expected <= 1.25:
-        raise AssertionError(f"ensemble spread ratio {spread / expected:.3f}")
+    field_err, spread_ratio = check_ensemble(members, field_e, ordinary, m)
     phase(5, "ensemble_100", field_vs_ordinary=f"{field_err:.3e}",
-          tol=ENSEMBLE_FIELD_TOL, spread_ratio=f"{spread / expected:.4f}")
+          tol=ENSEMBLE_FIELD_TOL, spread_ratio=f"{spread_ratio:.4f}")
     del members
 
     # 6. the 0.25-degree-class grid: 259,200 cells, 64 blocks
@@ -849,8 +957,9 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     krige("ordinary")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    k1_pairs = la_o.numel() * 4096
-    k1_points = la_o.numel() + 4096
+    n_o = tile_args[0].numel()
+    k1_pairs = n_o * 4096
+    k1_points = n_o + 4096
     k1_bound, k1_by = bound(k1_pairs * 4 + k1_points * 2 * 4,
                             k1_pairs * K1_FLOPS,
                             k1_pairs * K1_TRANSCENDENTALS
@@ -861,8 +970,7 @@ def main():
           plain_5000x4096_ms=f"{plain_ms:.4f}",
           **{k: f"{v:.4f}" for k, v in walls.items()},
           kriging_64800_peak_gb=f"{peak_gb:.3f}")
-
-    kernels = [{
+    return {
         "name": "pairwise_tile",
         "route": "cuda",
         "source": "glomargridding_tpu_torch/ops/cuda/csrc/pairwise_tile.cu",
@@ -874,50 +982,7 @@ def main():
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-    }]
-    kernels += nonstationary(dev, glat, glon, (idx, y, err))
-    # phases 13-15 run K2 once more, for the repair's bf16 store, and
-    # phase 17 once, on the fitted fields
-    psd, k2_repair = repaired_pipeline(dev, glat, glon, (idx, y, err))
-    k2_fitted = estimation_path(dev, glat, glon, psd)
-    next(k for k in kernels if k["name"] == "ellipse_sym")[
-        "launches"] += k2_repair + k2_fitted
-    phase19_thresholds(dev, psd)
-    # phase 22 launches K1 through kernel_matvec, phase 24 K2 once
-    k1_matvec, k2_pipeline = sampling_and_fitting(dev, glat, glon,
-                                                  (idx, y, err))
-    kernels[0]["launches"] += k1_matvec
-    next(k for k in kernels if k["name"] == "ellipse_sym")[
-        "launches"] += k2_pipeline
-    # phases 25-27: K2 on the 5-degree workflow, K1 on the months scan and
-    # the raw-observation kriging
-    k1_host, k2_host = host_side_paths(dev)
-    kernels[0]["launches"] += k1_host
-    next(k for k in kernels if k["name"] == "ellipse_sym")[
-        "launches"] += k2_host
-    # phase 28: the sharded paths; K1 in the kriging, K4 in the row
-    # blocks, K3 and K4 in the stream and its clip
-    k1_shard, k3_shard, k4_shard = sharded_paths(dev, glat, glon,
-                                                 (idx, y, err), psd)
-    kernels[0]["launches"] += k1_shard
-    for name, count in (("ellipse_matvec", k3_shard),
-                        ("ellipse_tile", k4_shard)):
-        next(k for k in kernels if k["name"] == name)["launches"] += count
-    # phase 29: the 0.5-degree twin, K3 and K4 in its stream and clip;
-    # phase 30: the 1-degree twins, K2's store, K1's tiles, K4's build
-    k3_quarter, k4_quarter = phase29_quarter_degree(dev)
-    k1_x, k2_x, k4_x = phase30_examples(dev)
-    kernels[0]["launches"] += k1_x
-    for name, count in (("ellipse_sym", k2_x),
-                        ("ellipse_matvec", k3_quarter),
-                        ("ellipse_tile", k4_quarter + k4_x)):
-        next(k for k in kernels if k["name"] == name)["launches"] += count
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    }
 
 
 def phase8_parity(dev, glat, glon):
@@ -950,42 +1015,73 @@ def phase8_parity(dev, glat, glon):
         tag = "f64" if dtype == torch.float64 else "f32"
         label = f"{tag} nu={nu} {method} max_dist={md}"
         args = (nu, method, md)
-        for n, P in pts[dtype].items():
-            k2 = te.ellipse_sym(P, *args)
-            k4 = te.ellipse_tile(P, P, *args)
-            k4.diagonal().add_(P[:, 6] * P[:, 6])
-            sync()
-            if not torch.equal(k2, k4):
-                raise AssertionError(f"K2 != K4 bitwise, n={n}, {label}")
-            if not torch.equal(k4, k4.T):
-                raise AssertionError(f"K4 != K4' bitwise, n={n}, {label}")
-            if n == N_RAGGED:
-                rel = max_rel(k2, te.ellipse_sym_torch(P, *args))
-                worst["k2_" + tag] = max(worst["k2_" + tag], check(
-                    f"K2 {label}", rel, ELLIPSE_RTOL[dtype]))
-            del k2, k4
+        worst["k2_" + tag] = max(worst["k2_" + tag], k2_k4_case(
+            pts[dtype], args, label, ELLIPSE_RTOL[dtype]))
         band = grid[dtype][BAND_ROWS]
         rel = max_rel(te.ellipse_tile(band, grid[dtype], *args),
                       te.ellipse_tile_torch(band, grid[dtype], *args))
         worst["k4_" + tag] = max(worst["k4_" + tag], check(
             f"K4 2048x64800 {label}", rel, ELLIPSE_RTOL[dtype]))
         if dtype == torch.float32:
-            P = pts[dtype][N_RAGGED]
-            hi = None if md is None else k3_band(P, md)
-            yk = te.ellipse_matvec(P, x, hi, *args)
-            yp = te.ellipse_matvec_torch(P, x, hi, *args)
-            dense = te.ellipse_sym(pts[torch.float64][N_RAGGED], *args)
-            want = dense @ x.double()
-            del dense
-            diag_x = (P[:, 6] * P[:, 6])[:, None] * x
-            worst["k3_twin"] = max(worst["k3_twin"], check(
-                f"K3 twin {label}", max_rel(yk, yp), K3_TWIN_TOL))
-            worst["k3_dense"] = max(worst["k3_dense"], check(
-                f"K3 dense {label}", max_rel(yk + diag_x, want),
-                K3_DENSE_TOL))
+            twin, dense = k3_case(pts, x, args, label)
+            worst["k3_twin"] = max(worst["k3_twin"], twin)
+            worst["k3_dense"] = max(worst["k3_dense"], dense)
+    k2_store_checks(pts[torch.float32][N_RAGGED])
+    phase(8, "ellipse_kernels_parity", cases=len(cases) * 2,
+          sizes=f"{N_SYM}|{N_RAGGED}|2048x{glat.size}",
+          k2_eq_k4="bitwise", k2_symmetric="bitwise", bf16="rounded_once",
+          **{k: f"{v:.3e}" for k, v in worst.items()},
+          bounds=f"f64:{ELLIPSE_RTOL[torch.float64]}"
+                 f"|f32:{ELLIPSE_RTOL[torch.float32]}"
+                 f"|k3_twin:{K3_TWIN_TOL}|k3_dense:{K3_DENSE_TOL}")
 
-    # the bf16 store is the f32 tile rounded once; padding is exact zeros
+
+def k2_k4_case(pts, args, label, rtol):
+    """K2 against K4 (plus the diagonal) bitwise and K4 symmetric at each
+    size; K2 against its plain twin at the ragged size (returned)."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    rel = 0.0
+    for n, P in pts.items():
+        k2 = te.ellipse_sym(P, *args)
+        k4 = te.ellipse_tile(P, P, *args)
+        k4.diagonal().add_(P[:, 6] * P[:, 6])
+        sync()
+        if not torch.equal(k2, k4):
+            raise AssertionError(f"K2 != K4 bitwise, n={n}, {label}")
+        if not torch.equal(k4, k4.T):
+            raise AssertionError(f"K4 != K4' bitwise, n={n}, {label}")
+        if n == N_RAGGED:
+            rel = check(f"K2 {label}",
+                        max_rel(k2, te.ellipse_sym_torch(P, *args)), rtol)
+        del k2, k4
+    return rel
+
+
+def k3_case(pts, x, args, label):
+    """K3 at the ragged size against its plain twin and against the dense
+    f64 product: the two errors."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
     P = pts[torch.float32][N_RAGGED]
+    md = args[2]
+    hi = None if md is None else k3_band(P, md)
+    yk = te.ellipse_matvec(P, x, hi, *args)
+    yp = te.ellipse_matvec_torch(P, x, hi, *args)
+    dense = te.ellipse_sym(pts[torch.float64][N_RAGGED], *args)
+    want = dense @ x.double()
+    del dense
+    diag_x = (P[:, 6] * P[:, 6])[:, None] * x
+    return (check(f"K3 twin {label}", max_rel(yk, yp), K3_TWIN_TOL),
+            check(f"K3 dense {label}", max_rel(yk + diag_x, want),
+                  K3_DENSE_TOL))
+
+
+def k2_store_checks(P):
+    """The bf16 store is the f32 tile rounded once, its padding exact
+    zeros; an order without a kernel raises before any launch."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
     for md in (None, MAX_DIST_KM):
         kw = dict(add_diag=False, keep_pad=True)
         b16 = te.ellipse_sym(P, NU_NS, max_dist=md, out_dtype=torch.bfloat16,
@@ -1007,13 +1103,6 @@ def phase8_parity(dev, glat, glon):
         raise AssertionError("nu = 1.2 did not raise")
     if te.ellipse_sym.launches != before:
         raise AssertionError("a refused order launched")
-    phase(8, "ellipse_kernels_parity", cases=len(cases) * 2,
-          sizes=f"{N_SYM}|{N_RAGGED}|2048x{glat.size}",
-          k2_eq_k4="bitwise", k2_symmetric="bitwise", bf16="rounded_once",
-          **{k: f"{v:.3e}" for k, v in worst.items()},
-          bounds=f"f64:{ELLIPSE_RTOL[torch.float64]}"
-                 f"|f32:{ELLIPSE_RTOL[torch.float32]}"
-                 f"|k3_twin:{K3_TWIN_TOL}|k3_dense:{K3_DENSE_TOL}")
 
 
 def krige_nonstationary(dev, glat, glon, obs, nu):
@@ -1626,6 +1715,34 @@ def phase13_psd_repair(dev, glat, glon):
     return psd, k2_launches
 
 
+def check_lowrank_outputs(res, members, n, dev):
+    """Phase 14's outputs: n wide, on the card, finite; the members'
+    shape."""
+    for name, got in (*zip(res._fields, res), ("members", members)):
+        if got.shape[-1] != n or got.device.type != dev.type or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"lowrank {name} malformed")
+    if members.shape != (N_MEMBERS, n):
+        raise AssertionError(f"members {tuple(members.shape)}")
+
+
+def lowrank_consistency(psd, idx, e, gen):
+    """Self-consistency (bench.py:698-724): a truth drawn from the
+    factored covariance, observed with the error covariance's own noise,
+    kriged with 100 members: RMSE, mean uncertainty and member spread."""
+    from glomargridding_tpu_torch import lowrank_ensemble_step
+
+    truth = psd.draw(1, generator=gen)[0]
+    yc = truth[idx] + torch.sqrt(e) * torch.randn(
+        idx.numel(), generator=gen, device=truth.device)
+    res_c, mem_c = lowrank_ensemble_step(psd, idx, yc, e, gen, N_MEMBERS)
+    return {
+        "rmse": torch.sqrt(torch.mean((res_c.field - truth) ** 2)).item(),
+        "mean_uncertainty": res_c.uncertainty.mean().item(),
+        "member_spread": (mem_c - res_c.field).std(dim=0).mean().item(),
+    }
+
+
 def phase14_lowrank_kriging(dev, psd, obs):
     """Kriging, ensemble and cross-validation off the padded factors,
     against f64, the dense-E route and the dense classes."""
@@ -1654,12 +1771,7 @@ def phase14_lowrank_kriging(dev, psd, obs):
     cv = lowrank_crossval(psd, idx, y, e)
     sync()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name, got in (*zip(res._fields, res), ("members", members)):
-        if got.shape[-1] != n or got.device.type != dev.type or not bool(
-                torch.isfinite(got).all()):
-            raise AssertionError(f"lowrank {name} malformed")
-    if members.shape != (N_MEMBERS, n):
-        raise AssertionError(f"members {tuple(members.shape)}")
+    check_lowrank_outputs(res, members, n, dev)
     sd_scale = float(torch.sqrt(psd.diagonal().max()))
     errs = {}
 
@@ -1721,18 +1833,7 @@ def phase14_lowrank_kriging(dev, psd, obs):
               for name, got in wrong.items()}
     del Cc, K, oracle, wrong, dense
 
-    # self-consistency (bench.py:698-724): a truth drawn from the
-    # factored covariance, observed with the error covariance's own noise
-    truth = psd.draw(1, generator=gen)[0]
-    yc = truth[idx] + torch.sqrt(e) * torch.randn(
-        m, generator=gen, device=dev)
-    res_c, mem_c = lowrank_ensemble_step(psd, idx, yc, e, gen, N_MEMBERS)
-    triple = {
-        "rmse": torch.sqrt(torch.mean((res_c.field - truth) ** 2)).item(),
-        "mean_uncertainty": res_c.uncertainty.mean().item(),
-        "member_spread": (mem_c - res_c.field).std(dim=0).mean().item(),
-    }
-    del mem_c, res_c, truth
+    triple = lowrank_consistency(psd, idx, e, gen)
     walls = {
         "lowrank_kriging_s": wall_median_s(
             lambda: lowrank_kriging(psd, idx, y, e)),
@@ -2085,7 +2186,8 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
       FIT_THETA_TOL on the angle (see there), and the share of equal QC
       codes.
     - Levenberg-Marquardt (tol 1e-8, in f64 and in f32) against
-      Nelder-Mead in f64, on lanes with QC 0 in both: the share within FIT_REL_TOL and FIT_THETA_TOL,
+      Nelder-Mead in f64, on lanes with QC 0 in both: the share within
+      FIT_REL_TOL and FIT_THETA_TOL,
       and no lane fails that Nelder-Mead fitted.
     - The whole grid by Levenberg-Marquardt in f32: its wall, its QC
       codes, and its subset lanes in the comparison above.
@@ -2133,6 +2235,22 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
     del cor
     out["calc_cov_s"] = wall_median_s(builder.calc_cov)
 
+    model, params, fitted_lm, qc_lm32 = phase16_lm_fit(builder, out, glat,
+                                                       glon)
+    chunks = [np.arange(s, s + FIT_KW["chunk_size"]) for s in SUBSET_STARTS]
+    f32 = phase16_window(builder, model, chunks)
+    subset = phase16_subset(builder, model, cube, coords, chunks, f32,
+                            fitted_lm, qc_lm32)
+    return params, builder, (lat_axis, lon_axis), subset
+
+
+def phase16_lm_fit(builder, out, glat, glon):
+    """Phase 16's whole-grid fit by Levenberg-Marquardt, its chunks
+    counted and timed: (model, params, fitted (n, 3), QC codes)."""
+    from glomargridding_tpu_torch import EllipseModel
+    from glomargridding_tpu_torch.models.ellipse import estimate
+
+    n = glat.size
     # the whole grid by Levenberg-Marquardt (the simplex's whole-grid
     # fit, and its chunks against the whole grid bit for bit, are phase
     # 29's at 259,200 cells; here the simplex fits the held lanes)
@@ -2219,9 +2337,16 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
           recovery_theta_abs_median=(
               f"{np.median(recovery['theta_abs']):.4f}"))
 
-    # one chunk's build and a window of its solve: memory per pair, the
-    # two gathers, and the device's idle share
-    chunks = [np.arange(s, s + chunk) for s in SUBSET_STARTS]
+    return model, params, fitted_lm, qc_lm32
+
+
+def phase16_window(builder, model, chunks):
+    """One chunk's build and a window of its solve: memory per pair, the
+    two gathers and the device's idle share; returns the f32 simplex's
+    chunk fitter."""
+    from glomargridding_tpu_torch.ops import optim
+
+    n, chunk = builder.small_covar_size, FIT_KW["chunk_size"]
     f32 = subset_fitter(builder, model, "nm", FIT_KW["tol"])
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2254,6 +2379,18 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
           device_idle_share_vs_unprofiled_wall="not measured"
           if busy is None else f"{1.0 - busy / wall_1:.4f}")
 
+    return f32
+
+
+def phase16_subset(builder, model, cube, coords, chunks, f32, fitted_lm,
+                   qc_lm32):
+    """The subset's lanes through the chunk fitter: the f32 simplex
+    against f64, LM, the f32-summed likelihood, the wrong order and the
+    polar chunk (see ``phase16_whole_grid_fit``)."""
+    from glomargridding_tpu_torch import EllipseBuilder, EllipseModel
+
+    n = builder.small_covar_size
+    chunk = FIT_KW["chunk_size"]
     # the subset: the same lanes through the chunk fitter
     lanes = np.concatenate(chunks)
     raw32, pm32, qc32, _ = fit_lanes(f32, chunks)
@@ -2359,9 +2496,8 @@ def phase16_whole_grid_fit(dev, glat, glon, psd):
         raise AssertionError(f"QC codes agree on {qc_share:.4f} of lanes")
     if any(failed.values()):
         raise AssertionError(f"LM failed lanes that NM fitted: {failed}")
-    subset = dict(chunks=chunks, f32=f32, f64=f64, raw32=raw32, raw64=raw64,
-                  pm32=pm32, pm64=pm64, both=both)
-    return params, builder, (lat_axis, lon_axis), subset
+    return dict(chunks=chunks, f32=f32, f64=f64, raw32=raw32, raw64=raw64,
+                pm32=pm32, pm64=pm64, both=both)
 
 
 def phase17_fitted_covariance(dev, params, axes):
@@ -3021,109 +3157,81 @@ def phase23_variogram_mle(dev, glat, glon, obs):
         raise AssertionError(f"the nu = {NU_GENERAL} fit failed: {general}")
 
 
-def ocean_mask(lats, lons):
-    """examples/nonstationary_1deg_pipeline.py:73-83: synthetic
-    continents, a smooth deterministic ~35% land mask, and polar ice
-    beyond 78 degrees (True = masked)."""
-    LA, LO = np.meshgrid(np.radians(lats), np.radians(lons), indexing="ij")
-    f = (np.sin(2.0 * LO + 1.0) * np.cos(LA) + 0.7 * np.sin(3.0 * LA + 0.5)
-         + 0.4 * np.cos(5.0 * LO - 2.0 * LA))
-    return (f > 0.55) | (np.abs(LA) > np.radians(78.0))
+def pipeline_consistency(res, members, truth):
+    """Phase 24's RMSE, mean uncertainty and member spread."""
+    return {
+        "rmse": torch.sqrt(torch.mean((res.field - truth) ** 2)).item(),
+        "mean_uncertainty": res.uncertainty.mean().item(),
+        "member_spread": (members - res.field).std(dim=0).mean().item(),
+    }
 
 
-def phase24_nonstationary_pipeline(dev):
-    """examples/nonstationary_1deg_pipeline.py at 1 degree, stage by
-    stage: training cube -> calc_cov -> ellipse fit -> K2 -> clip ->
-    kriging with 100 members. Returns K2's launches."""
-    from glomargridding_tpu_torch import (
-        Coordinates,
-        EllipseBuilder,
-        EllipseCovarianceBuilder,
-        EllipseModel,
-        LowRankPSD,
-        explained_variance_clip_lowrank,
-        lowrank_ensemble_step,
-        lowrank_kriging,
-    )
+def pipeline_stages(tp, dev, gen, stages):
+    """examples/torch_nonstationary_1deg_pipeline.py's stages at 1 degree
+    through the twin's stage functions, timed into `stages`: (the kept
+    cells' factors, their rank and trace change, the observations, the
+    kriging and members, the QC codes and mask, K2's launches)."""
     from glomargridding_tpu_torch.ops.cuda import ellipse as te
-    from glomargridding_tpu_torch.ops.sphere import SphericalHarmonicSampler
 
-    lats, lons = (a.astype(np.float32) for a in axes(PIPE_DEG))
-    stages = {}
-    torch.cuda.reset_peak_memory_stats()
-    mask, stages["mask"] = timed_s(lambda: ocean_mask(lats, lons))
+    lats, lons = tp.axes()
+    mask, stages["mask"] = timed_s(lambda: tp.ocean_mask(lats, lons))
     n_ocean = int((~mask).sum())
     if n_ocean != PIPE_OCEAN:
         raise AssertionError(f"{n_ocean} ocean cells, not {PIPE_OCEAN}")
-    r = PIPE_R_KM / 6371.0
-    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    land = torch.as_tensor(mask, device=dev)
 
     def cube_stage():
-        sampler = SphericalHarmonicSampler(
-            lambda ang: np.exp(-ang / r), 1.0, lats, lons,
-            nugget=PIPE_NUGGET, l_max=PIPE_L_MAX, device=dev)
-        cube = sampler.draw(PIPE_T, generator=gen).reshape(
-            PIPE_T, lats.size, lons.size)
-        return sampler, torch.where(land[None], torch.nan, cube)
+        sampler = tp.training_sampler(lats, lons, device=dev)
+        return sampler, tp.training_cube(sampler, mask, gen)
 
     (sampler, cube), stages["cube"] = timed_s(cube_stage)
-    coords = Coordinates({"time": np.arange(PIPE_T), "latitude": lats,
-                          "longitude": lons})
-    builder, stages["calc_cov"] = timed_s(lambda: EllipseBuilder(cube,
-                                                                 coords))
+    builder, stages["calc_cov"] = timed_s(lambda: tp.correlation(cube, lats,
+                                                                 lons))
     del cube
-    model = EllipseModel(anisotropic=True, rotated=True,
-                         physical_distance=True, v=1.5, unit_sigma=True)
-    params, stages["fit"] = timed_s(lambda: builder.compute_params(
-        default_value=FIT_DEFAULTS, matern_ellipse=model, **PIPE_FIT_KW))
+    params, stages["fit"] = timed_s(lambda: tp.fit_ellipses(builder))
     del builder
-    Lx = params["Lx"].values
-    qc = params["qc_code"].values
-    good = (Lx > 0) & (qc != 9)
-    qc0_share = float(np.sum((qc == 0) & ~mask) / n_ocean)
-    codes, counts = np.unique(qc[~mask], return_counts=True)
-
-    fit_mask = mask | ~good
+    left_out, good = tp.fit_mask(params, mask)
     reset_ellipse_counts()
-
-    def assemble():
-        return EllipseCovarianceBuilder(
-            np.ma.masked_where(fit_mask, Lx),
-            np.ma.masked_where(fit_mask, params["Ly"].values),
-            np.ma.masked_where(fit_mask, params["theta"].values),
-            np.ma.masked_where(fit_mask, params["standard_deviation"].values),
-            lats, lons, v=1.5, device=dev).cov_ns
-
-    cov, stages["assembly"] = timed_s(assemble)
+    cov, stages["assembly"] = timed_s(lambda: tp.assembly(
+        params, left_out, lats, lons, dev))
     k2_launches = require_launches("K2 (the pipeline's assembly)",
                                    te.ellipse_sym.launches)
     n = cov.shape[0]
-    trace = float(torch.trace(cov.double()))
-    psd, stages["clip"] = timed_s(lambda: explained_variance_clip_lowrank(
-        cov, target_variance_fraction=CLIP_TARGET, generator=gen,
-        **PIPE_CLIP_KW))
-    trace_rel = abs(psd.trace() - trace) / trace
-    true_rank = psd.rank
-    psd = psd.pad_rank(PAD_RANK)
+    (psd, true_rank, trace_rel), stages["clip"] = timed_s(
+        lambda: tp.psd_repair(cov, generator=gen))
     del cov
-
-    rng = np.random.default_rng(7)
-    n_obs = min(N_OBS, n // 2)
-
-    def observe():
-        idx = np.sort(rng.choice(n, n_obs, replace=False))
-        truth = sampler.draw(1, generator=gen)[0][
-            ~torch.as_tensor(fit_mask, device=dev).flatten()]
-        y = truth[torch.as_tensor(idx, device=dev)] + torch.as_tensor(
-            PIPE_OBS_NOISE * rng.normal(size=n_obs).astype(np.float32),
-            device=dev)
-        return (torch.as_tensor(idx, device=dev), truth, y,
-                torch.full((n_obs,), PIPE_E, device=dev))
-
-    (idx, truth, y, e), stages["observations"] = timed_s(observe)
+    obs, stages["observations"] = timed_s(lambda: tp.observations(
+        sampler, left_out, n, gen))
+    idx, truth, y, e = obs
     (res, members), stages["kriging_100"] = timed_s(
-        lambda: lowrank_ensemble_step(psd, idx, y, e, gen, N_MEMBERS))
+        lambda: tp.ensemble(psd, idx, y, e, gen))
+    qc = np.asarray(params["qc_code"].values)
+    return dict(psd=psd, true_rank=true_rank, trace_rel=trace_rel, obs=obs,
+                res=res, members=members, qc=qc, mask=mask, good=good,
+                n=n, k2_launches=k2_launches, n_ocean=n_ocean)
+
+
+def phase24_nonstationary_pipeline(dev):
+    """examples/torch_nonstationary_1deg_pipeline.py at 1 degree, nothing
+    cut, stage by stage through the twin: training cube -> calc_cov ->
+    ellipse fit -> K2 -> clip -> kriging with 100 members. Returns K2's
+    launches."""
+    from glomargridding_tpu_torch import (
+        LowRankPSD,
+        lowrank_ensemble_step,
+        lowrank_kriging,
+    )
+
+    tp = examples_module("torch_nonstationary_1deg_pipeline")
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    out = pipeline_stages(tp, dev, gen, stages)
+    psd, res, members = out["psd"], out["res"], out["members"]
+    idx, truth, y, e = out["obs"]
+    n, qc, mask = out["n"], out["qc"], out["mask"]
+    n_obs = idx.numel()
+    qc0_share = float(np.sum((qc == 0) & ~mask) / out["n_ocean"])
+    codes, counts = np.unique(qc[~mask], return_counts=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, got in (*zip(res._fields, res), ("members", members)):
         if got.shape[-1] != n or not bool(torch.isfinite(got).all()):
@@ -3134,30 +3242,24 @@ def phase24_nonstationary_pipeline(dev):
                         float(torch.sqrt(psd.diagonal().max())))
     del psd64
 
-    def consistency(res, members, truth):
-        return {
-            "rmse": torch.sqrt(torch.mean((res.field - truth) ** 2)).item(),
-            "mean_uncertainty": res.uncertainty.mean().item(),
-            "member_spread": (members - res.field).std(dim=0).mean().item(),
-        }
-
     # the example's truth is the stationary exponential field plus its
     # nugget, which the fitted nu = 1.5 ellipses do not describe: its
     # RMSE is printed, and only the ensemble is held to its uncertainty.
     # As in phase 14, a truth drawn from the factors holds all three.
-    example = consistency(res, members, truth)
+    example = pipeline_consistency(res, members, out["obs"][1])
     model_truth = psd.draw(1, generator=gen)[0]
-    y_model = model_truth[idx] + np.sqrt(PIPE_E) * torch.randn(
+    y_model = model_truth[idx] + np.sqrt(tp.OBS_ERROR) * torch.randn(
         n_obs, generator=gen, device=dev)
-    triple = consistency(*lowrank_ensemble_step(psd, idx, y_model, e, gen,
-                                                N_MEMBERS), model_truth)
+    triple = pipeline_consistency(*lowrank_ensemble_step(
+        psd, idx, y_model, e, gen, N_MEMBERS), model_truth)
     example_ratio = example["rmse"] / example["mean_uncertainty"]
-    phase(24, "nonstationary_1deg_pipeline", ocean=n_ocean, T=PIPE_T,
-          l_max=PIPE_L_MAX, fitted=int(good.sum()), n=n,
+    phase(24, "nonstationary_1deg_pipeline", ocean=out["n_ocean"],
+          T=tp.T_TRAIN, l_max=tp.L_MAX, fitted=int(out["good"].sum()), n=n,
           qc_counts="|".join(f"{c}:{k}" for c, k in zip(codes, counts)),
           qc0_share=f"{qc0_share:.4f}", qc0_bound=PIPE_QC0_SHARE,
-          k2_launches=k2_launches, rank=f"{true_rank}->{psd.rank}",
-          trace_rel=f"{trace_rel:.3e}", trace_tol=TRACE_TOL,
+          k2_launches=out["k2_launches"],
+          rank=f"{out['true_rank']}->{psd.rank}",
+          trace_rel=f"{out['trace_rel']:.3e}", trace_tol=TRACE_TOL,
           obs=n_obs, members=N_MEMBERS, tol=KRIGING_TOL,
           **{f"f32_vs_f64_{k}": f"{v:.3e}" for k, v in errs.items()},
           **{f"example_{k}": f"{v:.4f}" for k, v in example.items()},
@@ -3168,7 +3270,7 @@ def phase24_nonstationary_pipeline(dev):
           total_s=f"{sum(stages.values()):.3f}", peak_gb=f"{peak_gb:.3f}")
     if not qc0_share >= PIPE_QC0_SHARE:
         raise AssertionError(f"QC 0 on {qc0_share:.4f} of the ocean")
-    check("pipeline trace of the factors", trace_rel, TRACE_TOL)
+    check("pipeline trace of the factors", out["trace_rel"], TRACE_TOL)
     for k, v in errs.items():
         check(f"pipeline f32 vs f64 {k}", v, KRIGING_TOL)
     spread_ratio = example["member_spread"] / example["mean_uncertainty"]
@@ -3177,7 +3279,7 @@ def phase24_nonstationary_pipeline(dev):
     check("pipeline consistency, a truth drawn from the factors: largest "
           "over smallest of RMSE, mean uncertainty and member spread",
           max(triple.values()) / min(triple.values()), CONSISTENCY_RATIO)
-    return k2_launches
+    return out["k2_launches"]
 
 
 def sampling_and_fitting(dev, glat, glon, obs):
@@ -3317,6 +3419,92 @@ def workflow_oracle(wf, load, fields, lat, lon, dev, eras):
     return out, int(step.sum()), k2_err
 
 
+def workflow_fit_shares(wf, load, dev, params):
+    """Phase 25's fits: the f32 fit against the f64 fit by share of lanes
+    within the bounds, and the nu = 0.5 control that must fall under
+    them."""
+    f32, f64 = torch.float32, torch.float64
+    cube, lat, lon, coords = wf.training_cube(load, f64)
+    fit64, fit64_s = timed_s(lambda: wf.fit_ellipses(cube, coords, dev))
+    cube, _, _, coords = wf.training_cube(load, f32)
+    wrong, wrong_s = timed_s(lambda: wf.fit_ellipses(cube, coords, dev,
+                                                     v=0.5))
+    del cube
+
+    def rows(p):
+        return np.stack([np.asarray(p[n].values).reshape(-1)
+                         for n in ("Lx", "Ly", "theta")], axis=1)
+
+    def qc0(p):
+        return np.asarray(p["qc_code"].values).reshape(-1) == 0
+
+    fitted = rows(params)[:, 0] > 0
+    if not np.array_equal(fitted, rows(fit64)[:, 0] > 0):
+        raise AssertionError("the f32 and f64 fits cover other points")
+    keep = fitted & qc0(params) & qc0(fit64)
+    dev_fit = fit_deviation(rows(params), rows(fit64), keep)
+    shares = {n: share_within(dev_fit, [n]) for n in dev_fit}
+    keep_wrong = fitted & qc0(wrong) & qc0(fit64)
+    dev_wrong = fit_deviation(rows(wrong), rows(fit64), keep_wrong)
+    wrong_shares = {n: share_within(dev_wrong, [n]) for n in dev_wrong}
+    for name in ("Lx_rel", "Ly_rel"):
+        check(f"workflow fit {name}: share of lanes off the f64 fit",
+              1.0 - shares[name], 1.0 - WORKFLOW_FIT_SHARE)
+        if not wrong_shares[name] < WORKFLOW_FIT_SHARE:
+            raise AssertionError(
+                f"the nu = 0.5 control passes the fit's bound on {name}: "
+                f"{wrong_shares[name]:.4f} >= {WORKFLOW_FIT_SHARE}")
+    return dict(fitted=fitted, fit64=fit64, lat=lat, lon=lon, shares=shares,
+                keep=keep, wrong_shares=wrong_shares, keep_wrong=keep_wrong,
+                fit64_s=fit64_s, wrong_s=wrong_s)
+
+
+def workflow_vs_f64(wf, load, params, lat, lon, dev, out32, old32):
+    """The 2014 and 1876 f32 runs against the f64 oracle on the f32 run's
+    ellipses: (errors 2014, errors 1876, the step pairs, K2's errors)."""
+    fields = {n: params[n].values for n in ("Lx", "Ly", "theta",
+                                            "standard_deviation")}
+    oracle, step_pairs, k2_err = workflow_oracle(
+        wf, load, fields, lat, lon, dev,
+        ((wf.YEAR, wf.MEMBER), SPARSE_ERA))
+    errs = workflow_errs(out32, oracle[wf.YEAR],
+                         STATIONARY_KEYS + NON_STATIONARY_KEYS)
+    errs_old = workflow_errs(old32, oracle[SPARSE_ERA[0]],
+                             STATIONARY_KEYS + NON_STATIONARY_KEYS)
+    for label, e in (("2014", errs), ("1876", errs_old)):
+        bad = {k: v for k, v in e.items() if not v <= WORKFLOW_TOL}
+        if bad:
+            raise AssertionError(f"workflow {label}: f32 vs f64 {bad}")
+    return errs, errs_old, step_pairs, k2_err
+
+
+def workflow_vs_stored(out32, fit64, fitted, dev):
+    """The 2014 run against the stored TPU run: the stationary fields
+    (held), the non-stationary field and the f64 fit's ellipses
+    (printed)."""
+    with np.load(STORED_RUN) as z:
+        stored = {k: torch.as_tensor(z[k], device=dev) for k in z.files}
+    if not np.array_equal(out32["grid_idx"], stored["grid_idx"].cpu()):
+        raise AssertionError("the 2014 gridboxes differ from the stored run")
+    vs_stored = {
+        "anom_stat": check("stationary field vs the stored run",
+                           max_rel(out32["anom_stat"], stored["anom_stat"]),
+                           STORED_TOL),
+        "uncert_stat": check("stationary uncertainty vs the stored run",
+                             max_rel(out32["uncert_stat"],
+                                     stored["uncert_stat"], PSILL**0.5),
+                             STORED_TOL)}
+    # not bounded: the stored non-stationary fields come from another
+    # state of the fit (its ellipses differ from today's f64 fit)
+    gap = (out32["anom_non_stat"].double() - stored["anom_non_stat"]).abs()
+    stored_rel = max_rel(out32["anom_non_stat"], stored["anom_non_stat"])
+    stored_share = {
+        n: float(np.mean(np.abs(np.asarray(fit64[n].values)[fitted.reshape(
+            36, 72)] / stored[f"ellipse_{n}"].cpu().numpy()[fitted.reshape(
+                36, 72)] - 1.0) <= FIT_REL_TOL)) for n in ("Lx", "Ly")}
+    return vs_stored, gap, stored_rel, stored_share
+
+
 def phase25_hadsst_workflow(dev):
     """examples/torch_hadsst_workflow.py on the card with nothing cut: the
     5-degree grid (2,592 cells), the ellipse fit on the whole 41-March
@@ -3355,72 +3543,16 @@ def phase25_hadsst_workflow(dev):
     k2 += require_launches("K2 on the 1876 workflow",
                            te.ellipse_sym.launches)
 
-    cube, lat, lon, coords = wf.training_cube(load, f64)
-    fit64, fit64_s = timed_s(lambda: wf.fit_ellipses(cube, coords, dev))
-    cube, _, _, coords = wf.training_cube(load, f32)
-    wrong, wrong_s = timed_s(lambda: wf.fit_ellipses(cube, coords, dev,
-                                                     v=0.5))
-    del cube
-
-    def rows(p):
-        return np.stack([np.asarray(p[n].values).reshape(-1)
-                         for n in ("Lx", "Ly", "theta")], axis=1)
-
-    def qc0(p):
-        return np.asarray(p["qc_code"].values).reshape(-1) == 0
-
-    fitted = rows(params)[:, 0] > 0
-    if not np.array_equal(fitted, rows(fit64)[:, 0] > 0):
-        raise AssertionError("the f32 and f64 fits cover other points")
-    keep = fitted & qc0(params) & qc0(fit64)
-    dev_fit = fit_deviation(rows(params), rows(fit64), keep)
-    shares = {n: share_within(dev_fit, [n]) for n in dev_fit}
-    keep_wrong = fitted & qc0(wrong) & qc0(fit64)
-    dev_wrong = fit_deviation(rows(wrong), rows(fit64), keep_wrong)
-    wrong_shares = {n: share_within(dev_wrong, [n]) for n in dev_wrong}
-    for name in ("Lx_rel", "Ly_rel"):
-        check(f"workflow fit {name}: share of lanes off the f64 fit",
-              1.0 - shares[name], 1.0 - WORKFLOW_FIT_SHARE)
-        if not wrong_shares[name] < WORKFLOW_FIT_SHARE:
-            raise AssertionError(
-                f"the nu = 0.5 control passes the fit's bound on {name}: "
-                f"{wrong_shares[name]:.4f} >= {WORKFLOW_FIT_SHARE}")
-    fields = {n: params[n].values for n in ("Lx", "Ly", "theta",
-                                            "standard_deviation")}
-    oracle, step_pairs, k2_err = workflow_oracle(
-        wf, load, fields, lat, lon, dev,
-        ((wf.YEAR, wf.MEMBER), SPARSE_ERA))
-    errs = workflow_errs(out32, oracle[wf.YEAR],
-                         STATIONARY_KEYS + NON_STATIONARY_KEYS)
-    errs_old = workflow_errs(old32, oracle[SPARSE_ERA[0]],
-                             STATIONARY_KEYS + NON_STATIONARY_KEYS)
-    for label, e in (("2014", errs), ("1876", errs_old)):
-        bad = {k: v for k, v in e.items() if not v <= WORKFLOW_TOL}
-        if bad:
-            raise AssertionError(f"workflow {label}: f32 vs f64 {bad}")
+    fit = workflow_fit_shares(wf, load, dev, params)
+    fitted, fit64, lat, lon = fit["fitted"], fit["fit64"], fit["lat"], fit[
+        "lon"]
+    errs, errs_old, step_pairs, k2_err = workflow_vs_f64(
+        wf, load, params, lat, lon, dev, out32, old32)
     cv = {f"{k}_{s}": float(getattr(out32[f"cv_{k}"], s))
           for k in ("stat", "non_stat") for s in ("rmse", "mssr")}
 
-    with np.load(STORED_RUN) as z:
-        stored = {k: torch.as_tensor(z[k], device=dev) for k in z.files}
-    if not np.array_equal(out32["grid_idx"], stored["grid_idx"].cpu()):
-        raise AssertionError("the 2014 gridboxes differ from the stored run")
-    vs_stored = {
-        "anom_stat": check("stationary field vs the stored run",
-                           max_rel(out32["anom_stat"], stored["anom_stat"]),
-                           STORED_TOL),
-        "uncert_stat": check("stationary uncertainty vs the stored run",
-                             max_rel(out32["uncert_stat"],
-                                     stored["uncert_stat"], PSILL**0.5),
-                             STORED_TOL)}
-    # not bounded: the stored non-stationary fields come from another
-    # state of the fit (its ellipses differ from today's f64 fit)
-    gap = (out32["anom_non_stat"].double() - stored["anom_non_stat"]).abs()
-    stored_rel = max_rel(out32["anom_non_stat"], stored["anom_non_stat"])
-    stored_share = {
-        n: float(np.mean(np.abs(np.asarray(fit64[n].values)[fitted.reshape(
-            36, 72)] / stored[f"ellipse_{n}"].cpu().numpy()[fitted.reshape(
-                36, 72)] - 1.0) <= FIT_REL_TOL)) for n in ("Lx", "Ly")}
+    vs_stored, gap, stored_rel, stored_share = workflow_vs_stored(
+        out32, fit64, fitted, dev)
     phase(25, "hadsst_workflow_5deg", cells=2592,
           fitted=int(fitted.sum()), obs_2014=len(out32["grid_idx"]),
           obs_1876=len(old32["grid_idx"]), k2_launches=k2, tol=WORKFLOW_TOL,
@@ -3430,11 +3562,12 @@ def phase25_hadsst_workflow(dev):
           **{f"f32_vs_f64_1876_{k}": f"{v:.3e}"
              for k, v in errs_old.items()},
           step_pairs=step_pairs,
-          **{f"fit_share_{k}": f"{v:.4f}" for k, v in shares.items()},
-          fit_lanes=int(keep.sum()), fit_share_bound=WORKFLOW_FIT_SHARE,
+          **{f"fit_share_{k}": f"{v:.4f}" for k, v in fit["shares"].items()},
+          fit_lanes=int(fit["keep"].sum()),
+          fit_share_bound=WORKFLOW_FIT_SHARE,
           **{f"control_nu05_share_{k}": f"{v:.4f}"
-             for k, v in wrong_shares.items()},
-          control_lanes=int(keep_wrong.sum()),
+             for k, v in fit["wrong_shares"].items()},
+          control_lanes=int(fit["keep_wrong"].sum()),
           **{f"stored_{k}": f"{v:.3e}" for k, v in vs_stored.items()},
           stored_tol=STORED_TOL,
           stored_non_stat_max_abs=f"{gap.max().item():.4f}",
@@ -3443,7 +3576,8 @@ def phase25_hadsst_workflow(dev):
              for k, v in stored_share.items()},
           **{f"cv_{k}": f"{v:.4f}" for k, v in cv.items()},
           run_2014_s=f"{wall:.3f}", run_1876_s=f"{old_wall:.3f}",
-          fit_f64_s=f"{fit64_s:.3f}", fit_nu05_f32_s=f"{wrong_s:.3f}",
+          fit_f64_s=f"{fit['fit64_s']:.3f}",
+          fit_nu05_f32_s=f"{fit['wrong_s']:.3f}",
           inputs="bundle")
     print("phase 25 stages_s " + " ".join(
         f"{k.replace(' ', '_')}={v:.4f}" for k, v in out32["times"].items()),
@@ -3687,7 +3821,9 @@ def phase27_raw_observations(dev):
           counts=f"{int(counts.min())}..{int(counts.max())}",
           boxes_and_counts="exact", mean_max_rel=f"{mean_rel:.3e}",
           mean_rtol=RAW_MEAN_RTOL,
-          mean_max_rel_to_the_mean=f"{np.max(mean_gap / np.abs(oracle_mean)):.3e}", records=len(records),
+          mean_max_rel_to_the_mean=(
+              f"{np.max(mean_gap / np.abs(oracle_mean)):.3e}"),
+          records=len(records),
           k1_launches=k1, tol=KRIGING_TOL,
           **{f"f32_vs_f64_{k}": f"{v:.3e}" for k, v in errs.items()},
           wewt_f32_vs_f64=f"{wewt_err:.3e}",
@@ -3805,7 +3941,8 @@ def phase28a_kriging(mesh, glat, glon, obs):
           **{f"vs_f64_{k}": f"{v:.3e}" for k, v in errs_f64.items()},
           control_error_cov_x1_1=f"{fault:.3e}",
           control_vs_f64=f"{fault_f64:.3e}", repeats=REPEATS,
-          moved_mb_on_4_cards=f"{collective_mb('kriging', n=idx.numel(), m=glat.size):.1f}",
+          moved_mb_on_4_cards=(
+              f"{collective_mb('kriging', n=idx.numel(), m=glat.size):.1f}"),
           **{k: f"{v:.4f}" for k, v in walls.items()})
     for k, v in errs.items():
         check(f"sharded kriging vs single {k}", v, SHARD_TOL)
@@ -3930,14 +4067,20 @@ def phase28d_clip(mesh, glat, glon, psd13):
         explained_variance_clip_lowrank,
     )
     from glomargridding_tpu_torch.ops.cuda import ellipse as te
+    from glomargridding_tpu_torch.ops.sampling import Matvec
     from glomargridding_tpu_torch.parallel import (
         sharded_ellipse_stream_operator,
+    )
+    from glomargridding_tpu_torch.parallel.ellipse import (
+        clip_memory_analysis,
     )
 
     dev = mesh.devices[0, 0]
     fields = realistic_ellipse_params(glat, glon)
     mv, n, trace = sharded_ellipse_stream_operator(mesh, *fields, glat, glon,
                                                    v=NU_NS)
+    if len(mv.row_devices) != SHARD_SLOTS:
+        raise AssertionError("the sharded stream names no row slots")
 
     def clip(op, target=CLIP_TARGET):
         return explained_variance_clip_lowrank(
@@ -3962,6 +4105,14 @@ def phase28d_clip(mesh, glat, glon, psd13):
     wrong = clip(mv, CLIP_WRONG_TARGET)
     fault = max_rel(dense_sub(wrong, cells), want, scale)
     del wrong
+    # the same operator with its blocks whole on the first slot (PR 9's
+    # form), and the bytes each slot holds of the row-sharded blocks
+    whole, whole_s = timed(lambda: clip(Matvec(mv.fn)))
+    whole_err = max_rel(dense_sub(whole, cells), want, scale)
+    del whole
+    width = CLIP_KW["k0"] + 8
+    per_slot, blocks_whole, small = clip_memory_analysis(n, width,
+                                                         SHARD_SLOTS)
     phase(28, "d_sharded_clip_64800", slots=SHARD_SLOTS, target=CLIP_TARGET,
           rank=psd.rank, single_rank=ref.rank, k3_launches=k3,
           k4_launches=k4, sub_cells=int(cells.numel()),
@@ -3969,9 +4120,16 @@ def phase28d_clip(mesh, glat, glon, psd13):
           vs_phase13_bf16_factors=f"{vs13:.3e}",
           trace_vs_single=f"{trace_rel:.3e}",
           trace_vs_phase13=f"{trace13:.3e}", trace_tol=TRACE_TOL,
-          control_target_0_8=f"{fault:.3e}", sharded_s=f"{sharded_s:.3f}",
-          single_s=f"{single_s:.3f}")
+          control_target_0_8=f"{fault:.3e}",
+          row_sharded_blocks_s=f"{sharded_s:.3f}",
+          whole_blocks_s=f"{whole_s:.3f}", single_s=f"{single_s:.3f}",
+          whole_blocks_vs_single=f"{whole_err:.3e}", width=width,
+          block_gb_per_slot=f"{per_slot / 1e9:.3f}",
+          block_gb_whole=f"{blocks_whole / 1e9:.3f}",
+          small_gb=f"{small / 1e9:.4f}")
     check("sharded clip vs single-device stream clip", err, SUB_TOL)
+    check("whole-block sharded clip vs single-device stream clip",
+          whole_err, SUB_TOL)
     check("sharded clip trace", trace_rel, TRACE_TOL)
     check("sharded clip trace vs phase 13", trace13, TRACE_TOL)
     if not fault > SUB_TOL:
@@ -4039,7 +4197,9 @@ def phase28e_ensemble(mesh, psd, obs):
           control_error_cov_x1_1=f"{fault:.3e}",
           control_f32_vs_f64=f"{max(fault64):.3e}",
           f64_peak_gb=f"{peak:.3f}",
-          cholesky_moved_mb_f32_on_4_cards=f"{collective_mb('cholesky', n=n, blocks=resolve_blocks_padded(n, SHARD_SLOTS, None)[0]):.1f}",
+          cholesky_moved_mb_f32_on_4_cards=f"{collective_mb(
+              'cholesky', n=n, blocks=resolve_blocks_padded(
+                  n, SHARD_SLOTS, None)[0]):.1f}",
           **{f"{k.replace('torch.float', 'f')}_s": f"{v:.3f}"
              for k, v in walls.items()})
     for label, v in (("f32 members", f32[0]), ("f32 field", f32[1])):
@@ -4143,16 +4303,36 @@ def phase28g_linalg(mesh, psd, cells):
         raise AssertionError("the linalg bound passes an f32 factor")
 
 
+def sharded_fits(builder, chunks, slots):
+    """Phase 28h's fits of the chunks, sharded over `slots` and on one
+    slot: f64 Nelder-Mead, f32 Levenberg-Marquardt, and the nu = 0.5
+    control (sharded only); ({(tag, where): fit_lanes}, walls)."""
+    from glomargridding_tpu_torch import EllipseModel
+
+    model = EllipseModel(**FIT_MODEL)
+    fits, walls = {}, {}
+    for tag, dtype, lane, tol, fit_model in (
+            ("f64_nm", np.float64, "nm", FIT_KW["tol"], model),
+            ("f32_lm", np.float32, "lm", LM_TOL, model),
+            ("f32_lm_nu_0_5", np.float32, "lm", LM_TOL,
+             EllipseModel(**{**FIT_MODEL, "v": 0.5}))):
+        b = builder(dtype)
+        for where in (("sharded", slots), ("single", None)):
+            if tag.endswith("nu_0_5") and where[0] == "single":
+                continue
+            fitter = subset_fitter(b, fit_model, lane, tol, where[1])
+            fits[tag, where[0]], walls[f"{tag}_{where[0]}_s"] = timed(
+                lambda: fit_lanes(fitter, chunks))
+        del b
+    return fits, walls
+
+
 def phase28h_fit(mesh, glat, glon, psd):
     """``compute_params(mesh=...)``'s split of a chunk's lanes over the
     slots, on phase 16's 4,096-lane subset and phase 16's cube, against
     the unsharded fit of the same lanes: Nelder-Mead in f64 lane for
     lane, Levenberg-Marquardt in f32 by share."""
-    from glomargridding_tpu_torch import (
-        Coordinates,
-        EllipseBuilder,
-        EllipseModel,
-    )
+    from glomargridding_tpu_torch import Coordinates, EllipseBuilder
 
     dev = psd.vectors.device
     lat_axis, lon_axis = np.unique(glat), np.unique(glon)
@@ -4169,22 +4349,7 @@ def phase28h_fit(mesh, glat, glon, psd):
                 "longitude": lon_axis.astype(dtype)}), cor_mode="lazy")
 
     chunks = [np.arange(s, s + FIT_KW["chunk_size"]) for s in SUBSET_STARTS]
-    slots = mesh.axis_devices("grid")
-    model = EllipseModel(**FIT_MODEL)
-    fits, walls = {}, {}
-    for tag, dtype, lane, tol, fit_model in (
-            ("f64_nm", np.float64, "nm", FIT_KW["tol"], model),
-            ("f32_lm", np.float32, "lm", LM_TOL, model),
-            ("f32_lm_nu_0_5", np.float32, "lm", LM_TOL,
-             EllipseModel(**{**FIT_MODEL, "v": 0.5}))):
-        b = builder(dtype)
-        for where in (("sharded", slots), ("single", None)):
-            if tag.endswith("nu_0_5") and where[0] == "single":
-                continue
-            fitter = subset_fitter(b, fit_model, lane, tol, where[1])
-            fits[tag, where[0]], walls[f"{tag}_{where[0]}_s"] = timed(
-                lambda: fit_lanes(fitter, chunks))
-        del b
+    fits, walls = sharded_fits(builder, chunks, mesh.axis_devices("grid"))
     (_, pm_s, qc_s, _), (_, pm_1, qc_1, _) = (fits["f64_nm", k]
                                               for k in ("sharded", "single"))
     both = (qc_s == 0) & (qc_1 == 0)
@@ -4406,10 +4571,10 @@ def qd_fit(tq, dev, builder, axes4):
     the checkpoint's resume."""
     import tempfile
 
-    from glomargridding_tpu_torch import EllipseBuilder, EllipseModel
+    from glomargridding_tpu_torch import EllipseModel
     from glomargridding_tpu_torch.models.ellipse import estimate
 
-    lat, lon, glat, glon = axes4
+    lat, _, glat, _ = axes4
     n = glat.size
     model = EllipseModel(**tq.FIT_MODEL)
     per_lane, cap = qd_chunk_times(tq, builder, model, lat)
@@ -4449,7 +4614,6 @@ def qd_fit(tq, dev, builder, axes4):
     same = all(np.array_equal(flat[k], np.asarray(
         resumed[k].values, float).reshape(-1)) for k in names)
     qc = flat["qc_code"].astype(int)
-    fitted = np.column_stack([flat["Lx"], flat["Ly"], flat["theta"]])
     qc0_share = float(np.mean(qc == 0))
     converged = float(np.mean(qc != 9))
     chunk = tq.CHUNK_SIZE
@@ -4483,7 +4647,25 @@ def qd_fit(tq, dev, builder, axes4):
             f"the resume: bitwise {same}, {resume_solves} chunks solved, "
             f"{resume_s:.3f} s")
 
-    # the held lanes: an equatorial and a polar chunk
+    qd_held_lanes(tq, builder, model, axes4, flat)
+    return params
+
+
+def qd_held_lanes(tq, builder, model, axes4, flat):
+    """Phase 29 c, the held lanes: an equatorial and a polar chunk refitted
+    against the whole-grid fit bit for bit, in f64, by LM, with the
+    likelihood summed in f32, and the two controls."""
+    from glomargridding_tpu_torch import (
+        Coordinates,
+        EllipseBuilder,
+        EllipseModel,
+    )
+
+    lat, lon, glat, _ = axes4
+    n = glat.size
+    chunk = tq.CHUNK_SIZE
+    qc = flat["qc_code"].astype(int)
+    fitted = np.column_stack([flat["Lx"], flat["Ly"], flat["theta"]])
     chunks = [np.arange(s0, s0 + chunk)
               for s0 in qd_chunk_starts(n, chunk, lat)]
     lanes = np.concatenate(chunks)
@@ -4494,8 +4676,6 @@ def qd_fit(tq, dev, builder, axes4):
             and np.array_equal(qc32, qc[lanes])):
         raise AssertionError("the held lanes are not the whole-grid fit's")
     # f64 on the same cube (the f32 cube's values in f64, as phase 16)
-    from glomargridding_tpu_torch import Coordinates
-
     coords64 = {"time": np.arange(tq.T_TRAIN), "latitude":
                 lat.astype(np.float64), "longitude": lon.astype(np.float64)}
     builder64 = EllipseBuilder(builder.data.double(),
@@ -4569,7 +4749,6 @@ def qd_fit(tq, dev, builder, axes4):
         raise AssertionError("the LM bound passes the fit at nu = 0.5")
     if not tight_converged < QD_CONVERGED_SHARE:
         raise AssertionError("the convergence bound passes tol 1e-12")
-    return params
 
 
 def qd_stream_checks(tq, dev, mv, fields, glat, glon, max_dist):
@@ -4942,6 +5121,375 @@ def phase30_examples(dev):
     phase(30, "examples_1deg", seconds=f"{time.perf_counter() - t0:.1f}")
     return k1, k2, k4
 
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the 0.1-degree twin at full width
+# ---------------------------------------------------------------------------
+# examples/torch_nonstationary_tenth_degree.py at 6,480,000 cells, f32.
+# (a) Sigma and sqrt det Sigma on the card against an f64 build on the
+# host, over max |.|; the control turns theta by 1e-3 rad
+TD_FIELD_TOL = 1e-6
+TD_THETA_CONTROL = 1e-3
+# (c) rows of the W = 64 application against an f64 slab of the plain
+# twin over all 6,480,000 columns (no band), over max |y|; the control
+# plans the windows at 2,700 km while the kernel cuts at 3,000 km
+TD_SLAB_TOL = 1e-5
+TD_CONTROL_KM = 2700.0
+TD_SLAB_COLS = 1 << 18
+# K4 and the GEMM timed apart over a sample of row blocks (CUDA events),
+# at the twin's rows and at the 64 of ``_block_rows``
+TD_SAMPLE_BLOCKS = 24
+# (e) f32 kriging and members against f64 on the same factors and
+# normals; RMSE / spread / uncertainty within CONSISTENCY_RATIO, the
+# control the covariance x 1.5
+TD_FACTOR_TOL = KRIGING_TOL
+TD_COVARIANCE_CONTROL = 1.5
+
+
+def td_fields(tt, dev, glat, glon, fields):
+    """Phase 31 a: Sigma and sqrt det on the card against the host's f64
+    build, and the control."""
+    def sigma(dtype, device, theta_shift=0.0):
+        Lx, Ly, theta, stdev = fields
+        inputs = tt.operator_inputs(glat, glon, (Lx, Ly, theta + np.float32(
+            theta_shift), stdev), dtype, device)
+        return torch.cat([inputs[2], inputs[3][:, None]], dim=1)
+
+    (card, card_s) = timed_s(lambda: sigma(torch.float32, dev))
+    host = sigma(torch.float64, "cpu")
+    errs = [max_rel(card[:, k].cpu(), host[:, k]) for k in range(4)]
+    control = max_rel(sigma(torch.float32, dev, TD_THETA_CONTROL)[:, :3]
+                      .cpu(), host[:, :3])
+    del card, host
+    phase(31, "a_fields", cells=glat.size, card_s=f"{card_s:.3f}",
+          **{f"{k}_vs_f64_host": f"{e:.3e}" for k, e in zip(
+              ("s00", "s01", "s11", "sqrt_det"), errs)},
+          tol=TD_FIELD_TOL, control_theta_1e_3=f"{control:.3e}")
+    check("phase 31 Sigma on the card vs the f64 host build", max(errs),
+          TD_FIELD_TOL)
+    if not control > TD_FIELD_TOL:
+        raise AssertionError("the field bound passes theta + 1e-3")
+
+
+def td_certificate(P, windows, max_dist):
+    """The least latitude gap, in km, between a row block and the
+    columns outside its window, over every block (latitude-sorted
+    points: the column just before and just after the window)."""
+    from glomargridding_tpu_torch.constants import RADIUS_OF_EARTH_KM
+
+    lat = P[:, 0].double().cpu().numpy()
+    w = np.asarray(windows)
+    r0, r1, c0, c1 = (w[:, k] for k in range(4))
+    n = lat.size
+    rmin, rmax = lat[r0], lat[r1 - 1]
+    before = np.where(c0 > 0, rmin - lat[np.maximum(c0 - 1, 0)], np.inf)
+    after = np.where(c1 < n, lat[np.minimum(c1, n - 1)] - rmax, np.inf)
+    return float(np.min(np.minimum(before, after))) * RADIUS_OF_EARTH_KM
+
+
+def td_slab_oracle(P32, P64, rows, glon, max_dist):
+    """C(rows, all columns) X's f64 oracle tile by tile: the plain twin in
+    f64 over every column, zero beyond the cutoff decided on the f32
+    points (as the kernels decide it), and the f32 twin's value at pairs
+    180 degrees of longitude apart (the +-pi step)."""
+    from glomargridding_tpu_torch.ops.cuda.ellipse import (
+        beyond_cutoff,
+        ellipse_tile_torch,
+    )
+
+    n = P64.shape[0]
+    lon_r = torch.as_tensor(glon, device=P64.device).double()[rows]
+    lon_all = torch.as_tensor(glon, device=P64.device).double()
+    for c0 in range(0, n, TD_SLAB_COLS):
+        c1 = min(c0 + TD_SLAB_COLS, n)
+        tile = ellipse_tile_torch(P64[rows], P64[c0:c1], 1.5)
+        far = beyond_cutoff(P32[rows], P32[c0:c1], max_dist)
+        tile = torch.where(far, torch.zeros_like(tile), tile)
+        step = torch.abs(torch.abs(lon_r[:, None] - lon_all[None, c0:c1])
+                         - 180.0) < 1e-3
+        if bool(step.any()):
+            t32 = ellipse_tile_torch(P32[rows], P32[c0:c1], 1.5).double()
+            t32 = torch.where(far, torch.zeros_like(t32), t32)
+            tile = torch.where(step, t32, tile)
+        yield c0, c1, tile
+
+
+def td_application(tt, dev, mv, glat, glon, fields, rng):
+    """Phase 31 c: the W = 64 application, three row blocks of it against
+    the f64 slab over all columns, with the 2,700 km control."""
+    from glomargridding_tpu_torch.models.ellipse.covariance import (
+        _apply_wide,
+        stream_plan,
+    )
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+    from glomargridding_tpu_torch.ops.cuda.ellipse import pack_points
+
+    n = glat.size
+    X, draw_s = timed_s(lambda: tt.demonstration_block(rng, n, dev))
+    Y, apply_s = timed_s(lambda: mv(X))
+    k4 = te.ellipse_tile.launches
+    stats = mv.band_stats
+    block = stats["block"]
+    P32 = pack_points(*tt.operator_inputs(glat, glon, fields, device=dev))
+    P64 = pack_points(*tt.operator_inputs(glat, glon, fields, torch.float64,
+                                          dev))
+    lat = P32[:, 0].double().cpu().numpy()
+    windows, _, _ = stream_plan(lat, lat, block, tt.MAX_DIST_KM)
+    control, _, _ = stream_plan(lat, lat, block, TD_CONTROL_KM)
+    n_lon = tt.M_LON
+    lon_row = n // 2 // n_lon * n_lon  # the first cell north of 0
+    picks = {"equator": (lon_row + n_lon // 2) // block,
+             "north": len(windows) - 1,
+             # a block starting at -179.95: a latitude row's first cell
+             "antimeridian": next(b for b in range(lon_row // block,
+                                                   len(windows))
+                                  if windows[b][0] % n_lon == 0)}
+    errs, ctrl = {}, {}
+    for name, b in picks.items():
+        r0, r1 = windows[b][:2]
+        rows = torch.arange(r0, r1, device=dev)
+        want = (P64[r0:r1, 6] ** 2)[:, None] * X[r0:r1].double()
+        for c0, c1, tile in td_slab_oracle(P32, P64, rows, glon,
+                                           tt.MAX_DIST_KM):
+            want += tile @ X[c0:c1].double()
+        scale = torch.max(torch.abs(want)).item()
+        errs[name] = max_rel(Y[r0:r1], want, scale)
+        y_ctrl = _apply_wide(P32, X, [control[b]], 1.5,
+                             "Modified_Met_Office", tt.MAX_DIST_KM)[r0:r1]
+        y_ctrl += (P32[r0:r1, 6] ** 2)[:, None] * X[r0:r1]
+        ctrl[name] = max_rel(y_ctrl, want, scale)
+    gap_km = td_certificate(P32, windows, tt.MAX_DIST_KM)
+    starts = {k: f"{windows[b][0]}:{float(glat[windows[b][0]]):.2f}:"
+              f"{float(glon[windows[b][0]]):.2f}" for k, b in picks.items()}
+    phase(31, "c_application_w64", draw_s=f"{draw_s:.2f}",
+          application_s=f"{apply_s:.2f}",
+          gpairs_per_s=f"{stats['kept_pairs'] / apply_s / 1e9:.1f}",
+          blocks="|".join(f"{k}@{v}" for k, v in starts.items()),
+          **{f"{k}_vs_f64_slab": f"{v:.3e}" for k, v in errs.items()},
+          tol=TD_SLAB_TOL,
+          **{f"control_2700km_{k}": f"{v:.3e}" for k, v in ctrl.items()},
+          certificate_min_gap_km=f"{gap_km:.1f}", max_dist_km=tt.MAX_DIST_KM)
+    check("phase 31 rows of the W = 64 application vs the f64 slab",
+          max(errs.values()), TD_SLAB_TOL)
+    if not max(ctrl.values()) > TD_SLAB_TOL:
+        raise AssertionError("the slab bound passes windows planned at "
+                             "2,700 km")
+    if not gap_km > tt.MAX_DIST_KM:
+        raise AssertionError(f"the band certificate: {gap_km:.1f} km")
+    return X, apply_s, k4
+
+
+def td_block_pieces(by_chunk, x, window, ids):
+    """A row block's column points and x rows: its window of the points
+    and `x`, or (`ids`) its active chunks gathered."""
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+
+    _, _, c0, c1 = window
+    if ids is None:
+        cols = by_chunk[0].view(-1, by_chunk[0].shape[2])
+        return cols[c0:c1], x[c0:c1]
+    return tcov._gathered(by_chunk, ids)
+
+
+def td_split(P, X, windows, chunks, widths=(64, 96)):
+    """K4, the GEMM and the gather apart, CUDA events over
+    TD_SAMPLE_BLOCKS row blocks spread over the grid, each block against
+    its window (`chunks` None) or its active chunks:
+    {width: (gather ms, K4 ms, GEMM ms, pairs)}, summed over the sample."""
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+    from glomargridding_tpu_torch.ops.cuda.ellipse import ellipse_tile
+
+    picks = np.linspace(0, len(windows) - 1, TD_SAMPLE_BLOCKS).astype(int)
+    block = max(r1 - r0 for r0, r1, _, _ in windows)
+    width = max(c1 - c0 for _, _, c0, c1 in windows)
+    ws = torch.empty(block * width, device=P.device)
+    out = {}
+    for w in widths:
+        x = X[:, :w] if w <= X.shape[1] else torch.cat(
+            [X, X[:, :w - X.shape[1]]], dim=1)
+        by_chunk = tcov._by_chunk(P, x)
+        y = torch.zeros((block, w), device=P.device)
+        gather_ms = k4_ms = gemm_ms = 0.0
+        pairs = 0
+        for b in picks:
+            r0, r1 = windows[b][:2]
+            ids = None
+            if chunks is not None and chunks[2][b]:
+                ids = chunks[1][chunks[0][b]:chunks[0][b + 1]]
+            gather_ms += cuda_time_ms(lambda: td_block_pieces(
+                by_chunk, x, windows[b], ids), iters=3)
+            cols, xs = td_block_pieces(by_chunk, x, windows[b], ids)
+            tile = ws[:(r1 - r0) * cols.shape[0]].view(r1 - r0, -1)
+            k4_ms += cuda_time_ms(lambda: ellipse_tile(
+                P[r0:r1], cols, 1.5, "Modified_Met_Office", 3000.0,
+                out=tile), iters=3)
+            gemm_ms += cuda_time_ms(lambda: y[:r1 - r0].addmm_(tile, xs),
+                                    iters=3)
+            pairs += (r1 - r0) * cols.shape[0]
+        out[w] = (gather_ms, k4_ms, gemm_ms, pairs)
+    return out
+
+
+def td_times(tt, dev, X, glat, glon, fields, block):
+    """K4, the GEMM and the gather at the twin's rows with the longitude
+    certificate, and each block against its whole window at the twin's
+    rows and at the 64 of ``_block_rows``, as seconds an application
+    (the sample's mean times the blocks)."""
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+    from glomargridding_tpu_torch.ops.cuda.ellipse import pack_points
+
+    P = pack_points(*tt.operator_inputs(glat, glon, fields, device=dev))
+    lat = P[:, 0].double().cpu().numpy()
+    values = {}
+    for label, rows, certified in (
+            ("certified", block, True), ("window", block, False),
+            ("window", tcov._block_rows(P.shape[0], None), False)):
+        windows, _, bw = tcov.stream_plan(lat, lat, rows, tt.MAX_DIST_KM)
+        chunks = (tcov._active_chunks(P, windows, bw, tt.MAX_DIST_KM)
+                  if certified else None)
+        scale = len(windows) / TD_SAMPLE_BLOCKS / 1e3
+        for w, (g, k4, gemm, pairs) in td_split(P, X, windows,
+                                                chunks).items():
+            values[f"{label}_{rows}_w{w}"] = (
+                f"gather:{g * scale:.2f}s,K4:{k4 * scale:.2f}s,"
+                f"GEMM:{gemm * scale:.2f}s,{pairs / k4 / 1e6:.0f}Gpairs/s,"
+                f"{2 * pairs * w / gemm / 1e9:.1f}TFLOP/s")
+    return values
+
+
+def td_clip(tt, dev, mv, n, trace, gen):
+    """Phase 31 d: the rank-capped clip, instrumented, its trace and the
+    control (the factors without their floor)."""
+    from glomargridding_tpu_torch import LowRankPSD
+
+    (psd, watch, log, total) = clip_instrumented(
+        mv, n, trace, clip=lambda op: tt.psd_repair(op, n, trace, gen,
+                                                    device=dev))
+    trace_rel = abs(psd.trace() - trace) / trace
+    retained = float(psd.gains.double().sum()) / trace
+    bare = LowRankPSD(psd.vectors, psd.gains, torch.zeros_like(psd.floor))
+    control = abs(bare.trace() - trace) / trace
+    phase(31, "d_clip", target=tt.TARGET, rank_cap=tt.rank_cap(),
+          rank=psd.rank, effective_rank=psd.effective_rank,
+          stages=log.widenings + 1, sweeps=watch["sweeps"].calls,
+          final_resid_over_theta1=log.accepted, clip_s=f"{total:.2f}",
+          sweeps_s=f"{watch['sweeps'].seconds:.2f}",
+          cholqr_s=f"{watch['cholqr'].seconds:.3f}",
+          eigh_s=f"{watch['eigh'].seconds:.3f}",
+          retained=f"{retained:.4f}", trace=f"{trace:.6g}",
+          trace_rel=f"{trace_rel:.3e}", trace_tol=TRACE_TOL,
+          control_no_floor=f"{control:.3e}")
+    check("phase 31 trace of the factors", trace_rel, TRACE_TOL)
+    if not control > TRACE_TOL:
+        raise AssertionError("the trace bound passes the factors without "
+                             "their floor")
+    return psd, total
+
+
+def td_members(tt, psd, idx, y, E, noise, dtype):
+    """Kriging and members on the factors in `dtype`, from `noise`."""
+    from glomargridding_tpu_torch import LowRankPSD
+
+    p = LowRankPSD(psd.vectors.to(dtype), psd.gains.to(dtype),
+                   psd.floor.to(dtype))
+    return tt.ensemble(p, idx, y.to(dtype), E.to(dtype),
+                       noise=[z.to(dtype) for z in noise])
+
+
+def td_ensemble(tt, dev, psd, rng, gen):
+    """Phase 31 e: kriging and 100 members, first and warm, f32 against
+    f64 on the same factors and normals, and the consistency of a truth
+    drawn from the factors, with the covariance x 1.5 control."""
+    from glomargridding_tpu_torch import LowRankPSD
+
+    idx, truth, y, E = tt.observations(psd, rng, gen)
+    n, r, m = psd.n, psd.rank, idx.numel()
+    noise = [torch.randn(s, generator=gen, device=dev)
+             for s in ((n, tt.N_MEMBERS), (r, tt.N_MEMBERS),
+                       (m, tt.N_MEMBERS))]
+    (res, members), first_s = timed_s(lambda: tt.ensemble(
+        psd, idx, y, E, noise=noise))
+    (res, members), warm_s = timed_s(lambda: tt.ensemble(
+        psd, idx, y, E, noise=noise))
+    for name, got in (*zip(res._fields, res), ("members", members)):
+        if got.shape[-1] != n or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"phase 31 {name} malformed")
+    res64, members64 = td_members(tt, psd, idx, y, E, noise, torch.float64)
+    errs = kriging_errs(res, res64, float(torch.sqrt(psd.diagonal().max())))
+    errs["members"] = max_rel(members, members64)
+    del res64, members64
+    triple = tt.consistency(res, members, truth)
+    ratio = max(triple.values()) / min(triple.values())
+    wrong = LowRankPSD(psd.vectors, psd.gains * TD_COVARIANCE_CONTROL,
+                       psd.floor * TD_COVARIANCE_CONTROL)
+    control = tt.consistency(*tt.ensemble(wrong, idx, y, E, noise=noise),
+                             truth)
+    control_ratio = max(control.values()) / min(control.values())
+    phase(31, "e_kriging_members", obs=m, members=tt.N_MEMBERS,
+          first_s=f"{first_s:.3f}", warm_s=f"{warm_s:.3f}",
+          tol=TD_FACTOR_TOL, **{f"f32_vs_f64_{k}": f"{v:.3e}"
+                                for k, v in errs.items()},
+          **{k: f"{v:.4f}" for k, v in triple.items()},
+          ratio=f"{ratio:.4f}", ratio_bound=CONSISTENCY_RATIO,
+          control_covariance_x1_5_ratio=f"{control_ratio:.4f}")
+    for k in ("field", "uncertainty", "members"):
+        check(f"phase 31 f32 vs f64 {k}", errs[k], TD_FACTOR_TOL)
+    check("phase 31 consistency: largest over smallest of RMSE, spread "
+          "and uncertainty", ratio, CONSISTENCY_RATIO)
+    if not control_ratio > CONSISTENCY_RATIO:
+        raise AssertionError("the consistency bound passes C x 1.5")
+    return first_s, warm_s
+
+
+def phase31_tenth_degree(dev):
+    """Phase 31: examples/torch_nonstationary_tenth_degree.py at 6,480,000
+    cells, f32, at its own arguments, stage by stage through the twin;
+    returns K4's launches on its path (the W = 64 application and the
+    clip's sweeps)."""
+    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+
+    tt = examples_module("torch_nonstationary_tenth_degree")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    walls = {}
+    glat, glon = tt.grid()
+    fields, walls["fields_host"] = timed_s(
+        lambda: tt.heterogeneous_ellipse_fields(glat, glon))
+    td_fields(tt, dev, glat, glon, fields)
+    (mv, n, trace), walls["operator"] = timed_s(
+        lambda: tt.stream_operator(glat, glon, fields, device=dev))
+    stats = mv.band_stats
+    phase(31, "b_band_plan", cells=n, block=stats["block"],
+          row_blocks=len(stats["col_starts"]), bw=stats["bw"],
+          wide_pairs=f"{stats['wide_pairs']:.4e}",
+          kept_pairs=f"{stats['kept_pairs']:.4e}",
+          kept_share=f"{stats['kept_pairs'] / stats['wide_pairs']:.4f}",
+          gathering_blocks=stats["gathering_blocks"],
+          tile_gb=f"{stats['block'] * stats['bw'] * 4 / 1e9:.3f}",
+          plan_s=f"{walls['operator']:.3f}")
+    reset_ellipse_counts()
+    rng = np.random.default_rng(11)
+    X, walls["application_w64"], k4_demo = td_application(
+        tt, dev, mv, glat, glon, fields, rng)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    reset_ellipse_counts()
+    psd, walls["clip"] = td_clip(tt, dev, mv, n, trace, gen)
+    k4 = require_launches("K4 (the 0.1-degree clip)",
+                          te.ellipse_tile.launches) + k4_demo
+    split = td_times(tt, dev, X, glat, glon, fields, stats["block"])
+    del X, mv
+    torch.cuda.empty_cache()
+    walls["members_first"], walls["members_warm"] = td_ensemble(
+        tt, dev, psd, rng, gen)
+    phase(31, "tenth_degree", cells=n, k4_launches=k4,
+          k4_launches_per_application=k4_demo,
+          **{f"{k}_s": f"{v:.2f}" for k, v in walls.items()},
+          **split, gemm_peak_tflop_s=f"{F32_FLOPS_S / 1e12:.0f}",
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return k4
 
 if __name__ == "__main__":
     sys.exit(main())

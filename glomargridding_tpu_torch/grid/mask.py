@@ -102,7 +102,7 @@ def mask_dataset(
 ) -> Dataset:
     """Apply a mask grid to chosen variables of a Dataset.
 
-   
+
     """
     if not isinstance(dataset, Dataset):
         raise TypeError("Input 'dataset' must be a Dataset")
@@ -195,7 +195,7 @@ def get_mask_idx(
 ) -> np.ndarray:
     """1-d (C-order) indices of (un)masked cells of a mask grid.
 
-   
+
     """
     values = _host(mask if isinstance(mask, torch.Tensor)
                    or not hasattr(mask, "values") else mask.values)

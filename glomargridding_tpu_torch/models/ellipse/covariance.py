@@ -60,6 +60,9 @@ KERNEL_ORDERS = (0.5, 1.5, 2.5, 3.5)  # the orders the ellipse kernels take
 _BLOCK_BYTES = 1 << 30
 _TILE_LIMIT_BYTES = 2 << 30
 _CHUNK_BYTES = 1 << 30
+# a stream block gathers its active column chunks (the longitude
+# certificate) when they are at most this share of its window
+_GATHER_SHARE = 0.8
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}
@@ -445,8 +448,13 @@ def ellipse_covariance_operator(
     built (they are exact zeros). Applications of at most ``MV_W``
     columns run K3 (f32 points, kernel orders); wider ones build each
     row block's (block x window) tile with K4 into one reused workspace
-    and multiply it with ``torch.matmul`` in true f32.
-    ``matvec.band_stats`` counts the pairs each path builds.
+    and multiply it with ``torch.matmul`` in true f32. A row block that
+    spans less than a latitude row also has a longitude gap to most of
+    its window: a latitude-longitude certificate (``_active_chunks``)
+    keeps the window's 64-point column chunks that can hold a pair within
+    `max_dist`, and the block's tile is built against those alone,
+    gathered with their rows of x. ``matvec.band_stats`` counts the pairs
+    each path builds.
 
     The operator lives on `device`; with no device, on the inputs' if one
     is a tensor, else on the card (``resolve_device``).
@@ -459,49 +467,78 @@ def ellipse_covariance_operator(
     n = P.shape[0]
     diag = P[:, 6].float() ** 2
     trace = float(torch.sum(diag))
-    block = _block_rows(n, n_blocks)
-    kernel_order = float(v) in KERNEL_ORDERS
-
+    kernel = (v, delta_x_method, max_dist)
     if store == "stream":
-        if max_dist is not None:
-            lat_np = np.asarray(P[:, 0].cpu(), dtype=np.float64)
-            n_rb = -(-n // block)
-            lat_pad = np.pad(lat_np, (0, n_rb * block - n), mode="edge")
-            col_starts, bw, hi = _stream_band_plan(
-                lat_pad, lat_np, n, block, float(max_dist), TILE, TILE
-            )
-        else:
-            col_starts = np.zeros(-(-n // block), np.int64)
-            bw, hi = n, None
-        windows = _row_windows(n, block, col_starts, bw)
-        use_fused = kernel_order and P.dtype == torch.float32
-        nb = -(-n // TILE)
-        hi_np = np.full(nb, nb - 1) if hi is None else hi
-        stats = {
-            "banded": bw < n,
-            "bw": int(bw),
-            "n_cols": n,
-            # the wide path: each row block against its own window
-            "wide_pairs": int(sum((r1 - r0) * (c1 - c0)
-                                  for r0, r1, c0, c1 in windows)),
-            # K3: the active upper-triangle tiles
-            "fused_pairs": int((hi_np - np.arange(nb) + 1).sum()) * TILE * TILE,
-            "use_fused": use_fused,
-        }
-
-        def stream(x):
-            x2 = _as_2d(x, P)
-            if use_fused and x2.shape[1] <= MV_W:
-                y = ellipse_matvec(P, x2.contiguous(), hi, v,
-                                   delta_x_method, max_dist)
-            else:
-                y = _apply_wide(P, x2, windows, v, delta_x_method, max_dist)
-            return _finish(y + diag[:, None] * x2, x)
-
-        return Matvec(stream, stats), n, trace
-
+        return _stream_matvec(P, diag, n_blocks, *kernel), n, trace
     if store != "bf16":
         raise ValueError(f"Unknown store: {store!r}")
+    return _bf16_matvec(P, diag, n_blocks, assemble, *kernel), n, trace
+
+
+def stream_plan(lat_rows, lat_cols, block, max_dist):
+    """(windows, hi, bw) of the banded stream of the rows against the
+    columns (host, numpy latitudes in radians): ``_row_windows``'s
+    (r0, r1, c0, c1) per row block of `block` rows, K3's band limits over
+    the columns and the uniform window width. With no `max_dist` every
+    row block sees every column."""
+    n, n_cols = lat_rows.size, lat_cols.size
+    n_rb = -(-n // block)
+    if max_dist is None:
+        nb = -(-n_cols // TILE)
+        return (_row_windows(n, block, np.zeros(n_rb, np.int64), n_cols),
+                np.full(nb, nb - 1), n_cols)
+    lat_pad = np.pad(lat_rows, (0, n_rb * block - n), mode="edge")
+    col_starts, bw, hi = _stream_band_plan(
+        lat_pad, lat_cols, n_cols, block, float(max_dist), TILE, TILE)
+    return _row_windows(n, block, col_starts, bw), hi, bw
+
+
+def _stream_matvec(P, diag, n_blocks, v, delta_x_method, max_dist):
+    """The zero-storage ``Matvec`` of ``ellipse_covariance_operator``."""
+    n = P.shape[0]
+    block = _block_rows(n, n_blocks)
+    lat_np = np.asarray(P[:, 0].cpu(), dtype=np.float64)
+    windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
+    chunks = (None if max_dist is None
+              else _active_chunks(P, windows, bw, max_dist))
+    use_fused = float(v) in KERNEL_ORDERS and P.dtype == torch.float32
+    nb = hi.size
+    stats = {
+        "banded": bw < n,
+        "bw": int(bw),
+        "n_cols": n,
+        "block": block,
+        "col_starts": np.array([c0 for _, _, c0, _ in windows]),
+        # the wide path: each row block against its own window
+        "wide_pairs": int(sum((r1 - r0) * (c1 - c0)
+                              for r0, r1, c0, c1 in windows)),
+        # ... of which it builds these: a gathering block only its
+        # active chunks (the longitude certificate, ``_active_chunks``)
+        "kept_pairs": _kept_pairs(windows, chunks),
+        "gathering_blocks": 0 if chunks is None else int(chunks[2].sum()),
+        # K3: the active upper-triangle tiles
+        "fused_pairs": int((hi - np.arange(nb) + 1).sum()) * TILE * TILE,
+        "use_fused": use_fused,
+    }
+    k3_hi = hi if max_dist is not None else None
+
+    def stream(x):
+        x2 = _as_2d(x, P)
+        if use_fused and x2.shape[1] <= MV_W:
+            y = ellipse_matvec(P, x2.contiguous(), k3_hi, v,
+                               delta_x_method, max_dist)
+        else:
+            y = _apply_wide(P, x2, windows, v, delta_x_method, max_dist,
+                            chunks=chunks)
+        return _finish(y + diag[:, None] * x2, x)
+
+    return Matvec(stream, stats)
+
+
+def _bf16_matvec(P, diag, n_blocks, assemble, v, delta_x_method, max_dist):
+    """The bf16-store ``Matvec`` of ``ellipse_covariance_operator``."""
+    n = P.shape[0]
+    kernel_order = float(v) in KERNEL_ORDERS
     if assemble not in ("auto", "pallas", "scan"):
         raise ValueError(f"Unknown assemble: {assemble!r}")
     if assemble == "pallas" and not kernel_order:
@@ -511,6 +548,7 @@ def ellipse_covariance_operator(
                         out_dtype=torch.bfloat16, add_diag=False,
                         keep_pad=True)
     else:
+        block = _block_rows(n, n_blocks)
         A = torch.empty((n, n), dtype=torch.bfloat16, device=P.device)
         ws = torch.empty(block * n, dtype=P.dtype, device=P.device)
         for r0 in range(0, n, block):
@@ -528,7 +566,7 @@ def ellipse_covariance_operator(
         y = _mm_bf16_f32(A, xb)
         return _finish(y[:n] + diag[:, None] * x2, x)
 
-    return Matvec(bf16), n, trace
+    return Matvec(bf16)
 
 
 def _as_2d(x, P):
@@ -550,12 +588,16 @@ def _row_windows(n, block, col_starts, bw):
     ]
 
 
-def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None):
+def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None,
+                chunks=None):
     """y = C x (no diagonal) by row blocks: each block's tile against its
     window into one reused workspace, then a true-f32 GEMM. A window
     whose tile would pass _TILE_LIMIT_BYTES goes in column chunks of about
     _CHUNK_BYTES, accumulated in place. `cols` (default `P`) are the
-    column points, which x2's rows follow: C = C(P, cols)."""
+    column points, which x2's rows follow: C = C(P, cols). With `chunks`
+    (``_active_chunks``), a gathering block builds its tile against its
+    active column chunks alone, gathered with their rows of x2 (the
+    chunks it skips hold only pairs beyond the cutoff: exact zeros)."""
     cols = P if cols is None else cols
     n = P.shape[0]
     item = P.element_size()
@@ -567,14 +609,127 @@ def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None):
         ccw = -(-(-(-width // ncc)) // TILE) * TILE
     ws = torch.empty(block * ccw, dtype=P.dtype, device=P.device)
     y = torch.zeros((n, x2.shape[1]), dtype=P.dtype, device=P.device)
-    for r0, r1, c0, c1 in windows:
-        for k0 in range(c0, c1, ccw):
-            k1 = min(k0 + ccw, c1)
-            tile = ws[: (r1 - r0) * (k1 - k0)].view(r1 - r0, k1 - k0)
-            _tile_into(P[r0:r1], cols[k0:k1], v, delta_x_method, max_dist,
-                       tile)
-            y[r0:r1].addmm_(tile, x2[k0:k1])
+    if chunks is not None:
+        ptr, ids, gather = chunks
+        by_chunk = _by_chunk(cols, x2)
+    for b, (r0, r1, c0, c1) in enumerate(windows):
+        if chunks is not None and gather[b]:
+            cid = ids[ptr[b]:ptr[b + 1]]
+            step = ccw // TILE
+            pieces = [_gathered(by_chunk, cid[k0:k0 + step])
+                      for k0 in range(0, cid.numel(), step)]
+        else:
+            pieces = [(cols[k0:min(k0 + ccw, c1)], x2[k0:min(k0 + ccw, c1)])
+                      for k0 in range(c0, c1, ccw)]
+        for cp, xp in pieces:
+            tile = ws[: (r1 - r0) * cp.shape[0]].view(r1 - r0, cp.shape[0])
+            _tile_into(P[r0:r1], cp, v, delta_x_method, max_dist, tile)
+            y[r0:r1].addmm_(tile, xp)
     return y
+
+
+def _by_chunk(cols, x2):
+    """The column points and x2's rows as (chunks, TILE, .) blocks, padded
+    to a whole chunk: the last point repeated, x zero there (so the
+    padding adds nothing)."""
+    pad = -cols.shape[0] % TILE
+    if pad:
+        cols = torch.cat([cols, cols[-1:].expand(pad, -1)])
+        x2 = torch.cat([x2, x2.new_zeros((pad, x2.shape[1]))])
+    return (cols.reshape(-1, TILE, cols.shape[1]),
+            x2.reshape(-1, TILE, x2.shape[1]))
+
+
+def _gathered(by_chunk, cid):
+    """The column points and x rows of the chunks `cid`, contiguous."""
+    cols, x = by_chunk
+    cid = cid.long()
+    return (torch.index_select(cols, 0, cid).view(-1, cols.shape[2]),
+            torch.index_select(x, 0, cid).view(-1, x.shape[2]))
+
+
+def _chunk_boxes(P, size):
+    """Per run of `size` points (the last padded by its edge), float64 on
+    P's device: the latitude range, the least cos(latitude), and the
+    longitude interval's centre and half-width (the narrower of the plain
+    interval and the one on [0, 2 pi), so that a run across the
+    antimeridian stays narrow)."""
+    n = P.shape[0]
+    m = -(-n // size) * size
+    idx = torch.clamp(torch.arange(m, device=P.device), max=n - 1)
+    la = P[idx, 0].double().view(-1, size)
+    lo = P[idx, 1].double().view(-1, size)
+    pmin, pmax = la.amin(1), la.amax(1)
+    cmin = torch.cos(torch.maximum(pmin.abs(), pmax.abs()))
+    a0, a1 = lo.amin(1), lo.amax(1)
+    sh = torch.remainder(lo, 2 * math.pi)
+    b0, b1 = sh.amin(1), sh.amax(1)
+    use = (b1 - b0) < (a1 - a0)
+    centre = torch.where(use, 0.5 * (b0 + b1), 0.5 * (a0 + a1))
+    half = torch.where(use, 0.5 * (b1 - b0), 0.5 * (a1 - a0))
+    return pmin, pmax, cmin, centre, half
+
+
+def _active_chunks(P, windows, bw, max_dist, batch=512):
+    """The longitude certificate of the stream's row blocks (on P's
+    device): for each block, the TILE-point column chunks of its window
+    that can hold a pair within `max_dist`.
+
+    For points in two boxes with latitude gap dphi >= 0, cos(lat) >= cA
+    and cB, and longitude gap dlam in [0, pi] (circular intervals),
+    cos c = cos(lat1 - lat2) - cos lat1 cos lat2 (1 - cos dlam)
+          <= cos(dphi) - cA cB (1 - cos dlam),
+    so a chunk whose bound on the central angle c passes the cutoff (with
+    a 1e-3 margin for the kernels' f32 distances) holds only zeros. A
+    block gathers its active chunks when they are at most _GATHER_SHARE
+    of its window (a block that spans a whole latitude row has no
+    longitude gap to use). Returns (ptr, ids, gather): CSR over the
+    blocks (host ptr, device int32 chunk ids; empty rows for the blocks
+    that apply their window whole) and the host bool per block."""
+    thresh = max_dist / RADIUS_OF_EARTH_KM * (1.0 + 1e-3)
+    block = max(r1 - r0 for r0, r1, _, _ in windows)
+    rows = _chunk_boxes(P, block)
+    cols = _chunk_boxes(P, TILE)
+    n_chunks = cols[0].numel()
+    wc = -(-bw // TILE)
+    starts = torch.as_tensor([c0 // TILE for _, _, c0, _ in windows],
+                             device=P.device)
+    span = torch.arange(wc, device=P.device)
+    window_chunks = torch.as_tensor(
+        [-(-(c1 - c0) // TILE) for _, _, c0, c1 in windows], device=P.device)
+    ids, counts, gather = [], [], []
+    for b0 in range(0, len(windows), batch):
+        b1 = min(b0 + batch, len(windows))
+        cid = torch.clamp(starts[b0:b1, None] + span, max=n_chunks - 1)
+        r = [t[b0:b1, None] for t in rows]
+        c = [t[cid] for t in cols]
+        dphi = torch.clamp(torch.maximum(c[0] - r[1], r[0] - c[1]), min=0.0)
+        gap = torch.abs(torch.remainder(c[3] - r[3] + math.pi, 2 * math.pi)
+                        - math.pi)
+        dlam = torch.clamp(gap - c[4] - r[4], min=0.0, max=math.pi)
+        cos_c = torch.cos(dphi) - r[2] * c[2] * (1.0 - torch.cos(dlam))
+        active = torch.arccos(torch.clamp(cos_c, -1.0, 1.0)) <= thresh
+        active &= starts[b0:b1, None] + span < n_chunks
+        count = active.sum(1)
+        gathers = count <= _GATHER_SHARE * window_chunks[b0:b1]
+        # the ids of the gathering blocks only
+        ids.append(cid[active & gathers[:, None]].int())
+        counts.append(torch.where(gathers, count, 0).cpu().numpy())
+        gather.append(gathers.cpu().numpy())
+    ptr = np.concatenate([[0], np.cumsum(np.concatenate(counts))])
+    return ptr, torch.cat(ids), np.concatenate(gather)
+
+
+def _kept_pairs(windows, chunks):
+    """The pairs the wide path builds an application: each block against
+    its window, or against its active chunks when it gathers them."""
+    total = 0
+    for b, (r0, r1, c0, c1) in enumerate(windows):
+        if chunks is not None and chunks[2][b]:
+            total += (r1 - r0) * TILE * int(chunks[0][b + 1] - chunks[0][b])
+        else:
+            total += (r1 - r0) * (c1 - c0)
+    return int(total)
 
 
 def _stream_band_plan(

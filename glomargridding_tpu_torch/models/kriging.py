@@ -22,9 +22,9 @@ extended inverse). The numerics follow the reference:
 
 The covariance stays a tensor on its device, and so do the outputs. A
 numpy covariance goes to `device`, by default the card (``cuda``; with
-no card the classes raise, so a CPU run names ``device="cpu"``): a 64,800-cell f32
-covariance is 16.8 GB, and no step here copies it to the host. No
-product here may run in TF32: the port never changes
+no card the classes raise, so a CPU run names ``device="cpu"``): a
+64,800-cell f32 covariance is 16.8 GB, and no step here copies it to the
+host. No product here may run in TF32: the port never changes
 ``torch.get_float32_matmul_precision()`` from "highest".
 """
 

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.covariance_tools import LowRankPSD, _normals
-from .kernel_kriging import CrossValResult, _add_error, _loo_from_K
+from .kernel_kriging import _add_error, _loo_from_K
 
 
 class LowRankKrigingResult(NamedTuple):

@@ -469,7 +469,14 @@ def _factored(V, retained, avg, r, d):
     """The LowRankPSD of a clip: unit-normalised Ritz vectors (scaled by
     the standard deviations `d` for the correlation clip), gains
     max(retained - avg, 0) on the first r columns and zero on the
-    padding, floor avg (times the variances d^2)."""
+    padding, floor avg (times the variances d^2).
+
+    Row-sharded vectors (a solve on ``parallel.sharded_ellipse_stream_
+    operator``) are gathered on their first slot here: ``LowRankPSD`` and
+    every factored path that takes it (``models.lowrank``, the sharded
+    ``parallel.lowrank``, which shards it again) hold a tensor."""
+    if not isinstance(V, torch.Tensor):
+        V = V.gather()
     vecs = V / torch.sqrt(torch.sum(V**2, dim=0))[None, :]
     g_host = np.zeros(V.shape[1], dtype=np.float64)
     g_host[:r] = np.maximum(np.asarray(retained, np.float64) - avg, 0.0)
@@ -538,6 +545,10 @@ def laloux_clip_lowrank(  # noqa: C901
         scale = (inv_d if X.dim() == 1 else inv_d[:, None]).to(X.dtype)
         return scale * torch.as_tensor(base_mv(scale * X), device=device)
 
+    slots = getattr(base_mv, "row_devices", None)
+    if slots is not None:
+        cor_mv = _sharded_cor_mv(base_mv, inv_d, slots, cor_mv)
+
     num_grid_pts = num_grid_pts or n
     q = num_grid_pts / num_time_pts
     if q < 1.0:
@@ -584,6 +595,24 @@ def laloux_clip_lowrank(  # noqa: C901
     # unit-normalise the correlation eigenvectors before the sqrt(diag)
     # scaling (see explained_variance_clip_lowrank)
     return _factored(V, retained, avg, r, d.to(V.dtype))
+
+
+def _sharded_cor_mv(base_mv, inv_d, slots, whole_mv):
+    """The correlation operator D^-1/2 C D^-1/2 of a row-sharded operator:
+    a ``Sharded`` block is scaled on its slots, a tensor by `whole_mv`."""
+    from ..parallel.mesh import Sharded, shard_rows
+
+    scales = shard_rows(inv_d[:, None], slots)
+
+    def cor_mv(X):
+        if not isinstance(X, Sharded):
+            return whole_mv(X)
+        Y = base_mv(Sharded([s.to(x.dtype) * x
+                             for s, x in zip(scales, X.parts)]))
+        return Sharded([s.to(y.dtype) * y for s, y in zip(scales, Y.parts)])
+
+    cor_mv.row_devices = slots
+    return cor_mv
 
 
 Spectrum = Literal["auto", "full", "partial"]

@@ -42,6 +42,17 @@ What differs from the reference, and why:
 
 Every product here feeds a Cholesky or a cancellation: true f32, never
 TF32 (the port never changes ``torch.get_float32_matmul_precision()``).
+
+Row-sharded blocks: an operator with a ``row_devices`` attribute (the
+slots of ``parallel.sharded_ellipse_stream_operator``) takes and returns
+``parallel.mesh.Sharded`` (n, k) row blocks, and then every (n, width)
+block of the solve is one: each slot holds its rows. The Gram matrices
+of CholQR2 and of the Rayleigh-Ritz projection are summed over the slots
+(``parallel.mesh.psum``), the small Cholesky and the f64 ``eigh`` run on
+the first slot, and R^-1 and the Ritz rotation are applied per slot. A
+start block is drawn whole on the first slot and split at once (the same
+values as the whole-tensor form's); the Householder rescue gathers its
+block on the first slot.
 """
 
 import logging
@@ -55,6 +66,78 @@ from .sampling import dense_matvec
 
 logger = logging.getLogger(__name__)
 
+
+# ---------------------------------------------------------------------------
+# Blocks: an (n, k) tensor, or a row-sharded ``parallel.mesh.Sharded``
+# ---------------------------------------------------------------------------
+def _sharded(X) -> bool:
+    return not isinstance(X, torch.Tensor)
+
+
+def _map(fn, *blocks):
+    """fn over the blocks, slot by slot when they are row-sharded."""
+    if not _sharded(blocks[0]):
+        return fn(*blocks)
+    from ..parallel.mesh import Sharded
+
+    return Sharded([fn(*parts) for parts in zip(*(b.parts for b in blocks))])
+
+
+def _rmul(X, M):
+    """X @ M for a small (k, l) M, on each slot for a sharded X."""
+    return _map(lambda x: x @ M.to(x.device), X)
+
+
+def _slot_sum(parts):
+    """The per-slot values summed over the slots, on the first slot."""
+    from ..parallel.mesh import psum
+
+    return psum(parts, [p.device for p in parts])[0]
+
+
+def _gram(A, B):
+    """A' B, summed over the slots for sharded blocks."""
+    if not _sharded(A):
+        return A.T @ B
+    return _slot_sum([a.T @ b for a, b in zip(A.parts, B.parts)])
+
+
+def _colsq(X):
+    """Column sums of squares, summed over the slots."""
+    if not _sharded(X):
+        return torch.sum(X * X, dim=0)
+    return _slot_sum([torch.sum(x * x, dim=0) for x in X.parts])
+
+
+def _cols(X, start=None, stop=None):
+    return _map(lambda x: x[:, start:stop], X)
+
+
+def _cat_cols(blocks):
+    if not _sharded(blocks[0]):
+        return torch.cat(blocks, dim=1)
+    from ..parallel.mesh import Sharded
+
+    return Sharded([torch.cat(parts, dim=1)
+                    for parts in zip(*(b.parts for b in blocks))])
+
+
+def _shard_like(X, devices):
+    """A whole tensor as equal row blocks on `devices` (each its own)."""
+    from ..parallel.mesh import Sharded, shard_rows
+
+    return Sharded(shard_rows(X, devices, copy=True))
+
+
+def _qr_q(Y):
+    """The Q of a Householder QR (a sharded block gathered on its first
+    slot, then sharded back)."""
+    if not _sharded(Y):
+        return torch.linalg.qr(Y)[0]
+    devices = [p.device for p in Y.parts]
+    return _shard_like(torch.linalg.qr(Y.gather())[0], devices)
+
+
 class PartialSpectrumError(ValueError):
     """The adaptive partial-spectrum solve hit max_rank without
     converging (spectrum too flat for a low-rank clip)."""
@@ -66,7 +149,7 @@ def _cholqr_once(Y):
     Returns (Q, ok): ok is a DEVICE bool, False when Y'Y is numerically
     singular or overflowed and the caller must fall back.
     """
-    G = Y.T @ Y
+    G = _gram(Y, Y)
     # small diagonal lift: keeps chol alive when Y is nearly rank-
     # deficient; the second pass removes the resulting non-orthogonality
     eps = 1e-6 if Y.dtype == torch.float32 else 1e-12
@@ -75,9 +158,9 @@ def _cholqr_once(Y):
     # Invert the SMALL (l, l) factor and apply it as a matmul. Any
     # inverse roundoff lands in Q's non-orthogonality, which the second
     # CholQR pass removes (that is what the "2" in CholQR2 is for).
-    eye = torch.eye(L.shape[0], dtype=Y.dtype, device=Y.device)
+    eye = torch.eye(L.shape[0], dtype=Y.dtype, device=L.device)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    Q = Y @ Linv.T
+    Q = _rmul(Y, Linv.T)
     ok = (info == 0) & torch.isfinite(L[-1, -1])
     return Q, ok
 
@@ -119,39 +202,54 @@ def _as_matvec(operator, n: int | None, device=None):
 
 def _setup(operator, n, device, dtype, generator, draw):
     """(matvec, n, dtype, device, normal, gen) of a solve: `normal(shape)`
-    gives the next standard-normal block on the solve's device, from
-    `draw` or from the generator `gen` (None when `draw` is given)."""
+    gives the next standard-normal block on the solve's device (row-
+    sharded like the operator's blocks, ``_normal``), from `draw` or from
+    the generator `gen` (None when `draw` is given)."""
     if device is None and generator is not None and not isinstance(
             operator, torch.Tensor):
         device = generator.device
     matvec, n, A = _as_matvec(operator, n, device)
+    slots = getattr(matvec, "row_devices", None)
     if A is not None:
         device = A.device
         if dtype is None:
             dtype = (torch.float32 if A.dtype == torch.bfloat16
                      else A.dtype)
     else:
-        device = resolve_device(device)
+        device = resolve_device(slots[0] if slots is not None else device)
         if dtype is None:
             dtype = torch.get_default_dtype()
-    if draw is not None:
-        def normal(shape):
-            return torch.as_tensor(draw(shape, dtype), device=device).to(
-                dtype)
-
-        return matvec, n, dtype, device, normal, None
-    gen = generator
-    if gen is None:
-        gen = torch.Generator(device=device).manual_seed(0)
-
-    def normal(shape):
-        return torch.randn(shape, dtype=dtype, device=device, generator=gen)
-
+    gen = None
+    if draw is None:
+        gen = generator
+        if gen is None:
+            gen = torch.Generator(device=device).manual_seed(0)
+    normal = _normal(draw, gen, dtype, device, slots)
     return matvec, n, dtype, device, normal, gen
 
 
+def _normal(draw, gen, dtype, device, slots):
+    """``normal(shape)``: the next standard-normal block, from `draw` or
+    `gen`. For a row-sharded operator (`slots`) the block is a
+    ``Sharded``: the whole block, drawn on the first slot as the
+    whole-tensor form draws it (so that both forms start from the same
+    values), split over the slots at once; it is the solve's one whole
+    (n, width) block, alive only until the split."""
+    def whole(shape):
+        if draw is not None:
+            return torch.as_tensor(draw(shape, dtype), device=device).to(
+                dtype)
+        return torch.randn(shape, dtype=dtype, device=device, generator=gen)
+
+    if slots is None:
+        return whole
+    return lambda shape: _shard_like(whole(shape), slots)
+
+
 def _apply(matvec, X):
-    """The operator's product as a tensor beside X."""
+    """The operator's product as a block like X."""
+    if _sharded(X):
+        return _map(lambda y, x: y.to(x.dtype), matvec(X), X)
     return torch.as_tensor(matvec(X), device=X.device).to(X.dtype)
 
 
@@ -164,7 +262,7 @@ def _ritz_eigh(T, dtype):
 
 
 def _projection(Q, B):
-    T = Q.T @ B
+    T = _gram(Q, B)
     return 0.5 * (T + T.T)
 
 
@@ -228,9 +326,8 @@ def topk_eigh(
 
     width = min(n, k + oversample)
     if width >= n:  # subspace is the whole space: just be exact
-        eye = torch.eye(n, dtype=dtype, device=device)
-        w, V = _ritz_eigh(_apply(matvec, eye), dtype)
-        return w[:k], V[:, :k]
+        w, V = _exact(matvec, n, dtype, device)
+        return w[:k], _cols(V, None, k)
 
     # The rare rescue restarts from the same block, redrawn: keeping it
     # alive would cost an (n, width) buffer (1.07 GB at 259,200 x 1,032
@@ -238,7 +335,7 @@ def topk_eigh(
     # back to its state here; a `draw` is simply called again.
     state = None if gen is None else gen.get_state()
     Y = _apply(matvec, normal((n, width)))
-    all_ok = torch.ones((), dtype=torch.bool, device=Y.device)
+    all_ok = torch.ones((), dtype=torch.bool, device=device)
     for _ in range(n_iter):
         Q, ok = _cholqr2(Y)
         all_ok = all_ok & ok
@@ -253,7 +350,20 @@ def topk_eigh(
             gen.set_state(state)
         Q, B = _householder_iterate(matvec, normal((n, width)), n_iter)
     theta, U = _ritz_eigh(_projection(Q, B), dtype)
-    return theta[:k], Q @ U[:, :k]
+    return theta[:k], _rmul(Q, U[:, :k])
+
+
+def _exact(matvec, n, dtype, device):
+    """Every eigenpair (descending), from the operator applied to the
+    identity, for a subspace as wide as the space; the vectors sharded
+    like the operator's blocks."""
+    eye = torch.eye(n, dtype=dtype, device=device)
+    slots = getattr(matvec, "row_devices", None)
+    if slots is None:
+        return _ritz_eigh(_apply(matvec, eye), dtype)
+    A = _apply(matvec, _shard_like(eye, slots)).gather()
+    w, V = _ritz_eigh(A, dtype)
+    return w, _shard_like(V, slots)
 
 
 def _resid_and_vectors(Q, B, U_r, theta_r, mask):
@@ -261,9 +371,10 @@ def _resid_and_vectors(Q, B, U_r, theta_r, mask):
     zeroes the residuals of shape-padding columns beyond the true
     retained rank: they carry zero gain downstream and must not fail the
     acceptance gate."""
-    QU = Q @ U_r
-    R = B @ U_r - QU * theta_r[None, :]
-    resid = torch.sqrt(torch.sum(R * R, dim=0))
+    QU = _rmul(Q, U_r)
+    R = _map(lambda b, qu: b @ U_r.to(b.device) - qu * theta_r.to(b.device)[
+        None, :], B, QU)
+    resid = torch.sqrt(_colsq(R))
     return torch.max(resid * mask), QU
 
 
@@ -274,9 +385,12 @@ def _rotate_ritz(Q, B, U_sorted, theta_sorted):
     exact action (B = A Q so A QU = BU), rn_j = ||A u_j - theta_j u_j||:
     everything the locking split needs, two (n, w) matmuls total.
     """
-    QU = Q @ U_sorted
-    BU = B @ U_sorted
-    rn = torch.linalg.norm(BU - QU * theta_sorted[None, :], dim=0)
+    QU = _rmul(Q, U_sorted)
+    BU = _rmul(B, U_sorted)
+    R = _map(lambda bu, qu: bu - qu * theta_sorted.to(bu.device)[None, :],
+             BU, QU)
+    rn = (torch.sqrt(_colsq(R)) if _sharded(R)
+          else torch.linalg.norm(R, dim=0))
     return QU, BU, rn
 
 
@@ -291,9 +405,15 @@ def _householder_iterate(matvec, Z, n_iter):
     """
     Y = _apply(matvec, Z)
     for _ in range(n_iter):
-        Y = _apply(matvec, torch.linalg.qr(Y)[0])
-    Q = torch.linalg.qr(Y)[0]
+        Y = _apply(matvec, _qr_q(Y))
+    Q = _qr_q(Y)
     return Q, _apply(matvec, Q)
+
+
+def _deflate(Y, Q):
+    """Y - Q (Q' Y): Y with the span of the orthonormal Q removed."""
+    G = _gram(Q, Y)
+    return _map(lambda y, q: y - q @ G.to(y.device), Y, Q)
 
 
 def _converged_prefix(rn, scale, tol) -> int:
@@ -405,7 +525,7 @@ def adaptive_topk_eigh(  # noqa: C901
         """
         if locked is None:
             Y = _apply(matvec, normal((n, width)))
-            all_ok = torch.ones((), dtype=torch.bool, device=Y.device)
+            all_ok = torch.ones((), dtype=torch.bool, device=device)
             for _ in range(n_iter):
                 Q, ok = _cholqr2(Y)
                 all_ok = all_ok & ok
@@ -424,21 +544,21 @@ def adaptive_topk_eigh(  # noqa: C901
         # that re-iterating the whole block would give them.
         Q_lock, B_lock, B_act = locked
         n_fresh = width - Q_lock.shape[1] - B_act.shape[1]
-        Y = torch.cat([B_act, _apply(matvec, normal((n, n_fresh)))], dim=1)
-        all_ok = torch.ones((), dtype=torch.bool, device=Y.device)
+        Y = _cat_cols([B_act, _apply(matvec, normal((n, n_fresh)))])
+        all_ok = torch.ones((), dtype=torch.bool, device=device)
         for _ in range(n_iter + 2):
-            Y = Y - Q_lock @ (Q_lock.T @ Y)
+            Y = _deflate(Y, Q_lock)
             Qa, ok = _cholqr2(Y)
             all_ok = all_ok & ok
             del Y  # see the cold path
             Y = _apply(matvec, Qa)
-        Y = Y - Q_lock @ (Q_lock.T @ Y)
+        Y = _deflate(Y, Q_lock)
         Qa, ok = _cholqr2(Y)
         all_ok = all_ok & ok
         del Y
         Ba = _apply(matvec, Qa)
-        Q = torch.cat([Q_lock, Qa], dim=1)
-        Bn = torch.cat([B_lock, Ba], dim=1)
+        Q = _cat_cols([Q_lock, Qa])
+        Bn = _cat_cols([B_lock, Ba])
         return Q, Bn, all_ok, _projection(Q, Bn)
 
     def extra_round(B):
@@ -458,11 +578,10 @@ def adaptive_topk_eigh(  # noqa: C901
         width = min(n, k + oversample)
         if width >= n:
             # subspace is the whole space: be exact
-            eye = torch.eye(n, dtype=dtype, device=device)
-            w, V = _ritz_eigh(_apply(matvec, eye), dtype)
+            w, V = _exact(matvec, n, dtype, device)
             r = accept(w)
             r = n if r is None else r
-            return w, V[:, :r], r
+            return w, _cols(V, None, r), r
 
         Q, B, all_ok, T = run_stage(width, locked)
         locked = None  # its blocks now live on in Q and B
@@ -472,7 +591,7 @@ def adaptive_topk_eigh(  # noqa: C901
             if not bool(all_ok):
                 Q, B = _householder_iterate(matvec, normal((n, width)),
                                             n_iter)
-                all_ok = torch.ones((), dtype=torch.bool, device=Q.device)
+                all_ok = torch.ones((), dtype=torch.bool, device=device)
                 T = _projection(Q, B)
             w, U = _ritz_eigh(T, dtype)
             r = accept(w)
@@ -488,10 +607,9 @@ def adaptive_topk_eigh(  # noqa: C901
                         "adaptive eigh: structural accept r=%d at "
                         "width=%d (round %d)", r, width, rounds,
                     )
-                    return w, Q @ U_r, r
-                theta_r = torch.as_tensor(w[:rp], dtype=dtype,
-                                          device=Q.device)
-                mask = (torch.arange(rp, device=Q.device) < r).to(dtype)
+                    return w, _rmul(Q, U_r), r
+                theta_r = torch.as_tensor(w[:rp], dtype=dtype, device=device)
+                mask = (torch.arange(rp, device=device) < r).to(dtype)
                 resid_max, V = _resid_and_vectors(Q, B, U_r, theta_r, mask)
                 scale = max(abs(float(w[0])), tiny)
                 rel = float(resid_max) / scale
@@ -524,11 +642,12 @@ def adaptive_topk_eigh(  # noqa: C901
         # sweep
         align = max(1, rank_multiple)
         scale = max(abs(float(w[0])), tiny)
-        theta_sorted = torch.as_tensor(w, dtype=dtype, device=Q.device)
+        theta_sorted = torch.as_tensor(w, dtype=dtype, device=device)
         QU, BU, rn = _rotate_ritz(Q, B, U, theta_sorted)
         n_conv = _converged_prefix(rn, scale, tol)
         n_lock = n_conv - n_conv % align
-        locked = (QU[:, :n_lock], BU[:, :n_lock], BU[:, n_lock:])
+        locked = (_cols(QU, None, n_lock), _cols(BU, None, n_lock),
+                  _cols(BU, n_lock))
         del QU, BU
         del Q, B, T, U
 

@@ -30,9 +30,8 @@ from ..models.ellipse.covariance import (
     _block_rows,
     _ellipse_inputs,
     _finish,
-    _row_windows,
-    _stream_band_plan,
     _tile_into,
+    stream_plan,
 )
 from ..ops.covariance_tools import _normals
 from ..ops.cuda.ellipse import MV_W, TILE, ellipse_matvec, pack_points
@@ -149,71 +148,19 @@ def _shard_gap(lat_r, lat_c):
     return max(0.0, lat_r.min() - lat_c.max(), lat_c.min() - lat_r.max())
 
 
-def sharded_ellipse_stream_operator(
-    mesh,
-    Lx,
-    Ly,
-    theta,
-    stdev,
-    lats_deg,
-    lons_deg,
-    v: float,
-    delta_x_method: str = "Modified_Met_Office",
-    max_dist: float | None = None,
-    axis: str = "grid",
-):
-    """Row-sharded zero-storage ``cov @ X`` over the mesh.
-
-    Returns ``(matvec, n, trace)`` like the single-device
-    ``ellipse_covariance_operator(store="stream")``: ``matvec`` is an
-    ``ops.sampling.Matvec`` that takes and returns the whole (n,) or
-    (n, k) tensor on the mesh's first slot, so the device-scale clips
-    (``explained_variance_clip_lowrank`` / ``laloux_clip_lowrank``) run
-    on it unchanged. Inside an application, x and the result live in row
-    shards and nothing n x n (or n x n / n_slots) exists. Unlike the
-    reference, whose eigensolver blocks stay row-sharded across the
-    mesh, the eigensolver's (n, width) blocks live whole on the first
-    slot. N must divide by the axis size. ``matvec.band_stats`` counts
-    the pairs each path builds per application.
-    """
-    devices = mesh.axis_devices(axis)
-    n_dev = len(devices)
-    n = len(lats_deg)
-    if n % n_dev != 0:
-        raise ValueError(f"N={n} must be divisible by axis size {n_dev}")
-    P = _packed(Lx, Ly, theta, stdev, lats_deg, lons_deg, devices[0],
-                torch.float32)
-    diag = P[:, 6].float() ** 2
-    trace = float(torch.sum(diag))
-    shard = n // n_dev
-    P_parts = [move(P[s * shard:(s + 1) * shard], d)
-               for s, d in enumerate(devices)]
-    diag_parts = shard_rows(diag, devices)
-    use_fused = float(v) in KERNEL_ORDERS and P.dtype == torch.float32
-    kernel = (v, delta_x_method, max_dist)
-
-    lat = np.asarray(P[:, 0].cpu(), dtype=np.float64)
-    lats = [lat[s * shard:(s + 1) * shard] for s in range(n_dev)]
-    block = _block_rows(shard, None)
-    n_rb = -(-shard // block)
+def _stream_plans(lats, block, max_dist):
+    """The band plan of every (row shard s, column shard c) pair the
+    cutoff leaves: ``{(s, c): (windows, hi)}`` (K3's limits for s != c
+    over the two shards' points, in shard order), and the pair counts."""
+    n_dev = len(lats)
     plans = {}
-    stats = {"n_cols": n, "use_fused": use_fused, "pairs": 0,
-             "wide_pairs": 0, "fused_pairs": 0}
+    stats = {"pairs": 0, "wide_pairs": 0, "fused_pairs": 0}
     for s in range(n_dev):
         for c in range(n_dev):
             if max_dist is not None and _shard_gap(lats[s], lats[c]) > (
                     max_dist / RADIUS_OF_EARTH_KM):
                 continue  # the cutoff zeroes the whole pair
-            if max_dist is not None:
-                lat_pad = np.pad(lats[s], (0, n_rb * block - shard),
-                                 mode="edge")
-                col_starts, bw, hi = _stream_band_plan(
-                    lat_pad, lats[c], shard, block, float(max_dist), TILE,
-                    TILE)
-            else:
-                col_starts, bw = np.zeros(n_rb, np.int64), shard
-                hi = np.full(-(-shard // TILE), -(-shard // TILE) - 1)
-            windows = _row_windows(shard, block, col_starts, bw)
+            windows, hi, _ = stream_plan(lats[s], lats[c], block, max_dist)
             if c != s:
                 a, b = (c, s) if c < s else (s, c)
                 hi = _pair_band(lats[a], lats[b], max_dist)
@@ -223,9 +170,15 @@ def sharded_ellipse_stream_operator(
                                            for r0, r1, c0, c1 in windows))
             stats["fused_pairs"] += int(
                 (hi - np.arange(hi.size) + 1).sum()) * TILE * TILE
+    return plans, stats
+
+
+def _ring_product(plans, P_parts, use_fused, kernel):
+    """``product(s, c, P_c, x_c)``: C(rows of s, points of c) @ x_c on
+    slot s, without the diagonal."""
+    shard = P_parts[0].shape[0]
 
     def product(s, c, P_c, x_c):
-        """C(rows of s, points of c) @ x_c on slot s (no diagonal)."""
         windows, hi = plans[s, c]
         P_s = P_parts[s]
         if not (use_fused and x_c.shape[1] <= MV_W):
@@ -242,24 +195,120 @@ def sharded_ellipse_stream_operator(
         y = ellipse_matvec(Q, xq, hi, *kernel)
         return y[shard:] if first else y[:shard]
 
+    return product
+
+
+def _ring_apply(product, plans, P_parts, x_parts, devices):
+    """The slots' (C x)_s without the diagonal: n_slots ring steps, each
+    slot multiplying its rows by the column shard it holds, then passing
+    that shard's points and x one slot on."""
+    n_dev = len(devices)
+    held = [(s, P_parts[s], x_parts[s]) for s in range(n_dev)]
+    acc = [torch.zeros_like(xp) for xp in x_parts]
+    for step in range(n_dev):
+        for s in range(n_dev):
+            c, P_c, x_c = held[s]
+            if (s, c) in plans:
+                acc[s] += product(s, c, P_c, x_c)
+        if step < n_dev - 1:
+            held = list(zip(
+                [h[0] for h in held[-1:] + held[:-1]],
+                ring_shift([h[1] for h in held], devices),
+                ring_shift([h[2] for h in held], devices)))
+    return acc
+
+
+def sharded_ellipse_stream_operator(
+    mesh,
+    Lx,
+    Ly,
+    theta,
+    stdev,
+    lats_deg,
+    lons_deg,
+    v: float,
+    delta_x_method: str = "Modified_Met_Office",
+    max_dist: float | None = None,
+    axis: str = "grid",
+):
+    """Row-sharded zero-storage ``cov @ X`` over the mesh.
+
+    Returns ``(matvec, n, trace)`` like the single-device
+    ``ellipse_covariance_operator(store="stream")``. ``matvec`` is an
+    ``ops.sampling.Matvec`` of two forms, chosen by its input:
+
+    - a ``Sharded`` (n, k) block of equal row blocks on the axis' slots
+      gives the product as the same: x and the result never leave their
+      slots. ``matvec.row_devices`` names the slots, so that the
+      device-scale clips (``explained_variance_clip_lowrank`` /
+      ``laloux_clip_lowrank``, through ``ops.eigsh``) keep every (n,
+      width) block of the solve row-sharded, as the reference does: each
+      slot holds 1 / n_slots of every block (``clip_memory_analysis``);
+    - a whole (n,) or (n, k) tensor gives the whole product on the
+      mesh's first slot (the blocks of a solve on ``Matvec(matvec.fn)``
+      then live whole there).
+
+    Inside an application nothing n x n (or n x n / n_slots) exists. N
+    must divide by the axis size. ``matvec.band_stats`` counts the pairs
+    each path builds per application.
+    """
+    devices = mesh.axis_devices(axis)
+    n_dev = len(devices)
+    n = len(lats_deg)
+    if n % n_dev != 0:
+        raise ValueError(f"N={n} must be divisible by axis size {n_dev}")
+    P = _packed(Lx, Ly, theta, stdev, lats_deg, lons_deg, devices[0],
+                torch.float32)
+    diag = P[:, 6].float() ** 2
+    trace = float(torch.sum(diag))
+    shard = n // n_dev
+    P_parts = [move(P[s * shard:(s + 1) * shard], d)
+               for s, d in enumerate(devices)]
+    diag_parts = shard_rows(diag, devices)
+    use_fused = float(v) in KERNEL_ORDERS and P.dtype == torch.float32
+    lat = np.asarray(P[:, 0].cpu(), dtype=np.float64)
+    plans, pair_stats = _stream_plans(
+        [lat[s * shard:(s + 1) * shard] for s in range(n_dev)],
+        _block_rows(shard, None), max_dist)
+    stats = {"n_cols": n, "use_fused": use_fused, **pair_stats}
+    product = _ring_product(plans, P_parts, use_fused,
+                            (v, delta_x_method, max_dist))
+
     def stream(x):
+        if isinstance(x, Sharded):
+            x_parts = [_as_2d(p, P_s) for p, P_s in zip(x.parts, P_parts)]
+            acc = _ring_apply(product, plans, P_parts, x_parts, devices)
+            return Sharded([a + dg[:, None] * xp for a, dg, xp in
+                            zip(acc, diag_parts, x_parts)])
         x2 = _as_2d(x, P)
         x_parts = shard_rows(x2, devices)
-        held = [(s, P_parts[s], x_parts[s]) for s in range(n_dev)]
-        acc = [torch.zeros_like(xp) for xp in x_parts]
-        for step in range(n_dev):
-            for s in range(n_dev):
-                c, P_c, x_c = held[s]
-                if (s, c) in plans:
-                    acc[s] += product(s, c, P_c, x_c)
-            if step < n_dev - 1:
-                held = list(zip(
-                    [h[0] for h in held[-1:] + held[:-1]],
-                    ring_shift([h[1] for h in held], devices),
-                    ring_shift([h[2] for h in held], devices)))
+        acc = _ring_apply(product, plans, P_parts, x_parts, devices)
         y = torch.cat([move(a + dg[:, None] * xp, devices[0])
                        for a, dg, xp in zip(acc, diag_parts, x_parts)])
         return _finish(y, x)
 
-    return Matvec(stream, stats), n, trace
+    mv = Matvec(stream, stats)
+    mv.row_devices = devices
+    return mv, n, trace
 
+
+def clip_memory_analysis(n: int, width: int, n_slots: int, locked: int = 0,
+                         dtype=torch.float32):
+    """Count, from the shapes, the bytes of the eigensolver's blocks each
+    slot holds at the peak of a stage of a clip on the row-sharded
+    stream (nothing is allocated).
+
+    Returns ``(per_slot_bytes, whole_block_bytes, small_bytes)``: the
+    (n / n_slots, width) row blocks alive together (the start or image
+    block Y, the basis Q and its image B, the accumulator and the result
+    of an application, and in a locked widening the locked basis and its
+    action, `locked` columns each); then the same blocks whole; and the
+    (width, width) matrices every slot may hold besides (the summed Gram,
+    R^-1, the projection and the Ritz rotation). A stage's start block
+    also exists whole on the first slot, from its draw to its split.
+    """
+    rows = n // n_slots
+    blocks = 5 * width + 2 * locked
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (rows * blocks * itemsize, n * blocks * itemsize,
+            4 * width * width * itemsize)

@@ -5,9 +5,10 @@ Port of ``glomargridding_tpu/utils/arrays.py`` (``adjust_small_negative``
 ``cor_2_cov`` ``:159``, ``get_spatial_mean`` ``:179``; the host-side
 helpers ``find_nearest`` ``:45``, ``uncompress_masked`` ``:98``,
 ``is_iter`` ``:196``, ``sizeof_fmt`` ``:205``, ``mask_array`` ``:214``).
-A numpy array takes the reference's numpy branch. A tensor stays on its device: ``adjust_small_negative`` keeps the
-numpy branch's warnings, and ``cov_2_cor`` the branch-free form that the
-reference applies to device arrays.
+A numpy array takes the reference's numpy branch. A tensor stays on its
+device: ``adjust_small_negative`` keeps the numpy branch's warnings, and
+``cov_2_cor`` the branch-free form that the reference applies to device
+arrays.
 """
 
 from typing import Any

@@ -501,7 +501,8 @@ def _smooth_grid(step=4.0):
     lon = np.arange(-180 + step / 2, 180, step)
     la = np.radians(np.repeat(lat, lon.size))
     lo = np.radians(np.tile(lon, lat.size))
-    fields = ((1800 + 900 * np.cos(la) ** 2) * np.exp(0.2 * np.sin(2 * lo + la)),
+    fields = ((1800 + 900 * np.cos(la) ** 2)
+              * np.exp(0.2 * np.sin(2 * lo + la)),
               (1200 + 500 * np.cos(la)) * np.exp(0.2 * np.cos(3 * lo)),
               0.4 * np.sin(lo - 2 * la), 0.8 + 0.4 * np.cos(la), la, lo)
     return tcov._ellipse_inputs(*(
@@ -599,7 +600,12 @@ def test_factored_kriging_on_the_card():
     assert members.shape == (50, psd.n) and members.is_cuda
     assert bool(torch.isfinite(members).all())
     assert _rel_max(res_e.field, res.field) <= 1e-5
-    cv = tlr.lowrank_crossval(psd, idx, y, e)
+    _check_crossval_on_the_card(tlr.lowrank_crossval(psd, idx, y, e),
+                                psd64, idx, y, e)
+
+
+def _check_crossval_on_the_card(cv, psd64, idx, y, e):
+    """The factored cross-validation against the LOO identity in f64."""
     V_o = psd64.vectors[idx]
     K = (V_o * psd64.gains[None, :]) @ V_o.T + torch.diag(
         psd64.floor[idx] + e.double())
@@ -758,6 +764,29 @@ def test_sharded_factor_and_ensembles_on_the_card():
 # ---------------------------------------------------------------------------
 # the 0.5-degree example's twin, stage by stage, on a 5-degree grid
 # ---------------------------------------------------------------------------
+def _quarter_degree_fit_on_the_card(tq, tmp_path, gen):
+    """The quarter-degree twin's cube (against the CPU's on the same
+    normals) and whole-grid fit (its checkpoint resumed): the fields."""
+    lat, lon, glat, _ = tq.axes()
+    sampler = tq.training_sampler(lat, lon)
+    assert sampler.device.type == "cuda"
+    noise = tq.cube_noise(sampler, gen)
+    cube = tq.training_cube(sampler, noise)
+    cpu = tq.training_cube(tq.training_sampler(lat, lon, device="cpu"),
+                           [z.cpu() for z in noise])
+    assert cube.is_cuda and _rel_max(cube.cpu(), cpu) <= 1e-4
+    builder = tq.correlation(cube, lat, lon)
+    ckpt = str(tmp_path / "fit.npz")
+    params = tq.fit_ellipses(builder, checkpoint=ckpt)
+    resumed = tq.fit_ellipses(builder, checkpoint=ckpt)
+    for k in ("Lx", "Ly", "theta", "qc_code"):
+        np.testing.assert_array_equal(np.asarray(params[k].values),
+                                      np.asarray(resumed[k].values))
+    fields, n_fit = tq.fitted_fields(params)
+    assert n_fit >= 0.9 * glat.size
+    return fields
+
+
 def test_quarter_degree_stages_on_the_card(tmp_path, monkeypatch):
     """examples/torch_nonstationary_quarter_degree.py's stage functions on
     the card at 2,592 cells (the clip's k0 cut to 512, under n): the cube
@@ -776,24 +805,9 @@ def test_quarter_degree_stages_on_the_card(tmp_path, monkeypatch):
                             CHUNK_SIZE=1024).items():
         monkeypatch.setattr(tq, name, value)
     monkeypatch.setitem(tq.CLIP_KW, "k0", 512)
-    lat, lon, glat, glon = tq.axes()
+    _, _, glat, glon = tq.axes()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sampler = tq.training_sampler(lat, lon)
-    assert sampler.device.type == "cuda"
-    noise = tq.cube_noise(sampler, gen)
-    cube = tq.training_cube(sampler, noise)
-    cpu = tq.training_cube(tq.training_sampler(lat, lon, device="cpu"),
-                           [z.cpu() for z in noise])
-    assert cube.is_cuda and _rel_max(cube.cpu(), cpu) <= 1e-4
-    builder = tq.correlation(cube, lat, lon)
-    ckpt = str(tmp_path / "fit.npz")
-    params = tq.fit_ellipses(builder, checkpoint=ckpt)
-    resumed = tq.fit_ellipses(builder, checkpoint=ckpt)
-    for k in ("Lx", "Ly", "theta", "qc_code"):
-        np.testing.assert_array_equal(np.asarray(params[k].values),
-                                      np.asarray(resumed[k].values))
-    fields, n_fit = tq.fitted_fields(params)
-    assert n_fit >= 0.9 * glat.size
+    fields = _quarter_degree_fit_on_the_card(tq, tmp_path, gen)
     tell.ellipse_matvec.launches = tell.ellipse_tile.launches = 0
     mv, n, trace = tq.stream_operator(glat, glon, fields, 3000.0)
     mv_cpu, _, _ = tq.stream_operator(glat, glon, fields, 3000.0, "cpu")

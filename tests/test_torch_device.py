@@ -77,6 +77,8 @@ import torch_ellipse_1deg_covariance as twin_ellipse  # noqa: E402
 import torch_large_ensemble_65k as twin_ensemble  # noqa: E402
 import torch_nonstationary_65k_lowrank as twin_lowrank  # noqa: E402
 import torch_nonstationary_quarter_degree as twin_quarter  # noqa: E402
+import torch_nonstationary_1deg_pipeline as twin_pipeline  # noqa: E402
+import torch_nonstationary_tenth_degree as twin_tenth  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -1150,6 +1152,119 @@ def _twin_ellipse_covariance(rng):
     return port, (ref,)
 
 
+def _twin_tenth_degree(rng):
+    """``run`` at 288 cells and rank cap 16: the clip's factors and the
+    kriging uncertainty at the observed cells against the JAX clip of the
+    JAX operator with the script's arguments."""
+    tiny = dict(M_LAT=12, M_LON=24, N_OBS=10, N_MEMBERS=3)
+    with _constants(twin_tenth, **tiny):
+        glat, glon = twin_tenth.grid()
+    Lx, Ly, theta, stdev = twin_tenth.heterogeneous_ellipse_fields(glat,
+                                                                   glon)
+    s00, s01, _, s11 = jdist.sigma_rot_flat(
+        jnp.asarray(Lx), jnp.asarray(Ly), jnp.asarray(theta))
+    jmv, n, trace = jcov.ellipse_covariance_operator(
+        jnp.radians(jnp.asarray(glat)), jnp.radians(jnp.asarray(glon)),
+        jnp.stack([s00, s01, s11], axis=-1), jnp.sqrt(s00 * s11 - s01 * s01),
+        jnp.asarray(stdev), v=1.5, store="stream", max_dist=3000.0)
+    jpsd = jct.explained_variance_clip_lowrank(
+        jmv, n=n, trace=float(trace), target_variance_fraction=0.15,
+        key=jax.random.key(1), k0=16, max_rank=16, oversample=8, n_iter=2,
+        rank_multiple=8, dtype=jnp.float32)
+    rng11 = np.random.default_rng(11)
+    rng11.normal(size=(n, twin_tenth.DEMO_COLS))
+    idx = np.sort(rng11.choice(n, tiny["N_OBS"], replace=False))
+    unc = jlr.lowrank_kriging(jpsd, idx, np.zeros(idx.size, np.float32),
+                              np.full(idx.size, 0.09, np.float32)).uncertainty
+
+    def port(**d):
+        with _constants(twin_tenth, **tiny), _env("GLOMAR_TENTH_RANK", "16"):
+            out = twin_tenth.run(draw=_start_blocks(jax.random.key(1)),
+                                 verbose=False, **d)
+        return out["psd"].to_dense(), out["result"].uncertainty
+
+    return port, (jpsd.to_dense(), unc)
+
+
+def _twin_1deg_pipeline(rng):
+    """``run`` on a 30-degree grid from given ellipse fields: K2's
+    covariance, the clip and the factored kriging against the JAX
+    script's builder and clip."""
+    tiny = dict(SMALL_DEG=30.0, N_MEMBERS=3)
+    with _constants(twin_pipeline, **tiny):
+        lats, lons = twin_pipeline.axes(small=True)
+    shape = (lats.size, lons.size)
+    fields = {"Lx": rng.uniform(2500, 3500, shape),
+              "Ly": rng.uniform(1500, 2500, shape),
+              "theta": rng.uniform(-0.5, 0.5, shape),
+              "standard_deviation": rng.uniform(0.8, 1.2, shape),
+              "qc_code": np.zeros(shape)}
+    params = {k: _Values(v) for k, v in fields.items()}
+    mask = twin_pipeline.ocean_mask(lats, lons)
+    cov = jcov.EllipseCovarianceBuilder(
+        *(np.ma.masked_where(mask, fields[k]) for k in (
+            "Lx", "Ly", "theta", "standard_deviation")),
+        lats, lons, v=1.5).cov_ns
+    jpsd = jct.explained_variance_clip_lowrank(
+        cov, target_variance_fraction=0.9, key=jax.random.key(1), k0=512,
+        max_rank=1536, rank_multiple=128).pad_rank(256)
+    n = jpsd.vectors.shape[0]
+    idx = np.sort(np.random.default_rng(7).choice(n, n // 2, replace=False))
+    unc = jlr.lowrank_kriging(jpsd, idx, np.zeros(idx.size, np.float32),
+                              np.full(idx.size, 0.09, np.float32)).uncertainty
+
+    def port(**d):
+        with _constants(twin_pipeline, **tiny):
+            out = twin_pipeline.run(small=True, params=params,
+                                    draw=_start_blocks(jax.random.key(1)),
+                                    verbose=False, **d)
+        return out["psd"].to_dense(), out["result"].uncertainty
+
+    return port, (jpsd.to_dense(), unc)
+
+
+class _Values:
+    """A field as a Dataset holds it (``.values``)."""
+
+    def __init__(self, values):
+        self.values = values
+
+
+@contextmanager
+def _env(name, value):
+    keep = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if keep is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = keep
+
+
+def _sharded_stream_clip(rng):
+    """The explained-variance clip on the sharded stream operator, its
+    blocks row-sharded over the mesh's slots, in f64, against the JAX
+    clip on its 8-device mesh."""
+    fields = _flat_ellipse_fields(rng, dtype=np.float32)
+    jmv, n, trace = jpar.sharded_ellipse_stream_operator(
+        jpar.make_mesh(), *fields, v=1.5, max_dist=3000.0)
+    kw = dict(n=n, trace=trace, target_variance_fraction=0.9, k0=16,
+              max_rank=64, n_iter=6)
+    key = jax.random.key(3)
+    ref = jct.explained_variance_clip_lowrank(jmv, key=key, **kw)
+
+    def port(**d):
+        mv, _, _ = tpar.sharded_ellipse_stream_operator(
+            _slot_mesh(d), *fields, v=1.5, max_dist=3000.0)
+        return (tct.explained_variance_clip_lowrank(
+            mv, draw=_key_draws(key), dtype=torch.float64, **kw,
+            **d).to_dense(),)
+
+    return port, (ref.to_dense(),)
+
+
 CASES = {
     "kriging_from_kernel": _kriging_from_kernel,
     "ensemble_from_kernel": _ensemble_from_kernel,
@@ -1240,6 +1355,9 @@ CASES = {
     "torch_nonstationary_65k_lowrank.run": _twin_lowrank_65k,
     "torch_large_ensemble_65k.run": _twin_large_ensemble,
     "torch_ellipse_1deg_covariance.run": _twin_ellipse_covariance,
+    "torch_nonstationary_tenth_degree.run": _twin_tenth_degree,
+    "torch_nonstationary_1deg_pipeline.run": _twin_1deg_pipeline,
+    "explained_variance_clip_lowrank(row-sharded)": _sharded_stream_clip,
 }
 # the examples' twins run their stages in f32, as the scripts do
 TWIN_CASES = {name for name in CASES if name.startswith("torch_")}
@@ -1248,6 +1366,7 @@ SOLVER_CASES = {
     "topk_eigh", "adaptive_topk_eigh", "explained_variance_clip",
     "laloux_clip", "eigenvalue_clip", "explained_variance_clip_lowrank",
     "laloux_clip_lowrank", "nelder_mead", "batched_nelder_mead",
+    "explained_variance_clip_lowrank(row-sharded)",
     "batched_lbfgs", "batched_levenberg_marquardt", "EllipseModel.fit",
     "fit_variogram_mle",
 }

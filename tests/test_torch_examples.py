@@ -289,30 +289,8 @@ def test_quarter_degree_after_the_fit(quarter):
             assert _rel(mv(torch.from_numpy(x[:, cols])),
                         jmv(jnp.asarray(x[:, cols]))) <= 1e-5
 
-        # the clip in f64, both packages on one f64 matrix: the JAX
-        # operator of the fitted fields in f64, densified (the two
-        # packages' f64 operators differ by their f32 diagonal term, and
-        # the Ritz vectors at the cut move with that)
-        inputs64 = tqd.stream_inputs(glat, glon, fields, torch.float64,
-                                     "cpu")
-        jmv64, _, _ = jax_operator(
-            *(jnp.asarray(_np(a)) for a in inputs64), v=1.5,
-            store="stream", max_dist=max_dist)
-        A = np.asarray(jmv64(jnp.eye(n, dtype=jnp.float64)))
-        A = 0.5 * (A + A.T)
-        trace64 = float(np.trace(A))
-        At = torch.from_numpy(A)
-        kw = dict(tqd.CLIP_KW)
         mp.setattr(jeig, "_LOCK_MIN_N", 0)
-        ours64 = explained_variance_clip_lowrank(
-            lambda X: At @ torch.as_tensor(X, dtype=At.dtype), n=n,
-            trace=trace64, draw=start_blocks(jax.random.key(1), np.float64),
-            dtype=torch.float64, device="cpu", **kw)
-        ref64 = jax_clip(lambda X: jnp.asarray(A) @ X, n=n, trace=trace64,
-                         key=jax.random.key(1), **kw)
-        assert ours64.effective_rank == int(np.sum(np.asarray(
-            ref64.gains) > 0))
-        assert _rel(ours64.to_dense(), ref64.to_dense()) <= F64_TOL
+        _quarter_degree_clip_f64(glat, glon, fields, n, max_dist)
 
         # the f32 script's clip, densified
         psd, true_rank = tqd.psd_repair(
@@ -323,23 +301,52 @@ def test_quarter_degree_after_the_fit(quarter):
         assert psd.rank % tqd.PAD_RANK == 0
         assert _rel(psd.to_dense(), jpsd.to_dense()) <= CLIP_F32_TOL
 
-        # truth, kriging and members, fed the script's factors
-        jpad = jpsd.pad_rank(tqd.PAD_RANK)
-        tpsd = lowrank_from_jax(jpad)
-        r = tpsd.rank
-        idx, truth, y, E = tqd.observations(
-            tpsd, noise=psd_noise(jax.random.key(2), n, r))
-        saved = quarter["saved"]
-        assert _rel(truth, saved["truth"]) <= F32_TOL
-        m = QD["N_OBS"]
-        for k, (jres, jmem) in zip((3, 4), quarter["ensembles"]):
-            res, members = tqd.ensemble(tpsd, idx, y, E, noise=ensemble_noise(
-                jax.random.key(k), n, r, m, QD["N_MEMBERS"]))
-            for a, b in zip(res, jres):
-                assert _rel(a, b) <= F32_TOL
-            assert _rel(members, jmem) <= F32_TOL
-        assert _rel(res.field, saved["field"]) <= F32_TOL
-        assert _rel(members[0], saved["member0"]) <= F32_TOL
+        _quarter_degree_ensembles(quarter, jpsd, n)
+
+
+def _quarter_degree_clip_f64(glat, glon, fields, n, max_dist):
+    """The clip in f64, both packages on one f64 matrix: the JAX operator
+    of the fitted fields in f64, densified (the two packages' f64
+    operators differ by their f32 diagonal term, and the Ritz vectors at
+    the cut move with that)."""
+    inputs64 = tqd.stream_inputs(glat, glon, fields, torch.float64, "cpu")
+    jmv64, _, _ = jax_operator(
+        *(jnp.asarray(_np(a)) for a in inputs64), v=1.5,
+        store="stream", max_dist=max_dist)
+    A = np.asarray(jmv64(jnp.eye(n, dtype=jnp.float64)))
+    A = 0.5 * (A + A.T)
+    trace64 = float(np.trace(A))
+    At = torch.from_numpy(A)
+    kw = dict(tqd.CLIP_KW)
+    ours64 = explained_variance_clip_lowrank(
+        lambda X: At @ torch.as_tensor(X, dtype=At.dtype), n=n,
+        trace=trace64, draw=start_blocks(jax.random.key(1), np.float64),
+        dtype=torch.float64, device="cpu", **kw)
+    ref64 = jax_clip(lambda X: jnp.asarray(A) @ X, n=n, trace=trace64,
+                     key=jax.random.key(1), **kw)
+    assert ours64.effective_rank == int(np.sum(np.asarray(
+        ref64.gains) > 0))
+    assert _rel(ours64.to_dense(), ref64.to_dense()) <= F64_TOL
+
+
+def _quarter_degree_ensembles(quarter, jpsd, n):
+    """Truth, kriging and members, fed the script's factors."""
+    jpad = jpsd.pad_rank(tqd.PAD_RANK)
+    tpsd = lowrank_from_jax(jpad)
+    r = tpsd.rank
+    idx, truth, y, E = tqd.observations(
+        tpsd, noise=psd_noise(jax.random.key(2), n, r))
+    saved = quarter["saved"]
+    assert _rel(truth, saved["truth"]) <= F32_TOL
+    m = QD["N_OBS"]
+    for k, (jres, jmem) in zip((3, 4), quarter["ensembles"]):
+        res, members = tqd.ensemble(tpsd, idx, y, E, noise=ensemble_noise(
+            jax.random.key(k), n, r, m, QD["N_MEMBERS"]))
+        for a, b in zip(res, jres):
+            assert _rel(a, b) <= F32_TOL
+        assert _rel(members, jmem) <= F32_TOL
+    assert _rel(res.field, saved["field"]) <= F32_TOL
+    assert _rel(members[0], saved["member0"]) <= F32_TOL
 
 
 def test_quarter_degree_run_on_replayed_draws(quarter, tmp_path):

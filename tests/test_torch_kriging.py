@@ -180,7 +180,8 @@ def test_simple_matches_reference_cholesky_branch(rng):
     assert tkrig._solve_sym.branches["cholesky"] > before["cholesky"]
     assert tkrig._solve_sym.branches["lu"] == before["lu"]
     # a new solver with the mean
-    shifted = tkrig.SimpleKriging(cov, idx, obs, err, device="cpu").solve(mean=2.5)
+    shifted = tkrig.SimpleKriging(cov, idx, obs, err,
+                                  device="cpu").solve(mean=2.5)
     np.testing.assert_allclose(_np(shifted), ref.solve() + 2.5, rtol=RTOL)
     # weights from an inverse, and the uncertainty from set weights
     K = cov[np.ix_(idx, idx)] + err

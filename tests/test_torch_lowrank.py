@@ -222,15 +222,8 @@ def test_lowrank_months_scan_matches_reference(rng, kind, dtype):
     for a, b in zip(res_t, res_j):
         _close(a, b, dtype)
     _close(mem_t, mem_j, dtype)
-    for t in range(T):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            one, mem = tlr.lowrank_ensemble_step(
-                tpsd, idx_m[t], obs_m[t], err_m[t], n_members=members,
-                noise=noise[t])
-        for a, b in zip(res_t, one):
-            torch.testing.assert_close(a[t], b)
-        torch.testing.assert_close(mem_t[t], mem)
+    _check_months_one_by_one(tpsd, (idx_m, obs_m, err_m), members, noise,
+                             res_t, mem_t)
     # diagnostics off: the field stays, the diagonals are zero
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -239,6 +232,20 @@ def test_lowrank_months_scan_matches_reference(rng, kind, dtype):
     assert none.shape == (T, 0, N)
     _close(bare.field, res_j.field, dtype)
     assert not bare.uncertainty.any() and not bare.constraint_mask.any()
+
+
+def _check_months_one_by_one(tpsd, months, members, noise, res_t, mem_t):
+    """Each month of the scan equals the port's own call on it."""
+    idx_m, obs_m, err_m = months
+    for t in range(len(idx_m)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            one, mem = tlr.lowrank_ensemble_step(
+                tpsd, idx_m[t], obs_m[t], err_m[t], n_members=members,
+                noise=noise[t])
+        for a, b in zip(res_t, one):
+            torch.testing.assert_close(a[t], b)
+        torch.testing.assert_close(mem_t[t], mem)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -12,7 +12,6 @@ the optimum only. Levenberg-Marquardt is a statement-for-statement port:
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from glomargridding_tpu.ops import optim as joptim

@@ -35,6 +35,7 @@ from glomargridding_tpu.models.kriging import OrdinaryKriging as JOrdinary
 from glomargridding_tpu.ops.covariance_tools import (
     LowRankPSD as JLowRankPSD,
     explained_variance_clip as jclip_dense,
+    explained_variance_clip_lowrank as jclip,
 )
 from glomargridding_tpu.ops.distances import sigma_rot_flat as jsigma
 from glomargridding_tpu.ops.variogram import MaternVariogram as JMatern
@@ -518,36 +519,37 @@ def test_sharded_stream_banded_pairs(k):
 
 
 def test_sharded_stream_clip_matches_dense_clip():
-    """The explained-variance clip runs unchanged on the sharded stream
-    operator, from the reference's start blocks: at the JAX test's solver
-    arguments it gives the single-device stream's clip (1e-6), and with
-    a residual tolerance it meets the full dense clip within the JAX
-    test's bound. (At those arguments the port's eigensolver, which has
-    no joint widening, stops 2.2e-3 from the dense clip on this problem
-    whatever the operator: sharded, single-device stream or a dense f32
-    matrix.)"""
+    """The explained-variance clip on the sharded stream operator, its
+    blocks row-sharded over eight slots, in f64 as the reference's runs
+    under the tests' x64 (its ``dtype=None`` is JAX's default float, f64
+    here; the port's is torch's default, f32, for a callable), from the
+    reference's start blocks: it gives the JAX sharded clip on its
+    8-device mesh and the single-device stream's clip (1e-6, densified),
+    and meets the full dense clip within the JAX test's bound."""
     fields, _ = _stream_inputs(12, 256, Lx=(1500, 3000), Ly=(900, 1800))
-    _, mesh = _meshes(8, 1)
+    jmesh, mesh = _meshes(8, 1)
     mv, n_op, trace = tpar.sharded_ellipse_stream_operator(mesh, *fields,
                                                            v=1.5)
     kw = dict(n=n_op, trace=trace, target_variance_fraction=0.90, k0=32,
-              max_rank=256, n_iter=6, device="cpu")
+              max_rank=256, n_iter=6)
     Lx, Ly, th, sd, lats, lons = (torch.from_numpy(a) for a in fields)
     single, _, _ = ellipse_covariance_operator(
         *_ellipse_inputs(Lx, Ly, th, sd, torch.deg2rad(lats),
                          torch.deg2rad(lons)),
         v=1.5, store="stream", device="cpu")
-    ours, theirs = (
+    psd, theirs = (
         explained_variance_clip_lowrank(
-            op, draw=reference_draws(jax.random.key(2)), **kw).to_dense()
+            op, draw=reference_draws(jax.random.key(2)), device="cpu",
+            dtype=torch.float64, **kw)
         for op in (mv, single))
-    assert _rel(ours, theirs) <= 1e-6
+    got = psd.to_dense().double().numpy()
+    assert _rel(got, theirs.to_dense()) <= 1e-6
+    jmv, _, _ = jpar.sharded_ellipse_stream_operator(jmesh, *fields, v=1.5)
+    jpsd = jclip(jmv, key=jax.random.key(2), **kw)
+    assert _rel(got, jpsd.to_dense()) <= 1e-6
 
-    psd = explained_variance_clip_lowrank(
-        mv, draw=reference_draws(jax.random.key(2)), tol=1e-4, **kw)
     dense = _jax_dense(*fields, 1.5)
     want = np.asarray(jclip_dense(dense, 0.90, spectrum="full"))
-    got = psd.to_dense().double().numpy()
     assert np.linalg.norm(got - want) / np.linalg.norm(want) < 5e-4
     np.testing.assert_allclose(float(psd.trace()), float(np.trace(dense)),
                                rtol=1e-5)
@@ -563,9 +565,6 @@ def test_clip_on_row_sharded_store(rng):
     cov = (Q * w[None, :]) @ Q.T
     cov = ((cov + cov.T) / 2).astype(np.float32)
     jmesh, mesh = _meshes(8, 1)
-    from glomargridding_tpu.ops.covariance_tools import (
-        explained_variance_clip_lowrank as jclip,
-    )
     from glomargridding_tpu.ops.sampling import dense_matvec
     from jax.sharding import NamedSharding, PartitionSpec as P
 

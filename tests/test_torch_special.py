@@ -24,7 +24,6 @@ from glomargridding_tpu.models.ellipse import model as jmodel
 from glomargridding_tpu.ops import special as jspecial
 from glomargridding_tpu.ops import variogram as jvario
 from glomargridding_tpu_torch import convert
-from glomargridding_tpu_torch.models import kernel_kriging as tkk
 from glomargridding_tpu_torch.ops import special as tspecial
 from glomargridding_tpu_torch.ops import variogram as tvario
 from glomargridding_tpu_torch.ops.cuda import pairwise as tpair

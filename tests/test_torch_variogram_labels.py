@@ -73,6 +73,30 @@ def test_grid_distance_variogram_returns_a_dataarray():
     _close(ours, ref)
 
 
+def _container(kind, d, coords, attrs):
+    """The distances `d` as a container of `kind`."""
+    if kind == "dataarray":
+        return DataArray(d.copy(), coords, name="dist", attrs=attrs)
+    if kind == "dataarray_tensor":
+        return DataArray(torch.from_numpy(d.copy()), coords, name="dist",
+                         attrs=attrs)
+    if kind == "ndarray":
+        return d.copy()
+    return torch.from_numpy(d.copy())
+
+
+def _check_labelled(ours, ref, x, kind, call, attrs):
+    """A DataArray in, a DataArray out: named, labelled, attrs copied."""
+    assert isinstance(ours, DataArray)
+    assert ours.name == ref.name
+    assert ours.name == ("variogram" if call == "fit" else "covariance")
+    assert ours.coords.dims == ("index_1", "index_2")
+    assert ours.attrs == attrs and ours.attrs is not x.attrs
+    assert isinstance(ours.values, torch.Tensor) == (
+        kind == "dataarray_tensor")
+    assert x.name == "dist"
+
+
 @pytest.mark.parametrize("call", CALLS)
 @pytest.mark.parametrize("model", sorted(MODELS))
 @pytest.mark.parametrize("kind", ["dataarray", "dataarray_tensor",
@@ -82,29 +106,14 @@ def test_container_in_is_container_out(rng, kind, model, call):
     d[0, 0] = 0.0
     coords = {"index_1": np.arange(7), "index_2": np.arange(9)}
     attrs = {"units": "km"}
-    if kind == "dataarray":
-        x = DataArray(d.copy(), coords, name="dist", attrs=attrs)
-    elif kind == "dataarray_tensor":
-        x = DataArray(torch.from_numpy(d.copy()), coords, name="dist",
-                      attrs=attrs)
-    elif kind == "ndarray":
-        x = d.copy()
-    else:
-        x = torch.from_numpy(d.copy())
+    x = _container(kind, d, coords, attrs)
     ref = _call(jvar, model, kind, call,
                 JDataArray(d.copy(), coords, name="dist", attrs=attrs)
                 if kind.startswith("dataarray") else d.copy())
     ours = _call(tvar, model, kind, call, x)
     _close(ours, ref)
     if kind.startswith("dataarray"):
-        assert isinstance(ours, DataArray)
-        assert ours.name == ref.name
-        assert ours.name == ("variogram" if call == "fit" else "covariance")
-        assert ours.coords.dims == ("index_1", "index_2")
-        assert ours.attrs == attrs and ours.attrs is not x.attrs
-        assert isinstance(ours.values, torch.Tensor) == (
-            kind == "dataarray_tensor")
-        assert x.name == "dist"
+        _check_labelled(ours, ref, x, kind, call, attrs)
     elif kind == "ndarray":
         assert isinstance(ours, np.ndarray)
     else:
