@@ -1453,6 +1453,9 @@ def phase12_times(dev, glat, glon, obs, stream):
         out[f"{key}_share_of_bound"] = bound_ms / out[timed[key]]
     out["stream_mv8_259200_s"] = wall_median_s(lambda: mv(x8))
     out["stream_mv1024_259200_s"] = wall_median_s(lambda: mv(x1k))
+    out["stream_mv1024_259200_window_s"] = window_wall_s(mv, P, x1k,
+                                                         MAX_DIST_KM)
+    out["stream_block_rows"] = str(mv.band_stats["block"])
     phase(12, "ellipse_times", repeats=REPEATS,
           **{k: v if isinstance(v, str) else f"{v:.4f}"
              for k, v in out.items()},
@@ -1460,6 +1463,20 @@ def phase12_times(dev, glat, glon, obs, stream):
           bounds=f"k4:{ELLIPSE_RTOL[torch.float32]}|wide:{STREAM_ORDER_TOL}"
                  f"|k3:{K3_TWIN_TOL}")
     return out, abs_err, bounds
+
+
+def window_wall_s(mv, P, x, max_dist):
+    """The wall of `mv`'s wide application of x with every row block
+    against its whole window (``_apply_wide`` without the certificate's
+    chunks), the diagonal added: what the certificate's gather replaced."""
+    from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+
+    lat = P[:, 0].double().cpu().numpy()
+    windows = tcov.stream_plan(lat, lat, mv.band_stats["block"],
+                               max_dist)[0]
+    diag = (P[:, 6].float() ** 2)[:, None]
+    return wall_median_s(lambda: tcov._apply_wide(
+        P, x, windows, NU_NS, "Modified_Met_Office", max_dist) + diag * x)
 
 
 def nonstationary(dev, glat, glon, obs):
@@ -4057,11 +4074,26 @@ def dense_sub(psd, cells, dtype=torch.float32):
     return C
 
 
+def slot_order_draw(dev, slots, seed=0):
+    """The whole-tensor ``draw`` of a row-sharded solve's draws from a
+    generator seeded `seed` on `dev` (the solver's default): each block's
+    slots' rows drawn one after another (``ops.eigsh._normal``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, dtype):
+        rows = (shape[0] // slots, *shape[1:])
+        return torch.cat([torch.randn(rows, dtype=dtype, device=dev,
+                                      generator=gen) for _ in range(slots)])
+
+    return draw
+
+
 def phase28d_clip(mesh, glat, glon, psd13):
     """The explained-variance clip of the sharded stream at 64,800 (no
-    cutoff, phase 13's arguments and start blocks) against the same clip
-    of the single-device stream, densified on a 16,384-cell sub-block and
-    by trace; returns (K3, K4) launches and the sub-block's cells."""
+    cutoff, phase 13's arguments, the eigensolver's blocks row-sharded)
+    against the same clip of the single-device stream from the same
+    start blocks, densified on a 16,384-cell sub-block and by trace;
+    returns (K3, K4) launches and the sub-block's cells."""
     from glomargridding_tpu_torch import (
         ellipse_covariance_operator,
         explained_variance_clip_lowrank,
@@ -4082,9 +4114,10 @@ def phase28d_clip(mesh, glat, glon, psd13):
     if len(mv.row_devices) != SHARD_SLOTS:
         raise AssertionError("the sharded stream names no row slots")
 
-    def clip(op, target=CLIP_TARGET):
+    def clip(op, target=CLIP_TARGET, draw=None):
         return explained_variance_clip_lowrank(
-            op, n=n, trace=trace, target_variance_fraction=target, **CLIP_KW)
+            op, n=n, trace=trace, target_variance_fraction=target,
+            draw=draw, **CLIP_KW)
 
     reset_ellipse_counts()
     psd, sharded_s = timed(lambda: clip(mv))
@@ -4093,7 +4126,9 @@ def phase28d_clip(mesh, glat, glon, psd13):
     single, _, _ = ellipse_covariance_operator(
         *ellipse_args(glat, glon, fields, torch.float32, dev), v=NU_NS,
         store="stream")
-    ref, single_s = timed(lambda: clip(single))
+    # the whole-tensor forms start from the sharded form's normals
+    ref, single_s = timed(lambda: clip(single, draw=slot_order_draw(
+        dev, SHARD_SLOTS)))
     cells = torch.as_tensor(np.unique(np.linspace(
         0, n - 1, SHARD_LINALG_N).astype(np.int64)), device=dev)
     want = dense_sub(ref, cells)
@@ -4107,7 +4142,8 @@ def phase28d_clip(mesh, glat, glon, psd13):
     del wrong
     # the same operator with its blocks whole on the first slot (PR 9's
     # form), and the bytes each slot holds of the row-sharded blocks
-    whole, whole_s = timed(lambda: clip(Matvec(mv.fn)))
+    whole, whole_s = timed(lambda: clip(Matvec(mv.fn), draw=slot_order_draw(
+        dev, SHARD_SLOTS)))
     whole_err = max_rel(dense_sub(whole, cells), want, scale)
     del whole
     width = CLIP_KW["k0"] + 8
@@ -4796,9 +4832,13 @@ def qd_stream_checks(tq, dev, mv, fields, glat, glon, max_dist):
     x8 = x9[:, :8].contiguous()
     x1024 = torch.randn((n, WIDE_COLS), generator=gen, device=dev)
     walls = {"y8_s": wall_median_s(lambda: mv(x8)),
-             "y1024_s": wall_median_s(lambda: mv(x1024))}
+             "y1024_s": wall_median_s(lambda: mv(x1024)),
+             "y1024_window_s": window_wall_s(mv, pack_points(
+                 *tq.stream_inputs(glat, glon, fields, device=dev)), x1024,
+                 max_dist)}
     stats = mv.band_stats
     phase(29, "d_stream", max_dist_km=max_dist, bw=stats["bw"],
+          block=stats["block"], kept_pairs=stats["kept_pairs"],
           wide_pairs=stats["wide_pairs"], fused_pairs=stats["fused_pairs"],
           k3_vs_wide=f"{k3_vs_wide:.3e}", tol=QD_STREAM_TOL,
           control_k3_vs_wide_2700km=f"{k3_control:.3e}",
@@ -5137,8 +5177,8 @@ TD_THETA_CONTROL = 1e-3
 TD_SLAB_TOL = 1e-5
 TD_CONTROL_KM = 2700.0
 TD_SLAB_COLS = 1 << 18
-# K4 and the GEMM timed apart over a sample of row blocks (CUDA events),
-# at the twin's rows and at the 64 of ``_block_rows``
+# K4, the GEMM and the gather timed apart over a sample of row blocks
+# (CUDA events), at the operator's rows and at the 64 of ``_block_rows``
 TD_SAMPLE_BLOCKS = 24
 # (e) f32 kriging and members against f64 on the same factors and
 # normals; RMSE / spread / uncertainty within CONSISTENCY_RATIO, the
@@ -5314,9 +5354,8 @@ def td_split(P, X, windows, chunks, widths=(64, 96)):
         pairs = 0
         for b in picks:
             r0, r1 = windows[b][:2]
-            ids = None
-            if chunks is not None and chunks[2][b]:
-                ids = chunks[1][chunks[0][b]:chunks[0][b + 1]]
+            ids = (None if chunks is None
+                   else chunks[1][chunks[0][b]:chunks[0][b + 1]])
             gather_ms += cuda_time_ms(lambda: td_block_pieces(
                 by_chunk, x, windows[b], ids), iters=3)
             cols, xs = td_block_pieces(by_chunk, x, windows[b], ids)
@@ -5332,10 +5371,10 @@ def td_split(P, X, windows, chunks, widths=(64, 96)):
 
 
 def td_times(tt, dev, X, glat, glon, fields, block):
-    """K4, the GEMM and the gather at the twin's rows with the longitude
-    certificate, and each block against its whole window at the twin's
-    rows and at the 64 of ``_block_rows``, as seconds an application
-    (the sample's mean times the blocks)."""
+    """K4, the GEMM and the gather with the longitude certificate at the
+    operator's rows and at the 64 of ``_block_rows``, and each block
+    against its whole window at the operator's rows, as seconds an
+    application (the sample's mean times the blocks)."""
     from glomargridding_tpu_torch.models.ellipse import covariance as tcov
     from glomargridding_tpu_torch.ops.cuda.ellipse import pack_points
 
@@ -5343,8 +5382,9 @@ def td_times(tt, dev, X, glat, glon, fields, block):
     lat = P[:, 0].double().cpu().numpy()
     values = {}
     for label, rows, certified in (
-            ("certified", block, True), ("window", block, False),
-            ("window", tcov._block_rows(P.shape[0], None), False)):
+            ("certified", block, True),
+            ("certified", tcov._block_rows(P.shape[0], None), True),
+            ("window", block, False)):
         windows, _, bw = tcov.stream_plan(lat, lat, rows, tt.MAX_DIST_KM)
         chunks = (tcov._active_chunks(P, windows, bw, tt.MAX_DIST_KM)
                   if certified else None)
@@ -5466,7 +5506,6 @@ def phase31_tenth_degree(dev):
           wide_pairs=f"{stats['wide_pairs']:.4e}",
           kept_pairs=f"{stats['kept_pairs']:.4e}",
           kept_share=f"{stats['kept_pairs'] / stats['wide_pairs']:.4f}",
-          gathering_blocks=stats["gathering_blocks"],
           tile_gb=f"{stats['block'] * stats['bw'] * 4 / 1e9:.3f}",
           plan_s=f"{walls['operator']:.3f}")
     reset_ellipse_counts()

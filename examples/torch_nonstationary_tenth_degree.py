@@ -70,13 +70,6 @@ OBS_NOISE = 0.3
 OBS_ERROR = 0.09
 TARGET = 0.15
 DEFAULT_RANK = "88"
-# rows per row block of the stream on the card. At 0.1 degree every
-# block's latitude window is 1,944,064 columns whatever its rows (64 or
-# 256); a 256-row block spans 25.6 degrees of longitude, so the
-# longitude certificate keeps about a third of that window, and its
-# tile runs K4 and the GEMM at a higher rate than the 64 rows
-# ``_block_rows`` gives this n (chip_smoke.py phase 31 times both).
-ROW_BLOCK = 256
 # numpy rows drawn at a time for the demonstration block
 DRAW_ROWS = 1 << 20
 
@@ -137,12 +130,9 @@ def operator_inputs(glat, glon, fields, dtype=torch.float32, device=None):
 def stream_operator(glat, glon, fields, n_blocks=None, dtype=torch.float32,
                     max_dist=MAX_DIST_KM, device=None):
     """``(matvec, n, trace)`` of the zero-storage covariance (nu = 1.5),
-    banded at `max_dist` km, in row blocks of ROW_BLOCK rows unless
+    banded at `max_dist` km, in the operator's row blocks unless
     `n_blocks` is given."""
     device = resolve_device(device)
-    n = glat.size
-    if n_blocks is None:
-        n_blocks = -(-n // ROW_BLOCK)
     return ellipse_covariance_operator(
         *operator_inputs(glat, glon, fields, dtype, device), v=1.5,
         store="stream", max_dist=max_dist, n_blocks=n_blocks, device=device)
@@ -228,7 +218,7 @@ def run(device=None, dtype=torch.float32, generator=None, noise=None,
     ``noise``, a dict of ``truth`` (z1, z2), ``members`` and
     ``members_warm`` (z1, z2, zo each), and ``draw``, the clip's start
     blocks (``ops.eigsh``). `n_blocks` sets the stream's row blocks
-    (default ROW_BLOCK rows each).
+    (default the operator's).
     """
     device = resolve_device(device)
     noise = {} if noise is None else noise

@@ -60,9 +60,6 @@ KERNEL_ORDERS = (0.5, 1.5, 2.5, 3.5)  # the orders the ellipse kernels take
 _BLOCK_BYTES = 1 << 30
 _TILE_LIMIT_BYTES = 2 << 30
 _CHUNK_BYTES = 1 << 30
-# a stream block gathers its active column chunks (the longitude
-# certificate) when they are at most this share of its window
-_GATHER_SHARE = 0.8
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}
@@ -448,13 +445,16 @@ def ellipse_covariance_operator(
     built (they are exact zeros). Applications of at most ``MV_W``
     columns run K3 (f32 points, kernel orders); wider ones build each
     row block's (block x window) tile with K4 into one reused workspace
-    and multiply it with ``torch.matmul`` in true f32. A row block that
-    spans less than a latitude row also has a longitude gap to most of
-    its window: a latitude-longitude certificate (``_active_chunks``)
-    keeps the window's 64-point column chunks that can hold a pair within
-    `max_dist`, and the block's tile is built against those alone,
-    gathered with their rows of x. ``matvec.band_stats`` counts the pairs
-    each path builds.
+    and multiply it with ``torch.matmul`` in true f32; with no `n_blocks`
+    a banded block has as many rows as keep its tile against the window
+    within _TILE_LIMIT_BYTES (256 at 0.1 degree). Within its window
+    a latitude-longitude certificate (``_active_chunks``) keeps the
+    64-point column chunks that can hold a pair within `max_dist`, and
+    the block's tile is built against those alone, gathered with their
+    rows of x: a block that spans less than a latitude row skips the
+    longitudes beyond the cutoff, a wider one the window's latitudes it
+    does not reach. ``matvec.band_stats`` counts the pairs each path
+    builds.
 
     The operator lives on `device`; with no device, on the inputs' if one
     is a tensor, else on the card (``resolve_device``).
@@ -499,6 +499,15 @@ def _stream_matvec(P, diag, n_blocks, v, delta_x_method, max_dist):
     block = _block_rows(n, n_blocks)
     lat_np = np.asarray(P[:, 0].cpu(), dtype=np.float64)
     windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
+    if n_blocks is None and bw < n:
+        # a banded block's tile spans its window, not the n columns that
+        # _block_rows sizes it against: the most rows whose tile against
+        # the window fits _TILE_LIMIT_BYTES (taller tiles are fewer
+        # launches and gathers, and run K4 and the GEMM faster)
+        wide = _TILE_LIMIT_BYTES // P.element_size() // bw // TILE * TILE
+        if wide > block:
+            block = min(wide, -(-n // TILE) * TILE)
+            windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
     chunks = (None if max_dist is None
               else _active_chunks(P, windows, bw, max_dist))
     use_fused = float(v) in KERNEL_ORDERS and P.dtype == torch.float32
@@ -512,10 +521,9 @@ def _stream_matvec(P, diag, n_blocks, v, delta_x_method, max_dist):
         # the wide path: each row block against its own window
         "wide_pairs": int(sum((r1 - r0) * (c1 - c0)
                               for r0, r1, c0, c1 in windows)),
-        # ... of which it builds these: a gathering block only its
-        # active chunks (the longitude certificate, ``_active_chunks``)
+        # ... of which it builds these: with a cutoff, each block's active
+        # chunks alone (the certificate, ``_active_chunks``)
         "kept_pairs": _kept_pairs(windows, chunks),
-        "gathering_blocks": 0 if chunks is None else int(chunks[2].sum()),
         # K3: the active upper-triangle tiles
         "fused_pairs": int((hi - np.arange(nb) + 1).sum()) * TILE * TILE,
         "use_fused": use_fused,
@@ -595,9 +603,9 @@ def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None,
     whose tile would pass _TILE_LIMIT_BYTES goes in column chunks of about
     _CHUNK_BYTES, accumulated in place. `cols` (default `P`) are the
     column points, which x2's rows follow: C = C(P, cols). With `chunks`
-    (``_active_chunks``), a gathering block builds its tile against its
-    active column chunks alone, gathered with their rows of x2 (the
-    chunks it skips hold only pairs beyond the cutoff: exact zeros)."""
+    (``_active_chunks``), each block builds its tile against its active
+    column chunks alone, gathered with their rows of x2 (the chunks it
+    skips hold only pairs beyond the cutoff: exact zeros)."""
     cols = P if cols is None else cols
     n = P.shape[0]
     item = P.element_size()
@@ -607,13 +615,15 @@ def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None,
     if block * width * item > _TILE_LIMIT_BYTES:
         ncc = -(-(block * width * item) // _CHUNK_BYTES)
         ccw = -(-(-(-width // ncc)) // TILE) * TILE
+    if chunks is not None:  # gathered pieces are whole chunks
+        ccw = -(-ccw // TILE) * TILE
     ws = torch.empty(block * ccw, dtype=P.dtype, device=P.device)
     y = torch.zeros((n, x2.shape[1]), dtype=P.dtype, device=P.device)
     if chunks is not None:
-        ptr, ids, gather = chunks
+        ptr, ids = chunks
         by_chunk = _by_chunk(cols, x2)
     for b, (r0, r1, c0, c1) in enumerate(windows):
-        if chunks is not None and gather[b]:
+        if chunks is not None:
             cid = ids[ptr[b]:ptr[b + 1]]
             step = ccw // TILE
             pieces = [_gathered(by_chunk, cid[k0:k0 + step])
@@ -680,12 +690,9 @@ def _active_chunks(P, windows, bw, max_dist, batch=512):
     cos c = cos(lat1 - lat2) - cos lat1 cos lat2 (1 - cos dlam)
           <= cos(dphi) - cA cB (1 - cos dlam),
     so a chunk whose bound on the central angle c passes the cutoff (with
-    a 1e-3 margin for the kernels' f32 distances) holds only zeros. A
-    block gathers its active chunks when they are at most _GATHER_SHARE
-    of its window (a block that spans a whole latitude row has no
-    longitude gap to use). Returns (ptr, ids, gather): CSR over the
-    blocks (host ptr, device int32 chunk ids; empty rows for the blocks
-    that apply their window whole) and the host bool per block."""
+    a 1e-3 margin for the kernels' f32 distances) holds only zeros.
+    Returns (ptr, ids): CSR over the blocks (host ptr, device int32 chunk
+    ids)."""
     thresh = max_dist / RADIUS_OF_EARTH_KM * (1.0 + 1e-3)
     block = max(r1 - r0 for r0, r1, _, _ in windows)
     rows = _chunk_boxes(P, block)
@@ -695,9 +702,7 @@ def _active_chunks(P, windows, bw, max_dist, batch=512):
     starts = torch.as_tensor([c0 // TILE for _, _, c0, _ in windows],
                              device=P.device)
     span = torch.arange(wc, device=P.device)
-    window_chunks = torch.as_tensor(
-        [-(-(c1 - c0) // TILE) for _, _, c0, c1 in windows], device=P.device)
-    ids, counts, gather = [], [], []
+    ids, counts = [], []
     for b0 in range(0, len(windows), batch):
         b1 = min(b0 + batch, len(windows))
         cid = torch.clamp(starts[b0:b1, None] + span, max=n_chunks - 1)
@@ -710,22 +715,18 @@ def _active_chunks(P, windows, bw, max_dist, batch=512):
         cos_c = torch.cos(dphi) - r[2] * c[2] * (1.0 - torch.cos(dlam))
         active = torch.arccos(torch.clamp(cos_c, -1.0, 1.0)) <= thresh
         active &= starts[b0:b1, None] + span < n_chunks
-        count = active.sum(1)
-        gathers = count <= _GATHER_SHARE * window_chunks[b0:b1]
-        # the ids of the gathering blocks only
-        ids.append(cid[active & gathers[:, None]].int())
-        counts.append(torch.where(gathers, count, 0).cpu().numpy())
-        gather.append(gathers.cpu().numpy())
+        ids.append(cid[active].int())
+        counts.append(active.sum(1).cpu().numpy())
     ptr = np.concatenate([[0], np.cumsum(np.concatenate(counts))])
-    return ptr, torch.cat(ids), np.concatenate(gather)
+    return ptr, torch.cat(ids)
 
 
 def _kept_pairs(windows, chunks):
     """The pairs the wide path builds an application: each block against
-    its window, or against its active chunks when it gathers them."""
+    its window, or against its active chunks (`chunks`)."""
     total = 0
     for b, (r0, r1, c0, c1) in enumerate(windows):
-        if chunks is not None and chunks[2][b]:
+        if chunks is not None:
             total += (r1 - r0) * TILE * int(chunks[0][b + 1] - chunks[0][b])
         else:
             total += (r1 - r0) * (c1 - c0)

@@ -49,10 +49,10 @@ slots of ``parallel.sharded_ellipse_stream_operator``) takes and returns
 block of the solve is one: each slot holds its rows. The Gram matrices
 of CholQR2 and of the Rayleigh-Ritz projection are summed over the slots
 (``parallel.mesh.psum``), the small Cholesky and the f64 ``eigh`` run on
-the first slot, and R^-1 and the Ritz rotation are applied per slot. A
-start block is drawn whole on the first slot and split at once (the same
-values as the whole-tensor form's); the Householder rescue gathers its
-block on the first slot.
+the first slot, and R^-1 and the Ritz rotation are applied per slot.
+Each slot's rows of a start block are drawn one slot after another and
+moved to their slot (``_normal``), and the Householder rescue is a TSQR
+(``_qr_q``): no slot holds a whole (n, width) block.
 """
 
 import logging
@@ -130,12 +130,23 @@ def _shard_like(X, devices):
 
 
 def _qr_q(Y):
-    """The Q of a Householder QR (a sharded block gathered on its first
-    slot, then sharded back)."""
+    """The Q of a Householder QR. A sharded block's is a TSQR: each
+    slot's rows reduced on their slot, the stacked R factors (slots x
+    width, width) reduced on the first slot, and their Q applied to each
+    slot's; its columns may differ from the whole block's Q in sign."""
     if not _sharded(Y):
         return torch.linalg.qr(Y)[0]
-    devices = [p.device for p in Y.parts]
-    return _shard_like(torch.linalg.qr(Y.gather())[0], devices)
+    from ..parallel.mesh import Sharded
+
+    local = [torch.linalg.qr(p) for p in Y.parts]
+    first = Y.parts[0].device
+    Q2 = torch.linalg.qr(torch.cat([r.to(first) for _, r in local]))[0]
+    parts, k0 = [], 0
+    for q, r in local:
+        k1 = k0 + r.shape[0]
+        parts.append(q @ Q2[k0:k1].to(q.device))
+        k0 = k1
+    return Sharded(parts)
 
 
 class PartialSpectrumError(ValueError):
@@ -231,10 +242,12 @@ def _setup(operator, n, device, dtype, generator, draw):
 def _normal(draw, gen, dtype, device, slots):
     """``normal(shape)``: the next standard-normal block, from `draw` or
     `gen`. For a row-sharded operator (`slots`) the block is a
-    ``Sharded``: the whole block, drawn on the first slot as the
-    whole-tensor form draws it (so that both forms start from the same
-    values), split over the slots at once; it is the solve's one whole
-    (n, width) block, alive only until the split."""
+    ``Sharded`` of equal row blocks, made a slot at a time: from `gen`,
+    each slot's rows drawn in slot order (on the generator's device, then
+    moved to the slot), so the values are those of the whole-tensor form
+    only when its draw is the same sequence of row blocks; from `draw`,
+    the block drawn where `draw` returns it (the host for numpy) and
+    split over the slots."""
     def whole(shape):
         if draw is not None:
             return torch.as_tensor(draw(shape, dtype), device=device).to(
@@ -243,7 +256,21 @@ def _normal(draw, gen, dtype, device, slots):
 
     if slots is None:
         return whole
-    return lambda shape: _shard_like(whole(shape), slots)
+    from ..parallel.mesh import Sharded, shard_rows
+
+    def sharded(shape):
+        if draw is not None:
+            host = torch.as_tensor(draw(shape, dtype)).to(dtype)
+            return Sharded(shard_rows(host, slots, copy=True))
+        if shape[0] % len(slots):
+            raise ValueError(f"N={shape[0]} must be divisible by "
+                             f"{len(slots)} slots")
+        rows = (shape[0] // len(slots), *shape[1:])
+        return Sharded([torch.randn(rows, dtype=dtype, device=device,
+                                    generator=gen).to(slot)
+                        for slot in slots])
+
+    return sharded
 
 
 def _apply(matvec, X):

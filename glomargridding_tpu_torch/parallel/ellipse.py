@@ -304,8 +304,11 @@ def clip_memory_analysis(n: int, width: int, n_slots: int, locked: int = 0,
     of an application, and in a locked widening the locked basis and its
     action, `locked` columns each); then the same blocks whole; and the
     (width, width) matrices every slot may hold besides (the summed Gram,
-    R^-1, the projection and the Ritz rotation). A stage's start block
-    also exists whole on the first slot, from its draw to its split.
+    R^-1, the projection and the Ritz rotation). A start block is drawn
+    a slot's rows at a time (``ops.eigsh._normal``), so no slot holds a
+    whole block during the solve; the clip's returned factor (n, rank)
+    is gathered whole on the first slot (``ops.covariance_tools.
+    _factored``) and is not counted here.
     """
     rows = n // n_slots
     blocks = 5 * width + 2 * locked

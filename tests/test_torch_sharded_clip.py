@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_eigsh import reference_draws
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from glomargridding_tpu import parallel as jpar
 from glomargridding_tpu.ops import covariance_tools as jct
@@ -191,18 +192,98 @@ def test_row_sharded_blocks_per_slot_bytes():
     assert per_slot == whole // 4
 
 
+def _slot_order_draw(seed, slots):
+    """The whole-tensor form's ``draw`` of the sharded form's generator
+    draws: each block's slots' rows drawn one after another."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(shape, dtype):
+        rows = (shape[0] // slots, *shape[1:])
+        return torch.cat([torch.randn(rows, dtype=dtype, generator=gen)
+                          for _ in range(slots)])
+
+    return draw
+
+
 def test_row_sharded_clip_from_a_generator():
-    """With a generator the sharded form starts from the whole-tensor
-    form's values (each block drawn on the first slot, then split): the
-    same clip, and from other start blocks than the reference's key's,
-    the same clip to the solver's convergence."""
+    """With a generator the sharded form draws each slot's rows on its
+    own, in slot order: the same clip as the whole-tensor form fed those
+    rows in that order, and from other start blocks than the reference's
+    key's, the same clip to the solver's convergence."""
     mv, _, n, trace, fields = _operators()
-    psd, whole = (tct.explained_variance_clip_lowrank(
-        op, n=n, trace=trace, target_variance_fraction=0.90,
-        generator=torch.Generator().manual_seed(3), dtype=torch.float64,
-        **CLIP_KW) for op in (mv, Matvec(mv.fn)))
+    kw = dict(n=n, trace=trace, target_variance_fraction=0.90,
+              dtype=torch.float64, **CLIP_KW)
+    psd = tct.explained_variance_clip_lowrank(
+        mv, generator=torch.Generator().manual_seed(3), **kw)
+    whole = tct.explained_variance_clip_lowrank(
+        Matvec(mv.fn), draw=_slot_order_draw(3, SLOTS), device="cpu", **kw)
     assert _rel(psd.to_dense(), whole.to_dense()) <= CLIP_TOL
     keyed = _clip("explained_variance", mv, n, trace, fields,
                   jax.random.key(2))
     assert _rel(psd.to_dense(), keyed.to_dense()) <= 1e-4
     np.testing.assert_allclose(psd.trace(), trace, rtol=1e-10)
+
+
+class _Shapes(TorchDispatchMode):
+    """The shapes of every tensor an operation makes while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+@pytest.mark.parametrize("rescue", [False, True])
+def test_row_sharded_solve_makes_no_whole_block(rescue):
+    """Every tensor made during a row-sharded solve from a generator (the
+    start blocks, the operator's applications, CholQR2, Rayleigh-Ritz,
+    and with `rescue` the Householder path's TSQR) has at most n / 8
+    rows, but for the TSQR's stacked R factors: the (n, width) blocks live
+    a slot's rows at a time, and the small matrices are narrower than a
+    slot's rows here."""
+    n = 2048
+    fields = _fields(n=n)
+    mesh = tpar.make_mesh(n_grid=SLOTS, n_ens=1, devices=["cpu"] * SLOTS)
+    mv, _, _ = tpar.sharded_ellipse_stream_operator(mesh, *fields, v=1.5,
+                                                    max_dist=3000.0)
+    cholqr2 = teig._cholqr2
+    with pytest.MonkeyPatch.context() as mp:
+        if rescue:  # every CholQR2 fails: the Householder iteration runs
+            mp.setattr(teig, "_cholqr2", lambda Y: (
+                cholqr2(Y)[0], torch.zeros((), dtype=torch.bool)))
+        with _Shapes() as seen:
+            w, V, r = teig.adaptive_topk_eigh(
+                mv, lambda w: 8, n, k0=32, max_rank=128, n_iter=2,
+                generator=torch.Generator().manual_seed(4),
+                dtype=torch.float64)
+        # the whole-tensor form fed the same rows finds the same subspace
+        w2, V2, _ = teig.adaptive_topk_eigh(
+            Matvec(mv.fn), lambda w: 8, n, k0=32, max_rank=128, n_iter=2,
+            draw=_slot_order_draw(4, SLOTS), dtype=torch.float64,
+            device="cpu")
+    assert r == 8 and isinstance(V, Sharded)
+    # besides the slots' rows, only the TSQR's stacked (8 x 40, 40) R
+    # factors and their Q
+    big = {s for s in seen.shapes if len(s) == 2 and s[0] > n // SLOTS}
+    assert big <= ({(SLOTS * 40, 40)} if rescue else set())
+    assert any(s == (n // SLOTS, 40) for s in seen.shapes)
+    np.testing.assert_allclose(w[:8], w2[:8], rtol=1e-10)
+    Vg = V.gather()[:, :8]
+    assert _rel(Vg @ Vg.T, V2[:, :8] @ V2[:, :8].T) <= 1e-8
+
+
+def test_tsqr_matches_householder_qr():
+    """The sharded Householder Q (``_qr_q``'s TSQR) spans the whole
+    block's Q's columns one by one (up to sign) and is orthonormal."""
+    Y = torch.from_numpy(np.random.default_rng(6).normal(size=(256, 24)))
+    Q = teig._qr_q(Sharded(list(Y.split(256 // SLOTS)))).gather()
+    ref = teig._qr_q(Y)
+    np.testing.assert_allclose((Q.T @ Q).numpy(), np.eye(24), atol=1e-13)
+    np.testing.assert_allclose(torch.abs(torch.sum(Q * ref, 0)).numpy(),
+                               np.ones(24), atol=1e-12)

@@ -262,37 +262,60 @@ def test_members_on_replayed_normals(script, twin):
 
 @pytest.mark.parametrize("centre", [0.0, 70.0])
 def test_longitude_certificate(centre):
-    """Row blocks narrower than a latitude row gather their active column
-    chunks (``_active_chunks``): on a row of the 0.1-degree grid (3,600
-    cells) a 64-cell block spans 6.4 degrees of longitude and keeps under
-    a third of its window at the equator, and less than all of it at 70
-    degrees, and its application equals the
-    same operator's with the gathering off (``_GATHER_SHARE`` 0: every
-    block against its whole window) to roundoff, f64 and f32: the chunks
-    it skips hold only pairs beyond the cutoff."""
+    """Every row block of a banded stream builds its tile against the
+    active column chunks of its window alone (``_active_chunks``): on a
+    row of the 0.1-degree grid (3,600 cells) a 64-cell block spans 6.4
+    degrees of longitude and keeps under a third of its window at the
+    equator, and less than all of it at 70 degrees. Its application in
+    f64 meets the reference's jnp tile in f64 over every column (the
+    chunks it skips hold only pairs beyond the cutoff), and equals the
+    same blocks against their whole windows (``_apply_wide`` without
+    `chunks`) to roundoff in f64 and f32. The first block starts at
+    -179.95 degrees, and its chunks across the antimeridian are kept."""
     from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+    from glomargridding_tpu_torch.ops.cuda.ellipse import pack_points
 
     lat = np.array([centre], np.float32)
     lon = np.linspace(-179.95, 179.95, 3600).astype(np.float32)
     glat, glon = np.repeat(lat, lon.size), np.tile(lon, lat.size)
     n = glat.size
     fields = tte.heterogeneous_ellipse_fields(glat, glon)
-    X = torch.from_numpy(np.random.default_rng(3).normal(size=(n, 9)))
+    X = np.random.default_rng(3).normal(size=(n, 9))
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        for share in (tcov._GATHER_SHARE, 0.0):
-            mp.setattr(tcov, "_GATHER_SHARE", share)
-            for dtype in (torch.float64, torch.float32):
-                mv = tte.stream_operator(glat, glon, fields, -(-n // 64),
-                                         dtype, device="cpu")[0]
-                out[share, dtype] = mv.band_stats, mv(X.to(dtype))
-    stats, y64 = out[tcov._GATHER_SHARE, torch.float64]
-    assert stats["block"] == 64 and stats["gathering_blocks"] > 0
+    for dtype in (torch.float64, torch.float32):
+        mv = tte.stream_operator(glat, glon, fields, -(-n // 64), dtype,
+                                 device="cpu")[0]
+        inputs = tte.operator_inputs(glat, glon, fields, dtype, "cpu")
+        P = pack_points(*inputs)
+        x = torch.from_numpy(X).to(dtype)
+        lat_rad = P[:, 0].double().numpy()
+        windows = tcov.stream_plan(lat_rad, lat_rad, 64,
+                                   tte.MAX_DIST_KM)[0]
+        whole = tcov._apply_wide(P, x, windows, 1.5, "Modified_Met_Office",
+                                 tte.MAX_DIST_KM)
+        # the operators' diagonal is the f32 variance
+        out[dtype] = (mv.band_stats, mv(x), whole + (
+            P[:, 6].float() ** 2).to(dtype)[:, None] * x, inputs)
+    stats, y64, whole64, inputs = out[torch.float64]
+    assert stats["block"] == 64
     assert stats["kept_pairs"] < stats["wide_pairs"] / (
         3 if centre == 0.0 else 1)
-    whole, y64_whole = out[0.0, torch.float64]
-    assert whole["gathering_blocks"] == 0
-    assert whole["kept_pairs"] == whole["wide_pairs"] == stats["wide_pairs"]
-    assert _rel(y64, y64_whole) <= 1e-13
-    assert _rel(out[tcov._GATHER_SHARE, torch.float32][1],
-                out[0.0, torch.float32][1]) <= F32_TOL
+    # the reference's tile in f64 over every column, plus the operators'
+    # f32 diagonal term
+    jin = [jnp.asarray(a.numpy()) for a in inputs]
+    want = np.asarray(inputs[4], np.float32)[:, None] ** 2 * X + np.asarray(
+        jcov.ellipse_covariance_block(*jin, *jin, v=1.5,
+                                      max_dist=tte.MAX_DIST_KM,
+                                      use_max_dist=True)) @ X
+    assert _rel(y64, want) <= F64_TOL
+    assert _rel(y64, whole64) <= 1e-13
+    assert _rel(out[torch.float32][1], out[torch.float32][2]) <= F32_TOL
+    # the block at -179.95 keeps the chunks at the far end of its row
+    ptr, ids = tcov._active_chunks(
+        pack_points(*inputs), tcov.stream_plan(
+            inputs[0].numpy(), inputs[0].numpy(), 64, tte.MAX_DIST_KM)[0],
+        stats["bw"], tte.MAX_DIST_KM)
+    first = set(ids[ptr[0]:ptr[1]].tolist())
+    assert float(glon[0]) == pytest.approx(-179.95)
+    assert 0 in first and (n - 1) // 64 in first
+    assert len(first) < -(-n // 64)
