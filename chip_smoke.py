@@ -110,6 +110,7 @@ from itertools import product
 import numpy as np
 import torch
 
+from glomargridding_tpu_torch.utils.profiling import COUNTS, spans_on
 from glomargridding_tpu_torch.utils.roofline import (
     F32_FLOPS_S,
     K1_FLOPS,
@@ -624,11 +625,14 @@ def kriging_errs(got, want, sd_scale):
 
 
 def reset_ellipse_counts():
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
+    for kernel in ("k2", "k3", "k4"):
+        COUNTS[f"{kernel}.launches"] = 0
 
-    te.ellipse_sym.launches = 0
-    te.ellipse_tile.launches = 0
-    te.ellipse_matvec.launches = 0
+
+def solve_branches():
+    """The dense kriging solves by branch since the last reset."""
+    return {"cholesky": COUNTS["kriging.solve.cholesky"],
+            "lu": COUNTS["kriging.solve.lu"]}
 
 
 def main():
@@ -896,10 +900,10 @@ def stationary_path(dev, glat, glon, obs):
             n_blocks=n_blocks,
         )
 
-    pairwise_covariance.launches = 0
+    COUNTS["k1.launches"] = 0
     ordinary = krige("ordinary")
     sync()
-    main_launches = pairwise_covariance.launches
+    main_launches = COUNTS["k1.launches"]
     if main_launches == 0:
         raise AssertionError("the main path launched no K1 tile")
     simple = krige("simple")
@@ -1093,7 +1097,7 @@ def k2_store_checks(P):
             raise AssertionError("K2 keep_pad: nonzero padding")
         del b16, f32
     # an order without a kernel raises before any launch
-    before = te.ellipse_sym.launches
+    before = COUNTS["k2.launches"]
     try:
         te.ellipse_sym(P, 1.2)
     except ValueError as exc:
@@ -1101,7 +1105,7 @@ def k2_store_checks(P):
             raise
     else:
         raise AssertionError("nu = 1.2 did not raise")
-    if te.ellipse_sym.launches != before:
+    if COUNTS["k2.launches"] != before:
         raise AssertionError("a refused order launched")
 
 
@@ -1132,7 +1136,6 @@ def krige_nonstationary(dev, glat, glon, obs, nu):
     from glomargridding_tpu_torch.models.kriging import (
         _ordinary_core,
         _simple_core,
-        _solve_sym,
     )
     from glomargridding_tpu_torch.ops.cuda import ellipse as te
 
@@ -1142,7 +1145,7 @@ def krige_nonstationary(dev, glat, glon, obs, nu):
     shape = (lat_axis.size, lon_axis.size)
 
     reset_ellipse_counts()
-    _solve_sym.branches.update(cholesky=0, lu=0)
+    COUNTS["kriging.solve.cholesky"] = COUNTS["kriging.solve.lu"] = 0
     torch.cuda.reset_peak_memory_stats()
     # no device named: the builder runs on the card by default
     builder = EllipseCovarianceBuilder(
@@ -1159,8 +1162,8 @@ def krige_nonstationary(dev, glat, glon, obs, nu):
     cv = crossval_from_covariance(cov, idx, y, err)
     sync()
     out = {"k2_launches": require_launches("K2 (builder)",
-                                           te.ellipse_sym.launches),
-           "branches": dict(_solve_sym.branches),
+                                           COUNTS["k2.launches"]),
+           "branches": solve_branches(),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     if cov.shape != (glat.size, glat.size) or cov.dtype != torch.float32:
         raise AssertionError(f"covariance {tuple(cov.shape)} {cov.dtype}")
@@ -1281,7 +1284,7 @@ def phase10_bf16_operator(dev, glat, glon, x8, y_dense):
     mv, n, trace = ellipse_covariance_operator(*args, v=NU_NS, store="bf16")
     y = mv(x8)
     sync()
-    k2_launches = require_launches("K2 (bf16 store)", te.ellipse_sym.launches)
+    k2_launches = require_launches("K2 (bf16 store)", COUNTS["k2.launches"])
     if y.shape != (n, 8) or y.dtype != torch.float32:
         raise AssertionError(f"bf16 matvec {tuple(y.shape)} {y.dtype}")
     rel = check("bf16 matvec vs dense f32", max_rel(y, y_dense), BF16_TOL)
@@ -1319,8 +1322,8 @@ def phase11_stream(dev):
     sync()
     launches = {
         "k3": require_launches("K3 (narrow stream)",
-                               te.ellipse_matvec.launches),
-        "k4": require_launches("K4 (wide stream)", te.ellipse_tile.launches),
+                               COUNTS["k3.launches"]),
+        "k4": require_launches("K4 (wide stream)", COUNTS["k4.launches"]),
     }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, y, w in (("y8", y8, 8), ("y1024", y1k, WIDE_COLS)):
@@ -1573,13 +1576,16 @@ def solver_log():
 
 
 def clip_instrumented(mv, n, trace, clip=None):
-    """One clip of the operator with its sweeps, CholQR passes and
-    Rayleigh-Ritz solves counted and timed (each timed call is
-    synchronised, so this run is slower than the warm ones). `clip(op)`
-    runs the clip on the counted operator (default: phase 13's); its
-    result comes back first."""
+    """One clip of the operator under ``torch.profiler`` with the port's
+    spans on: its operator applications (``eigsh.applications``) and the
+    device seconds launched inside its sweeps, CholQR2 passes and
+    Rayleigh-Ritz projections and ``eigh`` (``eigsh.sweep``,
+    ``eigsh.cholqr``, ``eigsh.ritz``), with the count of each span (the
+    profiler slows this run against the warm ones). `clip(op)` runs the
+    clip on the operator (default: phase 13's); its result comes back
+    first, then the split (a dict), the solver's log and the wall."""
+    from bench_torch import program_trace
     from glomargridding_tpu_torch import explained_variance_clip_lowrank
-    from glomargridding_tpu_torch.ops import eigsh
 
     if clip is None:
         def clip(op):
@@ -1587,20 +1593,25 @@ def clip_instrumented(mv, n, trace, clip=None):
                 op, n=n, trace=trace, target_variance_fraction=CLIP_TARGET,
                 **CLIP_KW)
 
-    watch = {"sweeps": Stopwatch(mv), "cholqr": Stopwatch(eigsh._cholqr2),
-             "eigh": Stopwatch(eigsh._ritz_eigh)}
-    keep = eigsh._cholqr2, eigsh._ritz_eigh
-    eigsh._cholqr2, eigsh._ritz_eigh = watch["cholqr"], watch["eigh"]
-    try:
-        with solver_log() as log:
-            sync()
-            t0 = time.perf_counter()
-            psd = clip(watch["sweeps"])
-            sync()
-            total = time.perf_counter() - t0
-    finally:
-        eigsh._cholqr2, eigsh._ritz_eigh = keep
-    return psd, watch, log, total
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    before = COUNTS["eigsh.applications"]
+    with solver_log() as log, spans_on(), torch.profiler.profile(
+            activities=activities) as prof:
+        sync()
+        t0 = time.perf_counter()
+        psd = clip(mv)
+        sync()
+        total = time.perf_counter() - t0
+    program = program_trace.from_kineto(prof.profiler.kineto_results)
+    device = program_trace.device_seconds_by_span(program, -np.inf, np.inf)
+    split = {"sweeps": COUNTS["eigsh.applications"] - before}
+    for name in ("sweep", "cholqr", "ritz"):
+        split[f"{name}_s"] = device.get(f"eigsh.{name}", 0.0)
+        split[f"{name}_calls"] = sum(s.name == f"eigsh.{name}"
+                                     for s in program.spans)
+    return psd, split, log, total
 
 
 def eigh_f64_seconds(n, dev):
@@ -1674,7 +1685,6 @@ def phase13_psd_repair(dev, glat, glon):
         ellipse_covariance_operator,
         explained_variance_clip_lowrank,
     )
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
 
     args = ellipse_args(glat, glon, realistic_ellipse_params(glat, glon),
                         torch.float32, dev)
@@ -1685,9 +1695,9 @@ def phase13_psd_repair(dev, glat, glon):
     warm = wall_median_s(lambda: explained_variance_clip_lowrank(
         mv, n=n, trace=trace, target_variance_fraction=CLIP_TARGET,
         **CLIP_KW))
-    psd, watch, log, total = clip_instrumented(mv, n, trace)
+    psd, split, log, total = clip_instrumented(mv, n, trace)
     k2_launches = require_launches("K2 (the repair's bf16 store)",
-                                   te.ellipse_sym.launches)
+                                   COUNTS["k2.launches"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not isinstance(psd, LowRankPSD) or (
             psd.vectors.device.type != dev.type
@@ -1700,22 +1710,20 @@ def phase13_psd_repair(dev, glat, glon):
         raise AssertionError("gains must be >= 0 and the floor > 0")
     trace_rel = check("trace of the factors vs the operator's",
                       abs(psd.trace() - trace) / trace, TRACE_TOL)
-    eigh_log = watch["eigh"].log
     del mv
     sub = sub_problem_checks(dev)
     phase(13, "psd_repair_64800", k2_launches=k2_launches,
           target=CLIP_TARGET, rank=psd.rank,
           effective_rank=psd.effective_rank,
-          stages=log.widenings + 1, sweeps=watch["sweeps"].calls,
+          stages=log.widenings + 1, sweeps=split["sweeps"],
           final_resid_over_theta1=log.accepted,
           trace=f"{trace:.6g}", trace_rel=f"{trace_rel:.3e}",
           trace_tol=TRACE_TOL, floor=f"{float(psd.floor[0]):.4g}",
           instrumented_s=f"{total:.3f}",
-          sweeps_s=f"{watch['sweeps'].seconds:.3f}",
-          cholqr_s=f"{watch['cholqr'].seconds:.3f}",
-          cholqr_calls=watch["cholqr"].calls,
-          eigh_s=f"{watch['eigh'].seconds:.3f}",
-          eigh_f64_by_width="|".join(f"{w}:{t:.3f}" for w, t in eigh_log),
+          sweeps_s=f"{split['sweep_s']:.3f}",
+          cholqr_s=f"{split['cholqr_s']:.3f}",
+          cholqr_calls=split["cholqr_calls"],
+          ritz_s=f"{split['ritz_s']:.3f}", ritz_calls=split["ritz_calls"],
           clip_warm_s=f"{warm:.4f}", repeats=REPEATS,
           peak_gb=f"{peak_gb:.3f}",
           **{f"sub_{k}": v if isinstance(v, int) else f"{v:.4g}"
@@ -1775,7 +1783,6 @@ def phase14_lowrank_kriging(dev, psd, obs):
     from glomargridding_tpu_torch.models.kriging import (
         _ordinary_core,
         _simple_core,
-        _solve_sym,
     )
 
     idx, y, err = obs
@@ -1821,10 +1828,10 @@ def phase14_lowrank_kriging(dev, psd, obs):
 
     # the dense classes on the densified covariance
     C = psd.to_dense()
-    _solve_sym.branches.update(cholesky=0, lu=0)
+    COUNTS["kriging.solve.cholesky"] = COUNTS["kriging.solve.lu"] = 0
     ok = OrdinaryKriging(C, idx, y, err)
     dense = (ok.solve(), ok.get_uncertainty(), ok.constraint_mask())
-    branches = dict(_solve_sym.branches)
+    branches = solve_branches()
     if branches["cholesky"] == 0 or branches["lu"] != 0:
         raise AssertionError(f"the repaired K is not positive definite: "
                              f"{branches}")
@@ -2536,7 +2543,7 @@ def phase17_fitted_covariance(dev, params, axes):
     sync()
     seconds = time.perf_counter() - t0
     k2_launches = require_launches("K2 (fitted fields)",
-                                   te.ellipse_sym.launches)
+                                   COUNTS["k2.launches"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     m = cb.covar_size
     if cov.device.type != dev.type or cov.shape != (m, m) or (
@@ -2835,13 +2842,13 @@ def phase20_kv_general(dev, glat, glon, obs):
             glon_t.to(dtype), idx, y.to(dtype), error_cov=e.to(dtype),
             variance=PSILL, method="ordinary", n_blocks=16)
 
-    launches = pairwise_covariance.launches
-    plain = pairwise_covariance.plain_tiles
+    launches = COUNTS["k1.launches"]
+    plain = COUNTS["k1.plain_tiles"]
     res, first_s = timed_s(lambda: krige(general))
-    if pairwise_covariance.launches != launches:
+    if COUNTS["k1.launches"] != launches:
         raise AssertionError("K1 launched at a general order")
     plain_tiles = require_launches("plain tile at a general order",
-                                   pairwise_covariance.plain_tiles - plain)
+                                   COUNTS["k1.plain_tiles"] - plain)
     oracle = krige(general, torch.float64)
     errs = check_kriging(res, oracle, PSILL, f"nu={NU_GENERAL}")
     faults = {
@@ -3006,7 +3013,6 @@ def phase22_chebyshev_mvn(dev):
         sample_mvn_chebyshev,
         variogram_kernel,
     )
-    from glomargridding_tpu_torch.ops.cuda.pairwise import pairwise_covariance
     from glomargridding_tpu_torch.ops.sampling import (
         Matvec,
         chebyshev_sqrt_coeffs,
@@ -3027,7 +3033,7 @@ def phase22_chebyshev_mvn(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     z = torch.randn((n, N_MEMBERS), dtype=torch.float64, device=dev,
                     generator=gen)
-    pairwise_covariance.launches = 0
+    COUNTS["k1.launches"] = 0
     (floor, lam_max), range_s = timed_s(
         lambda: estimate_spectral_range(C32, n, generator=gen, device=dev))
     # the nugget is the exact floor of C = K + nugget I (K is positive
@@ -3039,7 +3045,7 @@ def phase22_chebyshev_mvn(dev):
         C32, n, N_MEMBERS, lam_min, lam_max, degree, noise=z, device=dev))
     sync()
     k1_launches = require_launches("K1 (kernel_matvec)",
-                                   pairwise_covariance.launches)
+                                   COUNTS["k1.launches"])
     if k1_launches != 16 * (30 + degree):
         raise AssertionError(f"{k1_launches} K1 launches for "
                              f"{30 + degree} matvecs of 16 blocks")
@@ -3188,7 +3194,6 @@ def pipeline_stages(tp, dev, gen, stages):
     through the twin's stage functions, timed into `stages`: (the kept
     cells' factors, their rank and trace change, the observations, the
     kriging and members, the QC codes and mask, K2's launches)."""
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
 
     lats, lons = tp.axes()
     mask, stages["mask"] = timed_s(lambda: tp.ocean_mask(lats, lons))
@@ -3211,7 +3216,7 @@ def pipeline_stages(tp, dev, gen, stages):
     cov, stages["assembly"] = timed_s(lambda: tp.assembly(
         params, left_out, lats, lons, dev))
     k2_launches = require_launches("K2 (the pipeline's assembly)",
-                                   te.ellipse_sym.launches)
+                                   COUNTS["k2.launches"])
     n = cov.shape[0]
     (psd, true_rank, trace_rel), stages["clip"] = timed_s(
         lambda: tp.psd_repair(cov, generator=gen))
@@ -3536,7 +3541,6 @@ def phase25_hadsst_workflow(dev):
     the f32 fit at the wrong order (nu = 0.5) as the control that must
     fall under that bound; the stationary fields against the stored TPU
     run. Returns K2's launches."""
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
 
     wf = examples_module("torch_hadsst_workflow")
     load = examples_module("torch_workflow_data").bundle_loader()
@@ -3551,14 +3555,14 @@ def phase25_hadsst_workflow(dev):
     reset_ellipse_counts()
     out32, wall = timed_s(lambda: run(f32))
     k2 = require_launches("K2 on the 5-degree workflow",
-                          te.ellipse_sym.launches)
+                          COUNTS["k2.launches"])
     params = out32["ellipse_params"]
     sparse = dict(zip(("year", "member"), SPARSE_ERA))
     reset_ellipse_counts()
     old32, old_wall = timed_s(lambda: run(f32, ellipse_params=params,
                                           **sparse))
     k2 += require_launches("K2 on the 1876 workflow",
-                           te.ellipse_sym.launches)
+                           COUNTS["k2.launches"])
 
     fit = workflow_fit_shares(wf, load, dev, params)
     fitted, fit64, lat, lon = fit["fitted"], fit["fit64"], fit["lat"], fit[
@@ -3645,18 +3649,15 @@ def phase26_esa_months_scan(dev):
     """examples/torch_esa_months_scan.py on the card: 41 Marches, padded
     and kriged by ``months_scan_kriging`` (K1 tiles), without and with
     the diagnostics, f32 against f64. Returns K1's launches."""
-    from glomargridding_tpu_torch.ops.cuda.pairwise import (
-        pairwise_covariance,
-    )
 
     scan = examples_module("torch_esa_months_scan")
     load = examples_module("torch_workflow_data").bundle_loader()
-    pairwise_covariance.launches = 0
+    COUNTS["k1.launches"] = 0
     out32 = scan.run(device=dev, dtype=torch.float32, load=load,
                      verbose=False)
     sync()
     k1 = require_launches("K1 on the months scan",
-                          pairwise_covariance.launches)
+                          COUNTS["k1.launches"])
     out64 = scan.run(device=dev, dtype=torch.float64, load=load,
                      verbose=False)
     k1_err = scan_tiles_vs_plain(scan, load, dev)
@@ -3746,9 +3747,6 @@ def phase27_raw_observations(dev):
         variogram_kernel,
         MaternVariogram,
     )
-    from glomargridding_tpu_torch.ops.cuda.pairwise import (
-        pairwise_covariance,
-    )
 
     grid = grid_from_resolution(1, [(-89.5, 90), (-179.5, 180)],
                                 ["lat", "lon"])
@@ -3828,10 +3826,10 @@ def phase27_raw_observations(dev):
             error_cov=Eg[dtype], variance=PSILL, method="ordinary",
             n_blocks=16)
 
-    pairwise_covariance.launches = 0
+    COUNTS["k1.launches"] = 0
     res32, krige_s = timed_s(lambda: krige(torch.float32))
     k1 = require_launches("K1 on the raw-observation kriging",
-                          pairwise_covariance.launches)
+                          COUNTS["k1.launches"])
     errs = check_kriging(res32, krige(torch.float64), PSILL,
                          "raw-observation kriging")
     phase(27, "raw_observations_1deg", raw_obs=RAW_OBS, boxes=int(u.numel()),
@@ -3915,7 +3913,6 @@ def phase28a_kriging(mesh, glat, glon, obs):
         variogram_kernel,
     )
     from glomargridding_tpu_torch.models.kernel_kriging import KrigingResult
-    from glomargridding_tpu_torch.ops.cuda.pairwise import pairwise_covariance
     from glomargridding_tpu_torch.parallel import sharded_kriging_from_kernel
 
     idx, y, err = obs
@@ -3937,11 +3934,11 @@ def phase28a_kriging(mesh, glat, glon, obs):
         return kriging_from_kernel(kernel, lats, lons, idx, y, e,
                                    variance=PSILL)
 
-    pairwise_covariance.launches = 0
+    COUNTS["k1.launches"] = 0
     got = sharded()
     sync()
     k1 = require_launches("K1 (sharded kriging)",
-                          pairwise_covariance.launches)
+                          COUNTS["k1.launches"])
     ref = single()
     errs = kriging_errs(got, ref, PSILL ** 0.5)
     f64 = sharded(torch.float64)
@@ -3979,7 +3976,7 @@ def phase28b_covariance(mesh, glat, glon):
     reset_ellipse_counts()
     cov, sharded_s = timed(lambda: sharded_ellipse_covariance(
         mesh, *fields, glat, glon, v=NU_NS))
-    k4 = require_launches("K4 (sharded row blocks)", te.ellipse_tile.launches)
+    k4 = require_launches("K4 (sharded row blocks)", COUNTS["k4.launches"])
     shapes = {tuple(p.shape) for p in cov.parts}
     P = te.pack_points(*ellipse_args(glat, glon, fields, torch.float32, dev))
     K2, k2_s = timed(lambda: te.ellipse_sym(P, NU_NS))
@@ -4012,7 +4009,6 @@ def phase28c_stream(mesh):
     phase 11's fields) at 8 and 1,024 columns against the single-device
     stream; returns (K3, K4) launches."""
     from glomargridding_tpu_torch import ellipse_covariance_operator
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
     from glomargridding_tpu_torch.parallel import (
         sharded_ellipse_stream_operator,
     )
@@ -4033,9 +4029,9 @@ def phase28c_stream(mesh):
     y1k = mv(x1k)
     sync()
     k3 = require_launches("K3 (sharded narrow stream)",
-                          te.ellipse_matvec.launches)
+                          COUNTS["k3.launches"])
     k4 = require_launches("K4 (sharded wide stream)",
-                          te.ellipse_tile.launches)
+                          COUNTS["k4.launches"])
     args = ellipse_args(q_lat, q_lon, fields, torch.float32, dev)
     single, _, _ = ellipse_covariance_operator(
         *args, v=NU_NS, store="stream", max_dist=MAX_DIST_KM)
@@ -4098,7 +4094,6 @@ def phase28d_clip(mesh, glat, glon, psd13):
         ellipse_covariance_operator,
         explained_variance_clip_lowrank,
     )
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
     from glomargridding_tpu_torch.ops.sampling import Matvec
     from glomargridding_tpu_torch.parallel import (
         sharded_ellipse_stream_operator,
@@ -4121,7 +4116,7 @@ def phase28d_clip(mesh, glat, glon, psd13):
 
     reset_ellipse_counts()
     psd, sharded_s = timed(lambda: clip(mv))
-    k3, k4 = te.ellipse_matvec.launches, te.ellipse_tile.launches
+    k3, k4 = COUNTS["k3.launches"], COUNTS["k4.launches"]
     require_launches("K3 or K4 (sharded clip)", k3 + k4)
     single, _, _ = ellipse_covariance_operator(
         *ellipse_args(glat, glon, fields, torch.float32, dev), v=NU_NS,
@@ -4851,7 +4846,7 @@ def qd_stream_checks(tq, dev, mv, fields, glat, glon, max_dist):
         raise AssertionError("a phase 29 d bound passes the 2,700 km cutoff")
 
 
-def qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, watch, log,
+def qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, split, log,
                    total):
     """Phase 29 e: the clip's split, its trace and explained share, and a
     second clip from another start block on a sub-block."""
@@ -4883,13 +4878,11 @@ def qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, watch, log,
           k0=tq.CLIP_KW["k0"], max_rank=tq.CLIP_KW["max_rank"],
           rank=f"{true_rank}->{psd.rank}", effective_rank=r,
           other_start_rank=other.effective_rank,
-          stages=log.widenings + 1, sweeps=watch["sweeps"].calls,
+          stages=log.widenings + 1, sweeps=split["sweeps"],
           final_resid_over_theta1=log.accepted, clip_s=f"{total:.3f}",
-          sweeps_s=f"{watch['sweeps'].seconds:.3f}",
-          cholqr_s=f"{watch['cholqr'].seconds:.3f}",
-          eigh_s=f"{watch['eigh'].seconds:.3f}",
-          eigh_f64_by_width="|".join(f"{w}:{t:.3f}"
-                                     for w, t in watch["eigh"].log),
+          sweeps_s=f"{split['sweep_s']:.3f}",
+          cholqr_s=f"{split['cholqr_s']:.3f}",
+          ritz_s=f"{split['ritz_s']:.3f}", ritz_calls=split["ritz_calls"],
           trace=f"{trace:.6g}", trace_rel=f"{trace_rel:.3e}",
           trace_tol=TRACE_TOL, explained=f"{explained:.4f}",
           sub_cells=QD_SUB_CELLS, other_start=f"{clip_err:.3e}",
@@ -4949,7 +4942,6 @@ def phase29_quarter_degree(dev):
     """Phase 29: examples/torch_nonstationary_quarter_degree.py at 259,200
     cells with nothing cut, stage by stage through the twin; returns the
     launches (K3, K4) of its stream and clip."""
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
 
     tq = examples_module("torch_nonstationary_quarter_degree")
     torch.cuda.empty_cache()
@@ -4966,16 +4958,16 @@ def phase29_quarter_degree(dev):
     reset_ellipse_counts()
     mv, n, trace = tq.stream_operator(glat, glon, fields, max_dist, dev)
     mv(torch.ones((n,), device=dev))
-    (psd, true_rank), watch, log, total = clip_instrumented(
+    (psd, true_rank), split, log, total = clip_instrumented(
         mv, n, trace, clip=lambda op: tq.psd_repair(op, n, trace, gen,
                                                     device=dev))
     sync()
     k3 = require_launches("K3 (the 0.5-degree stream)",
-                          te.ellipse_matvec.launches)
+                          COUNTS["k3.launches"])
     k4 = require_launches("K4 (the 0.5-degree stream)",
-                          te.ellipse_tile.launches)
+                          COUNTS["k4.launches"])
     qd_stream_checks(tq, dev, mv, fields, glat, glon, max_dist)
-    qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, watch, log, total)
+    qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, split, log, total)
     del mv
     qd_ensemble_checks(tq, dev, psd)
     phase(29, "quarter_degree", cells=n, fitted=n_fit, k3_launches=k3,
@@ -4994,14 +4986,13 @@ def phase30_lowrank_65k(dev):
     clip, the factored ensemble; held against f64 factors as phase 14
     holds its call. Returns K2's launches."""
     from glomargridding_tpu_torch import LowRankPSD, lowrank_kriging
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
 
     tm = examples_module("torch_nonstationary_65k_lowrank")
     reset_ellipse_counts()
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     out = tm.run(device=dev, generator=gen, verbose=False)
     k2 = require_launches("K2 (the 65k low-rank store)",
-                          te.ellipse_sym.launches)
+                          COUNTS["k2.launches"])
     psd, res = out["psd"], out["result"]
     psd64 = LowRankPSD(psd.vectors.double(), psd.gains.double(),
                        psd.floor.double())
@@ -5035,14 +5026,13 @@ def phase30_large_ensemble(dev):
     """examples/torch_large_ensemble_65k.py: K1's tiles against
     kernel_block's plain form, f32 members against f64 on the same
     normals, draws per second. Returns K1's launches of the f32 run."""
-    from glomargridding_tpu_torch.ops.cuda.pairwise import pairwise_covariance
 
     tl = examples_module("torch_large_ensemble_65k")
-    pairwise_covariance.launches = 0
+    COUNTS["k1.launches"] = 0
     out = tl.run(device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED + 41), verbose=False)
     k1 = require_launches("K1 (the large ensemble)",
-                          pairwise_covariance.launches)
+                          COUNTS["k1.launches"])
     out64 = tl.run(device=dev, dtype=torch.float64, generator=torch.Generator(
         device=dev).manual_seed(SEED + 41), verbose=False)
     members_err = max_rel(out["members"], out64["members"])
@@ -5121,7 +5111,7 @@ def phase30_ellipse_40k(dev):
     reset_ellipse_counts()
     out = tc.run(device=dev, verbose=False)
     k4 = require_launches("K4 (the 40,000-point build)",
-                          te.ellipse_tile.launches)
+                          COUNTS["k4.launches"])
     cov = out["cov"]
     lats, lons, fields = tc.points()
     P64 = te.pack_points(*tc.kernel_inputs(lats, lons, fields,
@@ -5262,13 +5252,12 @@ def td_application(tt, dev, mv, glat, glon, fields, rng):
         _apply_wide,
         stream_plan,
     )
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
     from glomargridding_tpu_torch.ops.cuda.ellipse import pack_points
 
     n = glat.size
     X, draw_s = timed_s(lambda: tt.demonstration_block(rng, n, dev))
     Y, apply_s = timed_s(lambda: mv(X))
-    k4 = te.ellipse_tile.launches
+    k4 = COUNTS["k4.launches"]
     stats = mv.band_stats
     block = stats["block"]
     P32 = pack_points(*tt.operator_inputs(glat, glon, fields, device=dev))
@@ -5403,7 +5392,7 @@ def td_clip(tt, dev, mv, n, trace, gen):
     control (the factors without their floor)."""
     from glomargridding_tpu_torch import LowRankPSD
 
-    (psd, watch, log, total) = clip_instrumented(
+    (psd, split, log, total) = clip_instrumented(
         mv, n, trace, clip=lambda op: tt.psd_repair(op, n, trace, gen,
                                                     device=dev))
     trace_rel = abs(psd.trace() - trace) / trace
@@ -5412,11 +5401,11 @@ def td_clip(tt, dev, mv, n, trace, gen):
     control = abs(bare.trace() - trace) / trace
     phase(31, "d_clip", target=tt.TARGET, rank_cap=tt.rank_cap(),
           rank=psd.rank, effective_rank=psd.effective_rank,
-          stages=log.widenings + 1, sweeps=watch["sweeps"].calls,
+          stages=log.widenings + 1, sweeps=split["sweeps"],
           final_resid_over_theta1=log.accepted, clip_s=f"{total:.2f}",
-          sweeps_s=f"{watch['sweeps'].seconds:.2f}",
-          cholqr_s=f"{watch['cholqr'].seconds:.3f}",
-          eigh_s=f"{watch['eigh'].seconds:.3f}",
+          sweeps_s=f"{split['sweep_s']:.2f}",
+          cholqr_s=f"{split['cholqr_s']:.3f}",
+          ritz_s=f"{split['ritz_s']:.3f}",
           retained=f"{retained:.4f}", trace=f"{trace:.6g}",
           trace_rel=f"{trace_rel:.3e}", trace_tol=TRACE_TOL,
           control_no_floor=f"{control:.3e}")
@@ -5487,7 +5476,6 @@ def phase31_tenth_degree(dev):
     cells, f32, at its own arguments, stage by stage through the twin;
     returns K4's launches on its path (the W = 64 application and the
     clip's sweeps)."""
-    from glomargridding_tpu_torch.ops.cuda import ellipse as te
 
     tt = examples_module("torch_nonstationary_tenth_degree")
     torch.cuda.empty_cache()
@@ -5516,7 +5504,7 @@ def phase31_tenth_degree(dev):
     reset_ellipse_counts()
     psd, walls["clip"] = td_clip(tt, dev, mv, n, trace, gen)
     k4 = require_launches("K4 (the 0.1-degree clip)",
-                          te.ellipse_tile.launches) + k4_demo
+                          COUNTS["k4.launches"]) + k4_demo
     split = td_times(tt, dev, X, glat, glon, fields, stats["block"])
     del X, mv
     torch.cuda.empty_cache()

@@ -45,6 +45,7 @@ from ...ops.distances import sigma_rot_flat
 from ...ops.sampling import Matvec, _mm_bf16_f32
 from ...ops.special import xv_kv
 from ...utils.device import resolve_device
+from ...utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -459,20 +460,20 @@ def ellipse_covariance_operator(
     The operator lives on `device`; with no device, on the inputs' if one
     is a tensor, else on the card (``resolve_device``).
     """
-    device = resolve_device(device, sig_flat, lats_rad, lons_rad, sqrt_dets,
-                            stdevs)
-    P = pack_points(lats_rad, lons_rad, torch.as_tensor(sig_flat,
-                                                        device=device),
-                    sqrt_dets, stdevs)
-    n = P.shape[0]
-    diag = P[:, 6].float() ** 2
-    trace = float(torch.sum(diag))
-    kernel = (v, delta_x_method, max_dist)
-    if store == "stream":
-        return _stream_matvec(P, diag, n_blocks, *kernel), n, trace
-    if store != "bf16":
-        raise ValueError(f"Unknown store: {store!r}")
-    return _bf16_matvec(P, diag, n_blocks, assemble, *kernel), n, trace
+    with span("assembly.operator"):
+        device = resolve_device(device, sig_flat, lats_rad, lons_rad,
+                                sqrt_dets, stdevs)
+        P = pack_points(lats_rad, lons_rad, torch.as_tensor(
+            sig_flat, device=device), sqrt_dets, stdevs)
+        n = P.shape[0]
+        diag = P[:, 6].float() ** 2
+        trace = float(torch.sum(diag))
+        kernel = (v, delta_x_method, max_dist)
+        if store == "stream":
+            return _stream_matvec(P, diag, n_blocks, *kernel), n, trace
+        if store != "bf16":
+            raise ValueError(f"Unknown store: {store!r}")
+        return _bf16_matvec(P, diag, n_blocks, assemble, *kernel), n, trace
 
 
 def stream_plan(lat_rows, lat_cols, block, max_dist):
@@ -551,20 +552,21 @@ def _bf16_matvec(P, diag, n_blocks, assemble, v, delta_x_method, max_dist):
         raise ValueError(f"Unknown assemble: {assemble!r}")
     if assemble == "pallas" and not kernel_order:
         raise ValueError("assemble='pallas' requires half-integer v <= 3.5")
-    if assemble == "pallas" or (assemble == "auto" and kernel_order):
-        A = ellipse_sym(P.float(), v, delta_x_method, max_dist,
-                        out_dtype=torch.bfloat16, add_diag=False,
-                        keep_pad=True)
-    else:
-        block = _block_rows(n, n_blocks)
-        A = torch.empty((n, n), dtype=torch.bfloat16, device=P.device)
-        ws = torch.empty(block * n, dtype=P.dtype, device=P.device)
-        for r0 in range(0, n, block):
-            r1 = min(r0 + block, n)
-            tile = ws[: (r1 - r0) * n].view(r1 - r0, n)
-            A[r0:r1] = _tile_into(P[r0:r1], P, v, delta_x_method, max_dist,
-                                  tile)
-        del ws
+    with span("assembly.store"):
+        if assemble == "pallas" or (assemble == "auto" and kernel_order):
+            A = ellipse_sym(P.float(), v, delta_x_method, max_dist,
+                            out_dtype=torch.bfloat16, add_diag=False,
+                            keep_pad=True)
+        else:
+            block = _block_rows(n, n_blocks)
+            A = torch.empty((n, n), dtype=torch.bfloat16, device=P.device)
+            ws = torch.empty(block * n, dtype=P.dtype, device=P.device)
+            for r0 in range(0, n, block):
+                r1 = min(r0 + block, n)
+                tile = ws[: (r1 - r0) * n].view(r1 - r0, n)
+                A[r0:r1] = _tile_into(P[r0:r1], P, v, delta_x_method,
+                                      max_dist, tile)
+            del ws
 
     def bf16(x):
         x2 = _as_2d(x, P).float()

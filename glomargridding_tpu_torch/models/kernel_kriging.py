@@ -33,6 +33,7 @@ from ..constants import RADIUS_OF_EARTH_KM
 from ..ops.cuda.pairwise import DISTANCES, TILE_N, pairwise_covariance
 from ..ops.distances import radians
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 
 
 class KrigingResult(NamedTuple):
@@ -126,13 +127,15 @@ def _index(idx, la):
 
 def _factor(kernel_fn, la, lo, idx, y, error_cov):
     """Observation system: coordinates, L = chol(K), u = K^-1 1, w = K^-1 y."""
-    la_o = la[idx]
-    lo_o = lo[idx]
-    K = kernel_fn(la_o, lo_o, la_o, lo_o)
-    if error_cov is not None:
-        K = K + error_cov
-    L = torch.linalg.cholesky(K)
-    uw = torch.cholesky_solve(torch.stack([torch.ones_like(y), y], dim=1), L)
+    with span("kriging.factor"):
+        la_o = la[idx]
+        lo_o = lo[idx]
+        K = kernel_fn(la_o, lo_o, la_o, lo_o)
+        if error_cov is not None:
+            K = K + error_cov
+        L = torch.linalg.cholesky(K)
+        uw = torch.cholesky_solve(torch.stack([torch.ones_like(y), y], dim=1),
+                                  L)
     return la_o, lo_o, L, uw[:, 0], uw[:, 1]
 
 
@@ -153,8 +156,9 @@ def _obs_system(kernel_fn, la, lo, idx, y, error_cov, fields_only=False):
     la_o, lo_o, L, u, w = _factor(kernel_fn, la, lo, idx, y, error_cov)
     Linv = None
     if not fields_only:
-        eye = torch.eye(idx.shape[0], dtype=L.dtype, device=L.device)
-        Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        with span("kriging.inverse"):
+            eye = torch.eye(idx.shape[0], dtype=L.dtype, device=L.device)
+            Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     return la_o, lo_o, _ObsSystem(u, w, torch.sum(u), u @ y, Linv)
 
 
@@ -176,25 +180,28 @@ def _grid_columns(
         uncert2 = torch.empty_like(field)
         cmask = torch.empty_like(field)
 
-    for start, stop in _blocks(m, n_blocks):
-        Cc = kernel_fn(la_o, lo_o, la[start:stop], lo[start:stop])  # (n, B)
-        R = M2 @ Cc  # rows: u@Cc, w@Cc
-        if method == "ordinary":
-            t = R[0]
-            lam = (t - 1.0) / s
-            field[start:stop] = R[1] - lam * uy
-        else:
-            field[start:stop] = R[1] + mean
-        if fields_only:
-            continue
-        # squared in place: U is not needed afterwards
-        sv = torch.sum((Linv @ Cc).square_(), dim=0)
-        if method == "ordinary":
-            wc = sv - lam * t
-            uncert2[start:stop] = variance - (wc + lam) - lam
-        else:
-            uncert2[start:stop] = variance - sv
-        cmask[start:stop] = sv / variance
+    blocks = _blocks(m, n_blocks)
+    count("kriging.column_blocks", len(blocks))
+    with span("kriging.columns"):
+        for start, stop in blocks:
+            Cc = kernel_fn(la_o, lo_o, la[start:stop], lo[start:stop])
+            R = M2 @ Cc  # rows: u@Cc, w@Cc
+            if method == "ordinary":
+                t = R[0]
+                lam = (t - 1.0) / s
+                field[start:stop] = R[1] - lam * uy
+            else:
+                field[start:stop] = R[1] + mean
+            if fields_only:
+                continue
+            # squared in place: U is not needed afterwards
+            sv = torch.sum((Linv @ Cc).square_(), dim=0)
+            if method == "ordinary":
+                wc = sv - lam * t
+                uncert2[start:stop] = variance - (wc + lam) - lam
+            else:
+                uncert2[start:stop] = variance - sv
+            cmask[start:stop] = sv / variance
     return field, uncert2, cmask
 
 
@@ -230,13 +237,15 @@ def kriging_from_kernel(
     """
     if method not in ("ordinary", "simple"):
         raise ValueError(f"Unknown kriging method: {method}")
-    la, lo = _grid(grid_lats, grid_lons, device, idx, obs, error_cov)
-    field, uncert2, cmask = _kernel_kriging(
-        kernel_fn, la, lo, _index(idx, la), _like(obs, la),
-        _like(error_cov, la), float(variance), float(mean), method,
-        n_blocks,
-    )
-    uncert = torch.sqrt(torch.clamp(uncert2, min=0.0))
+    with span("kriging.call"):
+        with span("kriging.inputs"):
+            la, lo = _grid(grid_lats, grid_lons, device, idx, obs, error_cov)
+            idx, y, E = _index(idx, la), _like(obs, la), _like(error_cov, la)
+        field, uncert2, cmask = _kernel_kriging(
+            kernel_fn, la, lo, idx, y, E, float(variance), float(mean),
+            method, n_blocks,
+        )
+        uncert = torch.sqrt(torch.clamp(uncert2, min=0.0))
     return KrigingResult(field, uncert, cmask)
 
 
@@ -261,41 +270,44 @@ def ensemble_from_kernel(
     `noise` of shape (n_members, n_obs). Returns (field (M,),
     members (n_members, M)).
     """
-    la, lo = _grid(grid_lats, grid_lons, device, idx, obs, error_cov, noise)
-    idx = _index(idx, la)
-    y = _like(obs, la)
-    la_o, lo_o, L, u, w = _factor(
-        kernel_fn, la, lo, idx, y, _like(error_cov, la)
-    )
-    n = idx.shape[0]
-    s = torch.sum(u)
-    uy = u @ y
-    if noise is None:
-        z = torch.randn(
-            (n_members, n), generator=generator, dtype=la.dtype,
-            device=la.device,
-        )
-    else:
-        z = _like(noise, la)
-        if z.shape != (n_members, n):
-            raise ValueError(
-                f"noise has shape {tuple(z.shape)}, expected {(n_members, n)}"
-            )
-    sim_obs = z @ L.T
-    S = torch.cholesky_solve(sim_obs.T, L).T  # (members, n)
-    # u, w and the member weights as ONE left operand per tile
-    M = torch.cat([u[None, :], w[None, :], S], dim=0)
+    with span("kriging.call"):
+        with span("kriging.inputs"):
+            la, lo = _grid(grid_lats, grid_lons, device, idx, obs,
+                           error_cov, noise)
+            idx, y, E = _index(idx, la), _like(obs, la), _like(error_cov, la)
+            z = None if noise is None else _like(noise, la)
+        la_o, lo_o, L, u, w = _factor(kernel_fn, la, lo, idx, y, E)
+        n = idx.shape[0]
+        with span("kriging.members"):
+            s = torch.sum(u)
+            uy = u @ y
+            if z is None:
+                z = torch.randn(
+                    (n_members, n), generator=generator, dtype=la.dtype,
+                    device=la.device,
+                )
+            elif z.shape != (n_members, n):
+                raise ValueError(f"noise has shape {tuple(z.shape)}, "
+                                 f"expected {(n_members, n)}")
+            sim_obs = z @ L.T
+            S = torch.cholesky_solve(sim_obs.T, L).T  # (members, n)
+            # u, w and the member weights as ONE left operand per tile
+            M = torch.cat([u[None, :], w[None, :], S], dim=0)
 
-    m = la.shape[0]
-    field = torch.empty(m, dtype=la.dtype, device=la.device)
-    members = torch.empty((n_members, m), dtype=la.dtype, device=la.device)
-    for start, stop in _blocks(m, n_blocks):
-        Cc = kernel_fn(la_o, lo_o, la[start:stop], lo[start:stop])
-        R = M @ Cc  # rows: u@Cc, w@Cc, then S@Cc
-        lam = (R[0] - 1.0) / s
-        f = R[1] - lam * uy
-        field[start:stop] = f
-        members[:, start:stop] = f[None, :] + R[2:]
+        m = la.shape[0]
+        field = torch.empty(m, dtype=la.dtype, device=la.device)
+        members = torch.empty((n_members, m), dtype=la.dtype,
+                              device=la.device)
+        blocks = _blocks(m, n_blocks)
+        count("kriging.column_blocks", len(blocks))
+        with span("kriging.columns"):
+            for start, stop in blocks:
+                Cc = kernel_fn(la_o, lo_o, la[start:stop], lo[start:stop])
+                R = M @ Cc  # rows: u@Cc, w@Cc, then S@Cc
+                lam = (R[0] - 1.0) / s
+                f = R[1] - lam * uy
+                field[start:stop] = f
+                members[:, start:stop] = f[None, :] + R[2:]
     return field, members
 
 

@@ -41,6 +41,7 @@ from ..utils.arrays import (
     intersect_mtlb,
 )
 from ..utils.device import resolve_device
+from ..utils.profiling import count
 
 KrigMethod = Literal["simple", "ordinary"]
 
@@ -60,17 +61,15 @@ def _solve_sym(K, B):
     Kriging systems built from true covariances take the Cholesky path;
     variogram-style systems (zero diagonal, the GeoStats.jl
     configuration) and covariances that are not positive definite take
-    the LU path. ``_solve_sym.branches`` counts each.
+    the LU path. ``COUNTS`` counts each (``kriging.solve.cholesky``,
+    ``kriging.solve.lu``).
     """
     L, info = torch.linalg.cholesky_ex(K)
     if int(info) == 0:
-        _solve_sym.branches["cholesky"] += 1
+        count("kriging.solve.cholesky")
         return torch.cholesky_solve(B, L)
-    _solve_sym.branches["lu"] += 1
+    count("kriging.solve.lu")
     return torch.linalg.solve(K, B)
-
-
-_solve_sym.branches = {"cholesky": 0, "lu": 0}
 
 
 def _column_dot(C_cross, V):

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.covariance_tools import LowRankPSD, _normals
+from ..utils.profiling import span
 from .kernel_kriging import _add_error, _loo_from_K
 
 
@@ -326,19 +327,25 @@ def _lowrank_solve(
     # single stacked solve
     sim_obs = None
     if n_members > 0:
-        z1, z2, zo = _normals(
-            noise, generator,
-            [(n, n_members), (r, n_members), (m, n_members)], V)
-        states = _states(V, g, f, z1, z2)  # (n, members)
-        sim_obs = states[idx] + _obs_noise(E, e_vec, zo, e_diag)
+        with span("lowrank.states"):
+            z1, z2, zo = _normals(
+                noise, generator,
+                [(n, n_members), (r, n_members), (m, n_members)], V)
+            states = _states(V, g, f, z1, z2)  # (n, members)
+            sim_obs = states[idx] + _obs_noise(E, e_vec, zo, e_diag)
 
-    sol = _obs_solve(V_o, g, f_o, E, e_vec, y, sim_obs, diagnostics, e_diag)
-    field, uncert2, cmask = _finish_rows(V, g, f, V_o, f_o, idx, None, y,
-                                         sol)
+    with span("lowrank.solve"):
+        sol = _obs_solve(V_o, g, f_o, E, e_vec, y, sim_obs, diagnostics,
+                         e_diag)
+    with span("lowrank.rows"):
+        field, uncert2, cmask = _finish_rows(V, g, f, V_o, f_o, idx, None,
+                                             y, sol)
     if n_members == 0:
         members = torch.zeros((0, n), dtype=V.dtype, device=V.device)
         return field, uncert2, cmask, members
-    members = _members_rows(V, g, V_o, f_o, idx, None, sol.A, states, field)
+    with span("lowrank.members"):
+        members = _members_rows(V, g, V_o, f_o, idx, None, sol.A, states,
+                                field)
     return field, uncert2, cmask, members
 
 
@@ -379,12 +386,13 @@ def lowrank_kriging(
     in tests); cost O(m^3 + n r^2) dense-E / O(n r^2 + m r^2)
     diagonal-E, memory O(n r). Runs on `psd`'s device.
     """
-    idx, y, E = _inputs(psd, idx, obs, error_cov)
-    field, uncert2, cmask, _ = _lowrank_solve(
-        psd.vectors, psd.gains, psd.floor, E, idx, y, 0,
-        e_diag=_is_diagonal(E),
-    )
-    return _result(field, uncert2, cmask)
+    with span("lowrank.call"):
+        with span("lowrank.inputs"):
+            idx, y, E = _inputs(psd, idx, obs, error_cov)
+            e_diag = _is_diagonal(E)
+        field, uncert2, cmask, _ = _lowrank_solve(
+            psd.vectors, psd.gains, psd.floor, E, idx, y, 0, e_diag=e_diag)
+        return _result(field, uncert2, cmask)
 
 
 def lowrank_ensemble_step(
@@ -410,12 +418,15 @@ def lowrank_ensemble_step(
     Returns (result, members): a ``LowRankKrigingResult`` and the
     (n_members, n) member stack.
     """
-    idx, y, E = _inputs(psd, idx, obs, error_cov)
-    field, uncert2, cmask, members = _lowrank_solve(
-        psd.vectors, psd.gains, psd.floor, E, idx, y, int(n_members),
-        e_diag=_is_diagonal(E), generator=generator, noise=noise,
-    )
-    return _result(field, uncert2, cmask), members
+    with span("lowrank.call"):
+        with span("lowrank.inputs"):
+            idx, y, E = _inputs(psd, idx, obs, error_cov)
+            e_diag = _is_diagonal(E)
+        field, uncert2, cmask, members = _lowrank_solve(
+            psd.vectors, psd.gains, psd.floor, E, idx, y, int(n_members),
+            e_diag=e_diag, generator=generator, noise=noise,
+        )
+        return _result(field, uncert2, cmask), members
 
 
 def lowrank_months_scan(
@@ -445,23 +456,27 @@ def lowrank_months_scan(
     sequence of T ``(z1, z2, zo)`` triples, one per month.
     """
     V = psd.vectors
-    idx_m = torch.as_tensor(idx_months, device=V.device).long()
-    obs_m = torch.as_tensor(obs_months, dtype=V.dtype, device=V.device)
-    err_m = torch.as_tensor(error_cov_months, dtype=V.dtype, device=V.device)
-    # (T, m): stacked DIAGONALS by contract; (T, m, m): stacked matrices,
-    # diagonality checked on the device
-    e_diag = err_m.dim() == 2 or _is_diagonal(err_m)
-    out = [
-        _lowrank_solve(
-            V, psd.gains, psd.floor, err_m[t], idx_m[t], obs_m[t],
-            int(n_members), bool(diagnostics), e_diag, generator,
-            None if noise is None else noise[t],
-        )
-        for t in range(idx_m.shape[0])
-    ]
-    field, uncert2, cmask, members = (
-        torch.stack([o[i] for o in out]) for i in range(4))
-    return _result(field, uncert2, cmask), members
+    with span("lowrank.call"):
+        with span("lowrank.inputs"):
+            idx_m = torch.as_tensor(idx_months, device=V.device).long()
+            obs_m = torch.as_tensor(obs_months, dtype=V.dtype,
+                                    device=V.device)
+            err_m = torch.as_tensor(error_cov_months, dtype=V.dtype,
+                                    device=V.device)
+            # (T, m): stacked DIAGONALS by contract; (T, m, m): stacked
+            # matrices, diagonality checked on the device
+            e_diag = err_m.dim() == 2 or _is_diagonal(err_m)
+        out = [
+            _lowrank_solve(
+                V, psd.gains, psd.floor, err_m[t], idx_m[t], obs_m[t],
+                int(n_members), bool(diagnostics), e_diag, generator,
+                None if noise is None else noise[t],
+            )
+            for t in range(idx_m.shape[0])
+        ]
+        field, uncert2, cmask, members = (
+            torch.stack([o[i] for o in out]) for i in range(4))
+        return _result(field, uncert2, cmask), members
 
 
 def lowrank_members_from_states(

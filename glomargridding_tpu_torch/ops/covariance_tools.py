@@ -37,6 +37,7 @@ import torch
 
 from ..utils.arrays import cor_2_cov, cov_2_cor
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .eigsh import PartialSpectrumError, adaptive_topk_eigh
 from .sampling import dense_matvec
 
@@ -318,9 +319,11 @@ class LowRankPSD:
         r_pad = -(-r // multiple) * multiple
         if r_pad == r:
             return self
-        dt = self.vectors.dtype
-        vecs = torch.nn.functional.pad(self.vectors, (0, r_pad - r))
-        gains = torch.nn.functional.pad(self.gains.to(dt), (0, r_pad - r))
+        with span("lowrank.pad"):
+            dt = self.vectors.dtype
+            vecs = torch.nn.functional.pad(self.vectors, (0, r_pad - r))
+            gains = torch.nn.functional.pad(self.gains.to(dt),
+                                            (0, r_pad - r))
         return LowRankPSD(vectors=vecs, gains=gains, floor=self.floor)
 
 
@@ -432,37 +435,38 @@ def explained_variance_clip_lowrank(  # noqa: C901
         m = int(math.ceil(math.log1p(-x) / math.log(rho)))
         return L + max(m, 1)
 
-    w, V, r = adaptive_topk_eigh(
-        operator, accept, n, k0=k0, max_rank=max_rank, generator=generator,
-        draw=draw, oversample=oversample, n_iter=n_iter, tol=tol,
-        rank_multiple=rank_multiple, dtype=dtype, predict=predict,
-        device=device,
-    )
-    retained = w[:r]
-    var_explained = float(retained.sum())
-    if trace < var_explained:
-        rel_excess = (var_explained - trace) / max(abs(trace), 1e-30)
-        if r < n and rel_excess > 1e-4:
-            new_threshold = float(retained[:-1].sum()) / trace
-            raise ValueError(
-                "Variance explained by retained eigenvalues exceeds "
-                "total variance. Resulting matrix will have negative "
-                "eigenvalues. Try using a lower threshold. A value "
-                f"below {new_threshold:.2f} may work."
-            )
-        # full-rank retention / solver roundoff: the clip is (near-)
-        # exact, so clamp instead of failing
-        var_explained = trace
-    # r == n: everything retained, the clip is exact and the floor is 0
-    avg = 0.0 if r >= n else (trace - var_explained) / (n - r)
-    logger.info("total explained variance = %s", trace)
-    logger.info("clipped explained variance = %s", var_explained)
-    # re-normalise the retained columns: the solver's wide basis is only
-    # ~1e-3 orthonormal in f32 when the operator's numerical rank is
-    # below the iteration width, and tr(W g W') depends directly on the
-    # column norms (trace preservation would silently degrade). V may be
-    # rank_multiple-padded; padding columns get zero gain.
-    return _factored(V, retained, avg, r, None)
+    with span("eigsh.clip"):
+        w, V, r = adaptive_topk_eigh(
+            operator, accept, n, k0=k0, max_rank=max_rank, generator=generator,
+            draw=draw, oversample=oversample, n_iter=n_iter, tol=tol,
+            rank_multiple=rank_multiple, dtype=dtype, predict=predict,
+            device=device,
+        )
+        retained = w[:r]
+        var_explained = float(retained.sum())
+        if trace < var_explained:
+            rel_excess = (var_explained - trace) / max(abs(trace), 1e-30)
+            if r < n and rel_excess > 1e-4:
+                new_threshold = float(retained[:-1].sum()) / trace
+                raise ValueError(
+                    "Variance explained by retained eigenvalues exceeds "
+                    "total variance. Resulting matrix will have negative "
+                    "eigenvalues. Try using a lower threshold. A value "
+                    f"below {new_threshold:.2f} may work."
+                )
+            # full-rank retention / solver roundoff: the clip is (near-)
+            # exact, so clamp instead of failing
+            var_explained = trace
+        # r == n: everything retained, the clip is exact and the floor is 0
+        avg = 0.0 if r >= n else (trace - var_explained) / (n - r)
+        logger.info("total explained variance = %s", trace)
+        logger.info("clipped explained variance = %s", var_explained)
+        # re-normalise the retained columns: the solver's wide basis is only
+        # ~1e-3 orthonormal in f32 when the operator's numerical rank is
+        # below the iteration width, and tr(W g W') depends directly on the
+        # column norms (trace preservation would silently degrade). V may be
+        # rank_multiple-padded; padding columns get zero gain.
+        return _factored(V, retained, avg, r, None)
 
 
 def _factored(V, retained, avg, r, d):
@@ -579,22 +583,23 @@ def laloux_clip_lowrank(  # noqa: C901
         m = int(math.ceil(math.log(threshold / b) / math.log(rho)))
         return L + max(m, 1)
 
-    w, V, r = adaptive_topk_eigh(
-        cor_mv, accept, n, k0=k0, max_rank=max_rank, generator=generator,
-        draw=draw, oversample=oversample, n_iter=n_iter, tol=tol,
-        rank_multiple=rank_multiple, dtype=dtype, predict=predict,
-        device=device,
-    )
-    retained = w[:r]
-    avg = 0.0 if r >= n else (n - float(retained.sum())) / (n - r)
-    if avg < 0:
-        raise ValueError(
-            "Retained eigenvalues exceed the correlation trace; the "
-            "aspect-ratio threshold retained too much variance."
+    with span("eigsh.clip"):
+        w, V, r = adaptive_topk_eigh(
+            cor_mv, accept, n, k0=k0, max_rank=max_rank, generator=generator,
+            draw=draw, oversample=oversample, n_iter=n_iter, tol=tol,
+            rank_multiple=rank_multiple, dtype=dtype, predict=predict,
+            device=device,
         )
-    # unit-normalise the correlation eigenvectors before the sqrt(diag)
-    # scaling (see explained_variance_clip_lowrank)
-    return _factored(V, retained, avg, r, d.to(V.dtype))
+        retained = w[:r]
+        avg = 0.0 if r >= n else (n - float(retained.sum())) / (n - r)
+        if avg < 0:
+            raise ValueError(
+                "Retained eigenvalues exceed the correlation trace; the "
+                "aspect-ratio threshold retained too much variance."
+            )
+        # unit-normalise the correlation eigenvectors before the sqrt(diag)
+        # scaling (see explained_variance_clip_lowrank)
+        return _factored(V, retained, avg, r, d.to(V.dtype))
 
 
 def _sharded_cor_mv(base_mv, inv_d, slots, whole_mv):

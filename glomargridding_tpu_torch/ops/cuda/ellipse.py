@@ -35,6 +35,7 @@ import torch
 
 from ...constants import RADIUS_OF_EARTH_KM
 from ...utils.device import resolve_device
+from ...utils.profiling import count
 from . import build
 
 TILE = 64  # the kernels' tile side (kTile in csrc/ellipse_tile.cu)
@@ -292,7 +293,7 @@ def ellipse_tile(
             f"ellipse_tile_launch failed with cudaError {status} "
             f"(m={m}, n={n}, dtype={rows.dtype}, v={v})"
         )
-    ellipse_tile.launches += 1
+    count("k4.launches")
     return out
 
 
@@ -335,7 +336,7 @@ def ellipse_sym(
             f"ellipse_sym_launch failed with cudaError {status} "
             f"(n={n}, dtype={P.dtype}, out_dtype={out_dtype}, v={v})"
         )
-    ellipse_sym.launches += 1
+    count("k2.launches")
     return out
 
 
@@ -384,14 +385,8 @@ def ellipse_matvec(
             f"ellipse_matvec_launch failed with cudaError {status} "
             f"(n={n}, depth={depth}, v={v})"
         )
-    ellipse_matvec.launches += 1
+    count("k3.launches")
     return y[:n, : x.shape[1]]
-
-
-# kernel launches, for run reports
-ellipse_tile.launches = 0
-ellipse_sym.launches = 0
-ellipse_matvec.launches = 0
 
 
 @functools.cache

@@ -17,7 +17,7 @@ and 3.5 and the other families; a Matern order outside them takes the
 plain tile on the card too (general-order K_nu, ``ops/special``), as the
 reference sends such orders to its jnp tile
 (``glomargridding_tpu/ops/pallas/pairwise.py:19``). That route is chosen
-from nu alone and counted (``pairwise_covariance.plain_tiles``). It is
+from nu alone and counted (``COUNTS["k1.plain_tiles"]``). It is
 not a fallback: a kernel that fails to build or launch raises.
 """
 
@@ -28,6 +28,7 @@ import torch
 
 from ...constants import RADIUS_OF_EARTH_KM
 from ..distances import asin_poly, degrees, radians
+from ...utils.profiling import count
 from ..variogram import MaternVariogram, Variogram, matern_left, matern_scale
 from . import build
 
@@ -153,15 +154,11 @@ def pairwise_covariance(
     if la1.device.type != "cuda":
         raise ValueError(f"unsupported device: {la1.device}")
     if tile_route(variogram) == "plain":
-        pairwise_covariance.plain_tiles += 1
+        count("k1.plain_tiles")
         return pairwise_covariance_torch(
             la1, lo1, la2, lo2, variogram, distance, variance, radius
         )
     return _launch(la1, lo1, la2, lo2, variogram, distance, variance, radius)
-
-
-pairwise_covariance.launches = 0  # kernel launches, for run reports
-pairwise_covariance.plain_tiles = 0  # CUDA tiles on the plain route
 
 
 def _launch(la1, lo1, la2, lo2, variogram, distance, variance, radius):
@@ -186,7 +183,7 @@ def _launch(la1, lo1, la2, lo2, variogram, distance, variance, radius):
             f"(m={m}, n={n}, dtype={la1.dtype}, distance={distance}, "
             f"family={family})"
         )
-    pairwise_covariance.launches += 1
+    count("k1.launches")
     return out
 
 

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .sampling import dense_matvec
 
 logger = logging.getLogger(__name__)
@@ -185,9 +186,10 @@ def _cholqr2(Y):
     block. The flag stays on the device: callers combine flags across
     all passes of a stage and read them once.
     """
-    Q, ok1 = _cholqr_once(Y)
-    Q, ok2 = _cholqr_once(Q)
-    return Q, ok1 & ok2
+    with span("eigsh.cholqr"):
+        Q, ok1 = _cholqr_once(Y)
+        Q, ok2 = _cholqr_once(Q)
+        return Q, ok1 & ok2
 
 
 def _as_matvec(operator, n: int | None, device=None):
@@ -274,23 +276,29 @@ def _normal(draw, gen, dtype, device, slots):
 
 
 def _apply(matvec, X):
-    """The operator's product as a block like X."""
-    if _sharded(X):
-        return _map(lambda y, x: y.to(x.dtype), matvec(X), X)
-    return torch.as_tensor(matvec(X), device=X.device).to(X.dtype)
+    """The operator's product as a block like X: the one door every
+    application of the operator goes through, counted here."""
+    count("eigsh.applications")
+    count("eigsh.columns", X.shape[-1])
+    with span("eigsh.sweep"):
+        if _sharded(X):
+            return _map(lambda y, x: y.to(x.dtype), matvec(X), X)
+        return torch.as_tensor(matvec(X), device=X.device).to(X.dtype)
 
 
 def _ritz_eigh(T, dtype):
     """Eigenpairs of the symmetric (w, w) projection, DESCENDING: the
     values as a float64 numpy vector on the host, the vectors on T's
     device in `dtype`. Solved in float64 on the device."""
-    theta, U = torch.linalg.eigh(T.double())
-    return theta.flip(0).cpu().numpy(), U.flip(1).to(dtype)
+    with span("eigsh.ritz"):
+        theta, U = torch.linalg.eigh(T.double())
+        return theta.flip(0).cpu().numpy(), U.flip(1).to(dtype)
 
 
 def _projection(Q, B):
-    T = _gram(Q, B)
-    return 0.5 * (T + T.T)
+    with span("eigsh.ritz"):
+        T = _gram(Q, B)
+        return 0.5 * (T + T.T)
 
 
 def topk_eigh(
@@ -430,6 +438,7 @@ def _householder_iterate(matvec, Z, n_iter):
     column norms with scaling, so it survives magnitudes CholQR cannot.
     Returns (Q, B = A @ Q).
     """
+    count("eigsh.householder")
     Y = _apply(matvec, Z)
     for _ in range(n_iter):
         Y = _apply(matvec, _qr_q(Y))
@@ -608,6 +617,7 @@ def adaptive_topk_eigh(  # noqa: C901
             w, V = _exact(matvec, n, dtype, device)
             r = accept(w)
             r = n if r is None else r
+            count("eigsh.kept", r)
             return w, _cols(V, None, r), r
 
         Q, B, all_ok, T = run_stage(width, locked)
@@ -634,24 +644,30 @@ def adaptive_topk_eigh(  # noqa: C901
                         "adaptive eigh: structural accept r=%d at "
                         "width=%d (round %d)", r, width, rounds,
                     )
+                    count("eigsh.kept", r)
                     return w, _rmul(Q, U_r), r
-                theta_r = torch.as_tensor(w[:rp], dtype=dtype, device=device)
-                mask = (torch.arange(rp, device=device) < r).to(dtype)
-                resid_max, V = _resid_and_vectors(Q, B, U_r, theta_r, mask)
-                scale = max(abs(float(w[0])), tiny)
-                rel = float(resid_max) / scale
+                with span("eigsh.gate"):
+                    theta_r = torch.as_tensor(w[:rp], dtype=dtype,
+                                              device=device)
+                    mask = (torch.arange(rp, device=device) < r).to(dtype)
+                    resid_max, V = _resid_and_vectors(Q, B, U_r, theta_r,
+                                                      mask)
+                    scale = max(abs(float(w[0])), tiny)
+                    rel = float(resid_max) / scale
                 logger.info(
                     "adaptive eigh: width=%d r=%d round=%d "
                     "max_resid/theta1=%.3e (tol %.1e)",
                     width, r, rounds, rel, tol,
                 )
                 if rel <= tol:
+                    count("eigsh.kept", r)
                     return w, V, r  # residual gate
                 del V
             if r is None or r > k or rounds >= extra_rounds:
                 break  # deeper head needed, or sharpening exhausted
             # sharpen the same block: one more power iteration
             rounds += 1
+            count("eigsh.extra_rounds")
             del Q
             Q, B, ok, T = extra_round(B)
             all_ok = all_ok & ok
@@ -667,16 +683,18 @@ def adaptive_topk_eigh(  # noqa: C901
         # unconverged pair is ever frozen), carry the rest's action as
         # the re-iteration warm start: ~2 (n, w) matmuls, no operator
         # sweep
-        align = max(1, rank_multiple)
-        scale = max(abs(float(w[0])), tiny)
-        theta_sorted = torch.as_tensor(w, dtype=dtype, device=device)
-        QU, BU, rn = _rotate_ritz(Q, B, U, theta_sorted)
-        n_conv = _converged_prefix(rn, scale, tol)
-        n_lock = n_conv - n_conv % align
-        locked = (_cols(QU, None, n_lock), _cols(BU, None, n_lock),
-                  _cols(BU, n_lock))
-        del QU, BU
-        del Q, B, T, U
+        count("eigsh.widenings")
+        with span("eigsh.lock"):
+            align = max(1, rank_multiple)
+            scale = max(abs(float(w[0])), tiny)
+            theta_sorted = torch.as_tensor(w, dtype=dtype, device=device)
+            QU, BU, rn = _rotate_ritz(Q, B, U, theta_sorted)
+            n_conv = _converged_prefix(rn, scale, tol)
+            n_lock = n_conv - n_conv % align
+            locked = (_cols(QU, None, n_lock), _cols(BU, None, n_lock),
+                      _cols(BU, n_lock))
+            del QU, BU
+            del Q, B, T, U
 
         cap = min(n, max_rank)
         k_next = min(cap, 2 * k)

@@ -1,16 +1,34 @@
-"""Tracing / profiling helpers.
+"""Tracing and profiling: the port's one mechanism for each of three
+things.
 
-Port of ``glomargridding_tpu/utils/profiling.py``: a stage timer that
-waits for the card's work before it stops the clock (so timings are
-honest under asynchronous launches), a ``torch.profiler`` context that
-writes a Chrome trace, and memory budget estimates before a large matrix
-is materialised.
+- A stage timer (``stage_timer``, the port of
+  ``glomargridding_tpu/utils/profiling.py``'s) that waits for the card's
+  work before it stops the clock, so timings are honest under
+  asynchronous launches.
+- Spans and counters inside the program. ``span(name)`` marks a phase
+  of the work (``SPANS``: ``<layer>.<phase>``) on ``torch.profiler``'s
+  timeline, the clock the device's operations are recorded on, so a
+  profiler run puts every operation and every idle gap of the device
+  down to the innermost span open when the host launched or waited.
+  Spans are off by default, and then ``span`` is one flag test that
+  returns a shared null context; ``spans_on()`` switches them on for its
+  extent. A span never synchronises and never reads a clock of its own:
+  it does not change what the device does. ``count(name, n)`` adds to
+  ``COUNTS`` (names in ``COUNTERS``), always, at the cost of an integer
+  add: kernel launches, solver branches, the eigensolver's applications
+  and retained rank.
+- An exporter: ``device_trace(log_dir)`` profiles its extent with spans
+  on and writes a Chrome trace.
+
+Beside them, ``hbm_estimate`` / ``hbm_budget_check`` size a large matrix
+before it is materialised.
 """
 
+import collections
 import logging
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -18,6 +36,75 @@ import torch
 from .arrays import sizeof_fmt
 
 logger = logging.getLogger(__name__)
+
+# Every span, by layer: a layer's entry point opens one span over its
+# whole call (``kriging.call``, ``lowrank.call``, ``eigsh.clip``,
+# ``assembly.operator``) and its phases nest in it.
+SPANS = (
+    # models/kernel_kriging: kriging_from_kernel, ensemble_from_kernel
+    "kriging.call", "kriging.inputs", "kriging.factor", "kriging.inverse",
+    "kriging.members", "kriging.columns",
+    # models/lowrank: the entry points on _lowrank_solve, and pad_rank
+    "lowrank.call", "lowrank.inputs", "lowrank.states", "lowrank.solve",
+    "lowrank.rows", "lowrank.members", "lowrank.pad",
+    # ops/covariance_tools' low-rank clips -> ops/eigsh
+    "eigsh.clip", "eigsh.sweep", "eigsh.cholqr", "eigsh.ritz", "eigsh.gate",
+    "eigsh.lock",
+    # models/ellipse/covariance.ellipse_covariance_operator
+    "assembly.operator", "assembly.store",
+)
+_SPAN_SET = frozenset(SPANS)
+
+COUNTERS = (
+    # launches of the kernels K1-K4 (ops/cuda), and K1's tiles on the
+    # plain route (a Matern order without a kernel instantiation)
+    "k1.launches", "k1.plain_tiles", "k2.launches", "k3.launches",
+    "k4.launches",
+    # the dense kriging classes' solve (models/kriging._solve_sym)
+    "kriging.solve.cholesky", "kriging.solve.lu",
+    # models/kernel_kriging's grid column blocks
+    "kriging.column_blocks",
+    # ops/eigsh: operator applications and the columns they carry, the
+    # widenings, the sharpening rounds, the Householder rescues and the
+    # retained rank at each return of the adaptive solve
+    "eigsh.applications", "eigsh.columns", "eigsh.widenings",
+    "eigsh.extra_rounds", "eigsh.householder", "eigsh.kept",
+)
+_COUNTER_SET = frozenset(COUNTERS)
+
+COUNTS: collections.Counter = collections.Counter()
+
+_NULL = nullcontext()
+_spans_on = False
+
+
+def span(name: str):
+    """The phase `name` (declared in ``SPANS``) as a context manager: a
+    ``torch.profiler.record_function`` while spans are on, else a shared
+    null context."""
+    if not _spans_on:
+        return _NULL
+    if name not in _SPAN_SET:
+        raise ValueError(f"undeclared span {name!r}: add it to SPANS")
+    return torch.profiler.record_function(name)
+
+
+@contextmanager
+def spans_on():
+    """Spans on for the extent of the block (restored after it)."""
+    global _spans_on
+    before, _spans_on = _spans_on, True
+    try:
+        yield
+    finally:
+        _spans_on = before
+
+
+def count(name: str, n: int = 1):
+    """Add `n` to the counter `name` (declared in ``COUNTERS``)."""
+    if name not in _COUNTER_SET:
+        raise ValueError(f"undeclared counter {name!r}: add it to COUNTERS")
+    COUNTS[name] += n
 
 
 def _cuda_devices(obj, found: set) -> set:
@@ -60,13 +147,15 @@ def stage_timer(name: str, result_holder: dict | None = None):
 @contextmanager
 def device_trace(log_dir: str):
     """``torch.profiler`` context over the CPU and, when there is one, the
-    card; on exit writes a Chrome trace (``trace.json``, viewable in
-    Perfetto or chrome://tracing) into `log_dir` and yields the profiler."""
+    card, with spans on; on exit writes a Chrome trace (``trace.json``,
+    viewable in Perfetto or chrome://tracing) into `log_dir` and yields
+    the profiler. In the trace each device operation's launch sits under
+    the spans the host had open."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with spans_on(), torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

@@ -36,6 +36,7 @@ from glomargridding_tpu_torch.ops.variogram import (
     MaternVariogram,
     SphericalVariogram,
 )
+from glomargridding_tpu_torch.utils.profiling import COUNTS
 
 pytestmark = pytest.mark.cuda
 
@@ -184,13 +185,13 @@ def test_kriging_uses_the_kernel_only(monkeypatch):
     obs = g.normal(size=50)
     err = np.diag(0.1 + 0.05 * g.random(50))
     kernel = tkk.variogram_kernel(MaternVariogram(psill=1.2, range=1200.0))
-    before = tpair.pairwise_covariance.launches
+    before = COUNTS["k1.launches"]
     res = tkk.kriging_from_kernel(kernel, lat, lon, idx, obs, err,
                                   variance=1.2, n_blocks=4, device="cuda")
     torch.cuda.synchronize()
     assert res.field.is_cuda and bool(torch.isfinite(res.field).all())
     n_tiles = 1 + len(tkk._blocks(lat.size, 4))
-    assert tpair.pairwise_covariance.launches - before == n_tiles
+    assert COUNTS["k1.launches"] - before == n_tiles
     monkeypatch.undo()
     cpu = tkk.kriging_from_kernel(kernel, lat, lon, idx, obs, err,
                                   variance=1.2, n_blocks=4, device="cpu")
@@ -206,12 +207,11 @@ def test_other_orders_take_the_plain_tile(nu):
     tile's values."""
     c = _coords(63, 129, torch.float64)
     vario = MaternVariogram(psill=1.2, nugget=0.1, range=1500.0, nu=nu)
-    launches, plain = (tpair.pairwise_covariance.launches,
-                       tpair.pairwise_covariance.plain_tiles)
+    launches, plain = COUNTS["k1.launches"], COUNTS["k1.plain_tiles"]
     out = tpair.pairwise_covariance(*c, vario)
     torch.cuda.synchronize()
-    assert tpair.pairwise_covariance.launches == launches
-    assert tpair.pairwise_covariance.plain_tiles == plain + 1
+    assert COUNTS["k1.launches"] == launches
+    assert COUNTS["k1.plain_tiles"] == plain + 1
     cpu = tpair.pairwise_covariance(*(a.cpu() for a in c), vario)
     assert out.is_cuda
     assert _rel(out.cpu(), cpu, 1.3) <= 1e-12
@@ -227,10 +227,10 @@ def test_kernel_matvec_launches_k1_per_block():
     lo = np.radians(g.uniform(-180, 180, 1000))
     v = g.normal(size=(1000, 5))
     kernel = tkk.variogram_kernel(MaternVariogram(psill=1.2, range=1200.0))
-    before = tpair.pairwise_covariance.launches
+    before = COUNTS["k1.launches"]
     y = kernel_matvec(kernel, la, lo, n_blocks=7)(v)
     torch.cuda.synchronize()
-    assert tpair.pairwise_covariance.launches - before == 7
+    assert COUNTS["k1.launches"] - before == 7
     cpu = kernel_matvec(kernel, la, lo, n_blocks=7, device="cpu")(v)
     assert y.is_cuda
     assert _rel(y.cpu(), cpu, cpu.abs().max().item()) <= 1e-12
@@ -262,6 +262,12 @@ def _points(n, dtype, seed=0, device="cuda"):
 
 def _rel_max(k, p):
     return (torch.max(torch.abs(k - p)) / torch.max(torch.abs(p))).item()
+
+
+def _ellipse_launches():
+    """(K4, K2, K3) launches so far."""
+    return tuple(COUNTS[k] for k in ("k4.launches", "k2.launches",
+                                     "k3.launches"))
 
 
 ELLIPSE_CASES = [
@@ -361,8 +367,7 @@ def test_ellipse_matvec_matches_plain_and_dense(nu, method, max_dist):
 
 def test_ellipse_kernels_refuse_other_orders():
     P = _points(70, torch.float32)
-    before = (tell.ellipse_tile.launches, tell.ellipse_sym.launches,
-              tell.ellipse_matvec.launches)
+    before = _ellipse_launches()
     for call in (
         lambda: tell.ellipse_tile(P, P, 1.2),
         lambda: tell.ellipse_sym(P, 4.5),
@@ -370,17 +375,14 @@ def test_ellipse_kernels_refuse_other_orders():
     ):
         with pytest.raises(ValueError, match="half-integer"):
             call()
-    assert before == (tell.ellipse_tile.launches, tell.ellipse_sym.launches,
-                      tell.ellipse_matvec.launches)
+    assert before == _ellipse_launches()
 
 
 def test_ellipse_launch_counts_and_cpu_tensors(monkeypatch):
     """One launch per wrapper call on the card; a CPU tensor never
     launches; the stream operator's paths go through K3 and K4 only."""
     P = _points(400, torch.float32)
-    counts = lambda: (tell.ellipse_tile.launches,  # noqa: E731
-                      tell.ellipse_sym.launches,
-                      tell.ellipse_matvec.launches)
+    counts = _ellipse_launches
     before = counts()
     tell.ellipse_tile(P, P, 0.5)
     tell.ellipse_sym(P, 0.5)
@@ -544,12 +546,12 @@ def test_clip_of_the_bf16_operator():
     from glomargridding_tpu_torch.ops import covariance_tools as tct
 
     args = _smooth_grid()
-    tell.ellipse_sym.launches = 0
+    before = COUNTS["k2.launches"]
     mv, n, trace = tcov.ellipse_covariance_operator(*args, v=1.5,
                                                     store="bf16")
     psd = tct.explained_variance_clip_lowrank(
         mv, n=n, trace=trace, target_variance_fraction=0.9, **CLIP)
-    assert tell.ellipse_sym.launches > 0
+    assert COUNTS["k2.launches"] > before
     assert psd.vectors.is_cuda and psd.vectors.dtype == torch.float32
     assert psd.n == n and psd.rank % 128 == 0
     assert abs(psd.trace() - trace) <= 1e-5 * trace
@@ -587,11 +589,11 @@ def test_factored_kriging_on_the_card():
     dense_e = tlr._result(*tlr._lowrank_solve(
         psd.vectors, psd.gains, psd.floor, torch.diag(e), idx, y, 0,
         e_diag=False)[:3])
-    before = dict(tkrig._solve_sym.branches)
+    before = COUNTS.copy()
     ok = tkrig.OrdinaryKriging(psd.to_dense(), idx, y, torch.diag(e))
     dense = (ok.solve(), ok.get_uncertainty(), ok.constraint_mask())
-    assert tkrig._solve_sym.branches["lu"] == before["lu"]
-    assert tkrig._solve_sym.branches["cholesky"] > before["cholesky"]
+    assert COUNTS["kriging.solve.lu"] == before["kriging.solve.lu"]
+    assert COUNTS["kriging.solve.cholesky"] > before["kriging.solve.cholesky"]
     for other in (tlr.lowrank_kriging(psd64, idx, y, e), dense_e, dense):
         for a, b in zip(res, other):
             assert _rel_max(a.double(), b.double()) <= 1e-3
@@ -685,9 +687,9 @@ def test_sharded_paths_launch_the_kernels(monkeypatch):
                                                   nu=0.5))
     args = (kernel, lat.astype(np.float32), lon.astype(np.float32), idx,
             obs.astype(np.float32), err.astype(np.float32))
-    tpair.pairwise_covariance.launches = 0
+    before = COUNTS["k1.launches"]
     sharded = tpar.sharded_kriging_from_kernel(mesh, *args, variance=1.2)
-    assert tpair.pairwise_covariance.launches > 0
+    assert COUNTS["k1.launches"] > before
     single = tkk.kriging_from_kernel(*args, variance=1.2)
     assert _rel_max(sharded[0].gather(), single.field) <= 1e-5
 
@@ -695,10 +697,10 @@ def test_sharded_paths_launch_the_kernels(monkeypatch):
     fields = (rng.uniform(800, 2000, n), rng.uniform(400, 900, n),
               rng.uniform(-1, 1, n), rng.uniform(0.5, 1.5, n), lat, lon)
     fields = tuple(a.astype(np.float32) for a in fields)
-    tell.ellipse_tile.launches = 0
+    before = COUNTS["k4.launches"]
     cov = tpar.sharded_ellipse_covariance(mesh, *fields, v=1.5,
                                           max_dist=3000.0)
-    assert tell.ellipse_tile.launches == 4
+    assert COUNTS["k4.launches"] - before == 4
     P = tell.pack_points(*tcov._ellipse_inputs(*(
         torch.as_tensor(a, device="cuda") for a in fields[:4]),
         torch.deg2rad(torch.as_tensor(lat, dtype=torch.float32,
@@ -715,11 +717,11 @@ def test_sharded_paths_launch_the_kernels(monkeypatch):
         *tcov._ellipse_inputs(*(torch.as_tensor(a, device="cuda")
                                 for a in fields[:4]), P[:, 0], P[:, 1]),
         v=1.5, max_dist=3000.0, store="stream")
-    for k, kernel_count in ((8, tell.ellipse_matvec), (40, tell.ellipse_tile)):
+    for k, counter in ((8, "k3.launches"), (40, "k4.launches")):
         x = torch.randn((n, k), device="cuda")
-        kernel_count.launches = 0
+        before = COUNTS[counter]
         y = mv(x)
-        assert kernel_count.launches > 0
+        assert COUNTS[counter] > before
         assert _rel_max(y, ref(x)) <= 1e-5
 
 
@@ -808,7 +810,7 @@ def test_quarter_degree_stages_on_the_card(tmp_path, monkeypatch):
     _, _, glat, glon = tq.axes()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fields = _quarter_degree_fit_on_the_card(tq, tmp_path, gen)
-    tell.ellipse_matvec.launches = tell.ellipse_tile.launches = 0
+    before = COUNTS.copy()
     mv, n, trace = tq.stream_operator(glat, glon, fields, 3000.0)
     mv_cpu, _, _ = tq.stream_operator(glat, glon, fields, 3000.0, "cpu")
     x = torch.randn((n, 9), generator=gen, device="cuda")
@@ -816,7 +818,8 @@ def test_quarter_degree_stages_on_the_card(tmp_path, monkeypatch):
         assert _rel_max(mv(x[:, cols]).cpu(), mv_cpu(x[:, cols].cpu())) <= \
             1e-5
     psd, rank = tq.psd_repair(mv, n, trace, generator=gen)
-    assert tell.ellipse_matvec.launches > 0 and tell.ellipse_tile.launches > 0
+    assert COUNTS["k3.launches"] > before["k3.launches"]
+    assert COUNTS["k4.launches"] > before["k4.launches"]
     assert psd.vectors.is_cuda and psd.rank % tq.PAD_RANK == 0
     assert abs(psd.trace() - trace) <= 1e-5 * trace
     idx, truth, y, E = tq.observations(psd, gen)

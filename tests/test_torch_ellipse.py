@@ -35,6 +35,7 @@ from glomargridding_tpu_torch.models.ellipse import covariance as tcov
 from glomargridding_tpu_torch.ops import distances as tdist
 from glomargridding_tpu_torch.ops.cuda import build
 from glomargridding_tpu_torch.ops.cuda import ellipse as tell
+from glomargridding_tpu_torch.utils.profiling import COUNTS
 
 torch.set_num_threads(2)
 
@@ -254,14 +255,13 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch, rng):
 
     monkeypatch.setattr(build, "load_library", no_build)
     monkeypatch.setattr(build, "compile_library", no_build)
-    before = (tell.ellipse_tile.launches, tell.ellipse_sym.launches,
-              tell.ellipse_matvec.launches)
+    launches = ("k4.launches", "k2.launches", "k3.launches")
+    before = [COUNTS[k] for k in launches]
     P = tell.pack_points(*_torch_args(_jax_args(_fields(rng, 20))))
     tell.ellipse_tile(P, P, 0.5)
     tell.ellipse_sym(P, 0.5)
     tell.ellipse_matvec(P, torch.ones(20, 2), None, v=0.5)
-    assert before == (tell.ellipse_tile.launches, tell.ellipse_sym.launches,
-                      tell.ellipse_matvec.launches)
+    assert before == [COUNTS[k] for k in launches]
 
 
 def test_import_builds_nothing_and_loads_no_jax():

@@ -33,6 +33,7 @@ from glomargridding_tpu_torch.models.kernel_kriging import (
     crossval_from_covariance as t_crossval,
 )
 from glomargridding_tpu_torch.utils import arrays as tarrays
+from glomargridding_tpu_torch.utils.profiling import COUNTS
 
 from conftest import reference_data_path
 
@@ -88,10 +89,10 @@ def test_ordinary_golden_lu_branch():
     """GeoStats.jl: the variogram matrix is indefinite, so _solve_sym
     takes the LU branch; class and function forms."""
     cov, idx, obs = _setup()
-    before = dict(tkrig._solve_sym.branches)
+    before = COUNTS.copy()
     field = tkrig.OrdinaryKriging(cov, idx, obs, device="cpu").solve()
-    assert tkrig._solve_sym.branches["lu"] == before["lu"] + 1
-    assert tkrig._solve_sym.branches["cholesky"] == before["cholesky"]
+    assert COUNTS["kriging.solve.lu"] == before["kriging.solve.lu"] + 1
+    assert COUNTS["kriging.solve.cholesky"] == before["kriging.solve.cholesky"]
     np.testing.assert_allclose(_golden(), _np(field).reshape(20, 20),
                                rtol=1e-7, atol=1e-9)
     with pytest.warns(DeprecationWarning):
@@ -173,12 +174,12 @@ def test_ordinary_matches_reference(rng, case, convention):
 
 def test_simple_matches_reference_cholesky_branch(rng):
     cov, idx, obs, err = _spd_case(rng)
-    before = dict(tkrig._solve_sym.branches)
+    before = COUNTS.copy()
     ours = tkrig.SimpleKriging(cov, idx, obs, err, device="cpu")
     ref = jkrig.SimpleKriging(cov, idx, obs, err)
     _compare(ours, ref)
-    assert tkrig._solve_sym.branches["cholesky"] > before["cholesky"]
-    assert tkrig._solve_sym.branches["lu"] == before["lu"]
+    assert COUNTS["kriging.solve.cholesky"] > before["kriging.solve.cholesky"]
+    assert COUNTS["kriging.solve.lu"] == before["kriging.solve.lu"]
     # a new solver with the mean
     shifted = tkrig.SimpleKriging(cov, idx, obs, err,
                                   device="cpu").solve(mean=2.5)

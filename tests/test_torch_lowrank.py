@@ -32,6 +32,7 @@ from glomargridding_tpu_torch.models.kernel_kriging import (
     pad_month_observations,
 )
 from glomargridding_tpu_torch.ops import covariance_tools as tct
+from glomargridding_tpu_torch.utils.profiling import COUNTS
 
 torch.set_num_threads(2)
 
@@ -287,12 +288,12 @@ def test_factored_path_matches_dense_ordinary_kriging(rng, kind):
     _, tpsd, idx, obs = _problem(rng, torch.float64, pad=8)
     E = _error_cov(rng, kind, torch.float64)
     res = tlr.lowrank_kriging(tpsd, idx, obs, E)
-    before = dict(tkrig._solve_sym.branches)
+    before = COUNTS.copy()
     dense = tkrig.OrdinaryKriging(
         tpsd.to_dense(), idx, obs, np.diag(E) if kind == "vector" else E)
     want = (dense.solve(), dense.get_uncertainty(), dense.constraint_mask())
-    assert tkrig._solve_sym.branches["lu"] == before["lu"]
-    assert tkrig._solve_sym.branches["cholesky"] > before["cholesky"]
+    assert COUNTS["kriging.solve.lu"] == before["kriging.solve.lu"]
+    assert COUNTS["kriging.solve.cholesky"] > before["kriging.solve.cholesky"]
     for a, b in zip(res, want):
         torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)
 
