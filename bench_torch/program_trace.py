@@ -25,7 +25,7 @@ import bisect
 
 import torch
 
-from .tracing import WINDOW, Event, clipped, union
+from .tracing import WINDOW, Event, clipped, label_gaps, union
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
@@ -101,24 +101,14 @@ def from_kineto(result, names=None, annotations=()):
 
 
 def innermost(spans, times):
-    """The innermost span (or None) open at each of `times`, for spans
-    that nest: one sweep over both, sorted."""
-    inner = sorted(spans, key=lambda s: (s.start, -s.end))
-    order = sorted(range(len(times)), key=lambda i: times[i])
-    stack, j, out = [], 0, [None] * len(times)
-    for i in order:
-        t = times[i]
-        while j < len(inner) and inner[j].start <= t:
-            stack.append(inner[j])
-            j += 1
-        while stack and stack[-1].end <= t:
-            stack.pop()
-        out[i] = stack[-1] if stack else None
+    """The name of the innermost span (or None) open at each of `times`:
+    ``tracing.label_gaps`` at each time, taken in sorted order."""
+    order = sorted(range(len(times)), key=times.__getitem__)
+    out = [None] * len(times)
+    for i, label in zip(order, label_gaps(spans, [(times[i], None)
+                                                  for i in order])):
+        out[i] = None if label == WINDOW else label
     return out
-
-
-def _name(span):
-    return None if span is None else span.name
 
 
 def device_seconds_by_span(program, lo, hi):
@@ -132,7 +122,7 @@ def device_seconds_by_span(program, lo, hi):
                        for o in ops])
     out = defaultdict(float)
     for o, s in zip(ops, where):
-        out[None if o.launch is None else _name(s)] += (
+        out[None if o.launch is None else s] += (
             min(o.end, hi) - max(o.start, lo))
     return dict(out)
 
@@ -168,7 +158,7 @@ def idle_by_span(program, harness_spans, lo, hi):
     outer = innermost(harness_spans, mids)
     out = defaultdict(float)
     for (a, b), p, h in zip(pieces, own, outer):
-        out[_name(p) or _name(h) or WINDOW] += b - a
+        out[p or h or WINDOW] += b - a
     return dict(out)
 
 
@@ -179,7 +169,7 @@ def syncs_by_span(program, lo, hi):
     calls = [c for c in program.syncs if lo <= c.start < hi]
     out = defaultdict(int)
     for s in innermost(program.spans, [c.start for c in calls]):
-        out[_name(s)] += 1
+        out[s] += 1
     return dict(out)
 
 

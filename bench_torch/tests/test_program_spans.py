@@ -82,8 +82,7 @@ def test_nothing_to_read_without_program_spans():
 def test_innermost_handles_siblings_and_unsorted_times():
     spans = [Event("a", 0, 10), Event("b", 1, 2), Event("c", 3, 4)]
     got = pt.innermost(spans, [3.5, 1.5, 2.5, 11.0, 0.5])
-    assert [None if s is None else s.name for s in got] == [
-        "c", "b", "a", None, "a"]
+    assert got == ["c", "b", "a", None, "a"]
 
 
 def test_a_cpu_profiler_run_keeps_program_spans_only():
@@ -161,3 +160,39 @@ def test_launches_are_found_through_pytorch_then_the_runtime():
     assert [c.name for c in program.syncs] == ["cudaStreamSynchronize"]
     by = pt.device_seconds_by_span(program, 0.0, 9.0)
     assert by == pytest.approx({"kriging.factor": 2.0, None: 1.0})
+
+
+def _span_probe():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[2] / "tools" / "span_probe.py"
+    spec = importlib.util.spec_from_file_location("span_probe", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", ["st1deg.analysis", "ell1deg.variants"])
+def test_span_probe_reads_a_small_cell_on_the_cpu(name):
+    from bench_torch import harness
+    from bench_torch.tests.small import SECONDS, SMALL
+
+    probe = _span_probe()
+    cell = harness.find_cell(name, overrides=SMALL[name])
+    on = probe.probe(cell, 20240101, SECONDS.get(name, 0.2), device="cpu")
+    off = probe.probe(cell, 20240101, SECONDS.get(name, 0.2), spans=False,
+                      device="cpu")
+    m = on["metrics"]
+    # the CPU has no device operations: no device or idle time to read
+    assert m["kriging.factor_ms"] is None and on["launched_in_spans"] is None
+    if name == "st1deg.analysis":
+        assert on["counts"]["kriging.column_blocks"] > 0 and on["clips"] == 0
+        assert m["host.syncs_per_analysis"] == 0
+    else:
+        assert on["clips"] == on["n"] > 0
+        assert m["eigsh.applications_per_clip"] == m["eigsh.sweeps_per_clip"]
+        assert m["eigsh.columns_per_rank"] > 1
+    # without spans the window holds none of them
+    assert off["metrics"]["host.syncs_per_analysis"] is None
+    assert off["clips"] == 0

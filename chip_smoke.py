@@ -104,7 +104,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from itertools import product
 
 import numpy as np
@@ -1540,17 +1540,15 @@ class Stopwatch:
 
 
 class SolverLog(logging.Handler):
-    """What ``adaptive_topk_eigh`` logged: stages (one more than its
-    widenings) and the gate its last candidate passed."""
+    """What ``adaptive_topk_eigh`` logged: the gate its last candidate
+    passed."""
 
     def __init__(self):
         super().__init__(logging.INFO)
-        self.widenings, self.accepted = 0, "none"
+        self.accepted = "none"
 
     def emit(self, record):
-        if "widening" in record.msg:
-            self.widenings += 1
-        elif "structural accept" in record.msg:
+        if "structural accept" in record.msg:
             self.accepted = "structural"
         elif "max_resid/theta1" in record.msg:
             self.accepted = f"{record.args[3]:.3e}"
@@ -1575,17 +1573,30 @@ def solver_log():
         eigsh.logger.propagate = propagate
 
 
-def clip_instrumented(mv, n, trace, clip=None):
-    """One clip of the operator under ``torch.profiler`` with the port's
-    spans on: its operator applications (``eigsh.applications``) and the
-    device seconds launched inside its sweeps, CholQR2 passes and
-    Rayleigh-Ritz projections and ``eigh`` (``eigsh.sweep``,
-    ``eigsh.cholqr``, ``eigsh.ritz``), with the count of each span (the
-    profiler slows this run against the warm ones). `clip(op)` runs the
-    clip on the operator (default: phase 13's); its result comes back
-    first, then the split (a dict), the solver's log and the wall."""
-    from bench_torch import program_trace
+def solver_counts(before):
+    """The eigensolver's counters since the snapshot `before` of
+    ``COUNTS``: operator applications (sweeps), stages (one more than
+    the widenings) and the columns the applications carried."""
+    def delta(name):
+        return COUNTS[name] - before[name]
+
+    return {"sweeps": delta("eigsh.applications"),
+            "stages": delta("eigsh.widenings") + 1,
+            "columns": delta("eigsh.columns")}
+
+
+def clip_instrumented(mv, n, trace, clip=None, spans=False):
+    """One clip of the operator, counted from ``COUNTS``, with its wall
+    around device synchronisation. With `spans`, under ``torch.profiler``
+    with the port's spans on: the device seconds launched inside its
+    sweeps, CholQR2 passes and Rayleigh-Ritz projections and ``eigh``
+    (``eigsh.sweep``, ``eigsh.cholqr``, ``eigsh.ritz``; the profiler slows
+    the run against the warm ones). Without, the operator handed in is a
+    ``Stopwatch``: its applications' seconds, each synchronised. `clip(op)`
+    runs the clip on the operator (default: phase 13's); its result comes
+    back first, then the split (a dict), the solver's log and the wall."""
     from glomargridding_tpu_torch import explained_variance_clip_lowrank
+    from glomargridding_tpu_torch.utils.profiling import span_device_seconds
 
     if clip is None:
         def clip(op):
@@ -1593,24 +1604,28 @@ def clip_instrumented(mv, n, trace, clip=None):
                 op, n=n, trace=trace, target_variance_fraction=CLIP_TARGET,
                 **CLIP_KW)
 
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    before = COUNTS["eigsh.applications"]
-    with solver_log() as log, spans_on(), torch.profiler.profile(
-            activities=activities) as prof:
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    before = COUNTS.copy()
+    op = mv if spans else Stopwatch(mv)
+    with ExitStack() as stack:
+        log = stack.enter_context(solver_log())
+        if spans:
+            stack.enter_context(spans_on())
+            prof = stack.enter_context(torch.profiler.profile(
+                activities=activities))
         sync()
         t0 = time.perf_counter()
-        psd = clip(mv)
+        psd = clip(op)
         sync()
         total = time.perf_counter() - t0
-    program = program_trace.from_kineto(prof.profiler.kineto_results)
-    device = program_trace.device_seconds_by_span(program, -np.inf, np.inf)
-    split = {"sweeps": COUNTS["eigsh.applications"] - before}
-    for name in ("sweep", "cholqr", "ritz"):
-        split[f"{name}_s"] = device.get(f"eigsh.{name}", 0.0)
-        split[f"{name}_calls"] = sum(s.name == f"eigsh.{name}"
-                                     for s in program.spans)
+    split = solver_counts(before)
+    if spans:
+        device = span_device_seconds(prof)
+        for name in ("sweep", "cholqr", "ritz"):
+            split[f"{name}_s"] = device.get(f"eigsh.{name}", 0.0)
+    else:
+        split["sweep_s"] = op.seconds
     return psd, split, log, total
 
 
@@ -1695,7 +1710,7 @@ def phase13_psd_repair(dev, glat, glon):
     warm = wall_median_s(lambda: explained_variance_clip_lowrank(
         mv, n=n, trace=trace, target_variance_fraction=CLIP_TARGET,
         **CLIP_KW))
-    psd, split, log, total = clip_instrumented(mv, n, trace)
+    psd, split, log, total = clip_instrumented(mv, n, trace, spans=True)
     k2_launches = require_launches("K2 (the repair's bf16 store)",
                                    COUNTS["k2.launches"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1715,15 +1730,14 @@ def phase13_psd_repair(dev, glat, glon):
     phase(13, "psd_repair_64800", k2_launches=k2_launches,
           target=CLIP_TARGET, rank=psd.rank,
           effective_rank=psd.effective_rank,
-          stages=log.widenings + 1, sweeps=split["sweeps"],
-          final_resid_over_theta1=log.accepted,
+          stages=split["stages"], sweeps=split["sweeps"],
+          columns=split["columns"], final_resid_over_theta1=log.accepted,
           trace=f"{trace:.6g}", trace_rel=f"{trace_rel:.3e}",
           trace_tol=TRACE_TOL, floor=f"{float(psd.floor[0]):.4g}",
           instrumented_s=f"{total:.3f}",
           sweeps_s=f"{split['sweep_s']:.3f}",
           cholqr_s=f"{split['cholqr_s']:.3f}",
-          cholqr_calls=split["cholqr_calls"],
-          ritz_s=f"{split['ritz_s']:.3f}", ritz_calls=split["ritz_calls"],
+          ritz_s=f"{split['ritz_s']:.3f}",
           clip_warm_s=f"{warm:.4f}", repeats=REPEATS,
           peak_gb=f"{peak_gb:.3f}",
           **{f"sub_{k}": v if isinstance(v, int) else f"{v:.4g}"
@@ -2665,33 +2679,28 @@ def widening_flavours(mv, n, trace, dev):
         for flavour, prefix in (("locked", converged_prefix),
                                 ("joint", lambda rn, scale, tol: 0)):
             eigsh._converged_prefix = prefix
-            widths = []
-
-            def counted(x):
-                widths.append(x.shape[1])
-                return mv(x)
-
-            sweeps = Stopwatch(counted)
+            sweeps = Stopwatch(mv)
             gen = torch.Generator(device=dev).manual_seed(SEED)
-            with solver_log() as log:
-                sync()
-                t0 = time.perf_counter()
-                out = explained_variance_clip_lowrank(
-                    sweeps, n=n, trace=trace,
-                    target_variance_fraction=CLIP_TARGET, generator=gen,
-                    **WIDENING_CLIP_KW)
-                sync()
-                seconds = time.perf_counter() - t0
+            before = COUNTS.copy()
+            sync()
+            t0 = time.perf_counter()
+            out = explained_variance_clip_lowrank(
+                sweeps, n=n, trace=trace,
+                target_variance_fraction=CLIP_TARGET, generator=gen,
+                **WIDENING_CLIP_KW)
+            sync()
+            seconds = time.perf_counter() - t0
+            counts = solver_counts(before)
             check(f"clip at {n} ({flavour}): trace",
                   abs(out.trace() - trace) / trace, TRACE_TOL)
-            if log.widenings < 1:
+            if counts["stages"] < 2:
                 raise AssertionError(
                     f"the clip at {n} did not widen: the flavours were not "
                     "compared")
             found[flavour] = seconds, (
-                f"{seconds:.3f}s,stages:{log.widenings + 1},"
-                f"sweeps:{sweeps.calls},sweeps_s:{sweeps.seconds:.3f},"
-                f"columns:{sum(widths)},"
+                f"{seconds:.3f}s,stages:{counts['stages']},"
+                f"sweeps:{counts['sweeps']},sweeps_s:{sweeps.seconds:.3f},"
+                f"columns:{counts['columns']},"
                 f"rank:{out.rank},effective:{out.effective_rank}")
     finally:
         eigsh._converged_prefix = converged_prefix
@@ -4878,11 +4887,9 @@ def qd_clip_checks(tq, dev, mv, n, trace, psd, true_rank, split, log,
           k0=tq.CLIP_KW["k0"], max_rank=tq.CLIP_KW["max_rank"],
           rank=f"{true_rank}->{psd.rank}", effective_rank=r,
           other_start_rank=other.effective_rank,
-          stages=log.widenings + 1, sweeps=split["sweeps"],
-          final_resid_over_theta1=log.accepted, clip_s=f"{total:.3f}",
-          sweeps_s=f"{split['sweep_s']:.3f}",
-          cholqr_s=f"{split['cholqr_s']:.3f}",
-          ritz_s=f"{split['ritz_s']:.3f}", ritz_calls=split["ritz_calls"],
+          stages=split["stages"], sweeps=split["sweeps"],
+          columns=split["columns"], final_resid_over_theta1=log.accepted,
+          clip_s=f"{total:.3f}", sweeps_s=f"{split['sweep_s']:.3f}",
           trace=f"{trace:.6g}", trace_rel=f"{trace_rel:.3e}",
           trace_tol=TRACE_TOL, explained=f"{explained:.4f}",
           sub_cells=QD_SUB_CELLS, other_start=f"{clip_err:.3e}",
@@ -5401,11 +5408,9 @@ def td_clip(tt, dev, mv, n, trace, gen):
     control = abs(bare.trace() - trace) / trace
     phase(31, "d_clip", target=tt.TARGET, rank_cap=tt.rank_cap(),
           rank=psd.rank, effective_rank=psd.effective_rank,
-          stages=log.widenings + 1, sweeps=split["sweeps"],
-          final_resid_over_theta1=log.accepted, clip_s=f"{total:.2f}",
-          sweeps_s=f"{split['sweep_s']:.2f}",
-          cholqr_s=f"{split['cholqr_s']:.3f}",
-          ritz_s=f"{split['ritz_s']:.3f}",
+          stages=split["stages"], sweeps=split["sweeps"],
+          columns=split["columns"], final_resid_over_theta1=log.accepted,
+          clip_s=f"{total:.2f}", sweeps_s=f"{split['sweep_s']:.2f}",
           retained=f"{retained:.4f}", trace=f"{trace:.6g}",
           trace_rel=f"{trace_rel:.3e}", trace_tol=TRACE_TOL,
           control_no_floor=f"{control:.3e}")

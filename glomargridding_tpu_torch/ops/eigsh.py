@@ -438,7 +438,6 @@ def _householder_iterate(matvec, Z, n_iter):
     column norms with scaling, so it survives magnitudes CholQR cannot.
     Returns (Q, B = A @ Q).
     """
-    count("eigsh.householder")
     Y = _apply(matvec, Z)
     for _ in range(n_iter):
         Y = _apply(matvec, _qr_q(Y))
@@ -667,7 +666,6 @@ def adaptive_topk_eigh(  # noqa: C901
                 break  # deeper head needed, or sharpening exhausted
             # sharpen the same block: one more power iteration
             rounds += 1
-            count("eigsh.extra_rounds")
             del Q
             Q, B, ok, T = extra_round(B)
             all_ok = all_ok & ok

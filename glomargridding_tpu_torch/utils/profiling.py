@@ -18,7 +18,8 @@ things.
   add: kernel launches, solver branches, the eigensolver's applications
   and retained rank.
 - An exporter: ``device_trace(log_dir)`` profiles its extent with spans
-  on and writes a Chrome trace.
+  on and writes a Chrome trace; ``span_device_seconds`` reads the device
+  time each span launched from the profiler it yields.
 
 Beside them, ``hbm_estimate`` / ``hbm_budget_check`` size a large matrix
 before it is materialised.
@@ -65,10 +66,8 @@ COUNTERS = (
     # models/kernel_kriging's grid column blocks
     "kriging.column_blocks",
     # ops/eigsh: operator applications and the columns they carry, the
-    # widenings, the sharpening rounds, the Householder rescues and the
-    # retained rank at each return of the adaptive solve
-    "eigsh.applications", "eigsh.columns", "eigsh.widenings",
-    "eigsh.extra_rounds", "eigsh.householder", "eigsh.kept",
+    # widenings and the retained rank at each return of the adaptive solve
+    "eigsh.applications", "eigsh.columns", "eigsh.widenings", "eigsh.kept",
 )
 _COUNTER_SET = frozenset(COUNTERS)
 
@@ -158,6 +157,55 @@ def device_trace(log_dir: str):
     with spans_on(), torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _innermost(spans, launched):
+    """(name of the innermost of `spans`, (start, end, name), open at t,
+    or None; ns) for each (t, ns) of `launched`: one sweep over both,
+    sorted, for spans that nest."""
+    spans = sorted(spans, key=lambda s: (s[0], -s[1]))
+    stack, j = [], 0
+    for t, ns in sorted(launched):
+        while j < len(spans) and spans[j][0] <= t:
+            stack.append(spans[j])
+            j += 1
+        while stack and stack[-1][1] <= t:
+            stack.pop()
+        yield (stack[-1][2] if stack else None), ns
+
+
+def span_device_seconds(prof) -> dict:
+    """{span: device seconds} of a stopped profiler run with spans on (as
+    ``device_trace`` yields it): each device operation put down to the
+    innermost span open when the host launched it; ``None`` holds the
+    operations launched outside every span. The launch is the PyTorch
+    operation or span the device event is linked to, else (a kernel
+    launched through ``ctypes``) the runtime call that shares its
+    correlation id."""
+    host, runtime, spans, ops = {}, {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        name, start = e.name(), e.start_ns()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if name not in _SPAN_SET:  # not the device's copy of a span
+                ops.append((e.duration_ns(), e.linked_correlation_id(),
+                            e.correlation_id()))
+        elif name.startswith("cu"):  # the runtime's, on its own ids
+            runtime[e.correlation_id()] = start
+        else:
+            host[e.correlation_id()] = start
+            if name in _SPAN_SET:
+                spans.append((start, start + e.duration_ns(), name))
+    out: dict = collections.defaultdict(float)
+    launched = []
+    for ns, linked, own in ops:
+        t = host[linked] if linked and linked in host else runtime.get(own)
+        if t is None:
+            out[None] += ns * 1e-9
+        else:
+            launched.append((t, ns))
+    for name, ns in _innermost(spans, launched):
+        out[name] += ns * 1e-9
+    return dict(out)
 
 
 def _itemsize(dtype) -> int:

@@ -260,3 +260,68 @@ def test_device_trace_turns_spans_on_for_its_extent(tmp_path):
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert {"kriging.call", "kriging.factor", "kriging.columns"} <= names
+
+
+class _Event:
+    """A kineto event as ``span_device_seconds`` reads it (times in ns)."""
+
+    def __init__(self, name, cuda, start, end, corr, linked=0):
+        self._name, self._cuda = name, cuda
+        self._start, self._end = start, end
+        self._corr, self._linked = corr, linked
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return (torch.autograd.DeviceType.CUDA if self._cuda
+                else torch.autograd.DeviceType.CPU)
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._end - self._start
+
+    def correlation_id(self):
+        return self._corr
+
+    def linked_correlation_id(self):
+        return self._linked
+
+
+def _profiler(events):
+    """A stopped profiler whose kineto results hold `events`."""
+    result = type("Result", (), {"events": lambda self: events})()
+    return type("Prof", (), {"profiler": type("P", (), {
+        "kineto_results": result})()})()
+
+
+def test_span_device_seconds_goes_to_the_innermost_span_at_launch():
+    s = 1_000_000_000  # ns a second
+    events = [
+        _Event("eigsh.clip", False, 0, 9 * s, 1),
+        _Event("eigsh.sweep", False, 1 * s, 2 * s, 2),
+        _Event("aten::mm", False, 1 * s + 5, 2 * s - 5, 3),
+        _Event("cudaLaunchKernel", False, 1 * s + 6, 1 * s + 9, 3),
+        _Event("eigsh.cholqr", False, 3 * s, 4 * s, 4),
+        _Event("cudaLaunchKernel", False, 3 * s + 1, 3 * s + 2, 50),  # ctypes
+        _Event("aten::sum", False, 5 * s, 5 * s + 9, 5),  # in the clip only
+        _Event("aten::add", False, 10 * s, 10 * s + 9, 6),  # outside
+        _Event("gemm", True, 2 * s, 4 * s, 77, linked=3),
+        _Event("tile_kernel", True, 4 * s, 5 * s, 50, linked=0),
+        _Event("reduce", True, 5 * s, 6 * s + s // 2, 78, linked=5),
+        _Event("add", True, 10 * s, 10 * s + s // 4, 79, linked=6),
+        _Event("Memset", True, 11 * s, 12 * s, 99, linked=0),  # no launch
+        _Event("eigsh.sweep", True, 1 * s, 2 * s, 0),  # the device's copy
+    ]
+    got = profiling.span_device_seconds(_profiler(events))
+    assert got == pytest.approx({"eigsh.sweep": 2.0, "eigsh.cholqr": 1.0,
+                                 "eigsh.clip": 1.5, None: 1.25})
+
+
+def test_span_device_seconds_of_a_cpu_run_is_empty(tmp_path):
+    # the kriging runs on the CPU: no device operation to put down
+    with profiling.device_trace(str(tmp_path / "trace")) as prof:
+        run_kriging()
+    assert profiling.span_device_seconds(prof) == {}
