@@ -5,10 +5,14 @@ Port of ``glomargridding_tpu/models/kernel_kriging.py``. The covariance
 is a *kernel function* of coordinates. The solver takes one Cholesky
 factor of :math:`K = C_{obs} + E`, then walks column blocks of the grid:
 each block's :math:`C_{cross}` tile comes from the kernel (on the card,
-the hand-written tile kernel in ``ops/cuda``), one product with the
-precomputed :math:`L^{-1}` gives the uncertainty quadratic form, and the
-block's slice of the field, uncertainty and constraint mask is reduced.
-Peak memory is O(n^2 + n * block) whatever the grid size.
+the hand-written tile kernel in ``ops/cuda``), the precomputed
+:math:`L^{-1}` times the tile gives the uncertainty quadratic form, and
+the block's slice of the field, uncertainty and constraint mask is
+reduced. :math:`L^{-1}` is lower-triangular, so that product is taken in
+row panels that each stop at the diagonal (``_tri_colsq``): the zero
+half above it is never multiplied, and the panels a block takes are
+counted in ``kriging.tri_panels``. Peak memory is O(n^2 + n * block)
+whatever the grid size.
 
 The numerics follow the reference: the field solves are
 ``cholesky_solve``; only the quadratic form ``sv = ||L^{-1} C_cross||^2``
@@ -106,6 +110,32 @@ def _blocks(m: int, n_blocks: int) -> list[tuple[int, int]]:
     return [(s, min(s + block, m)) for s in range(0, m, block)]
 
 
+# Rows of L^-1 in one panel of the uncertainty product, a multiple of the
+# GEMM's 128-row tile: 512 was fastest or within 2.2% of it at n = 1,574,
+# 3,000 and 5,000 against 4,096 columns on an H100, among 256-1,536
+# (tools/tri_panel_sweep.py).
+_TRI_PANEL_ROWS = 512
+
+
+def _tri_colsq(Linv, Cc, panel: int):
+    """Column sums of squares of ``Linv @ Cc`` for a lower-triangular
+    (n, n) `Linv`, in row panels of `panel` rows.
+
+    Panel [r0, r1) of ``Linv`` is zero beyond column r1, so its rows of
+    the product are ``Linv[r0:r1, :r1] @ Cc[:r1]``, written in place into
+    one (n, b) buffer: n^2 b (1 + 1/P) flops for P panels against the
+    dense product's 2 n^2 b, the same terms summed. With n <= `panel`
+    this is the one dense product.
+    """
+    n = Linv.shape[0]
+    U = torch.empty((n, Cc.shape[1]), dtype=Cc.dtype, device=Cc.device)
+    for r0 in range(0, n, panel):
+        r1 = min(r0 + panel, n)
+        torch.matmul(Linv[r0:r1, :r1], Cc[:r1], out=U[r0:r1])
+    # squared in place: U is not needed afterwards
+    return torch.sum(U.square_(), dim=0)
+
+
 def _grid(grid_lats, grid_lons, device, *inputs):
     """Radian grid tensors on the call's device (``resolve_device`` over
     the grid and the other `inputs`)."""
@@ -167,7 +197,10 @@ def _grid_columns(
     method: str, n_blocks: int,
 ):
     """Field, uncertainty^2 and constraint mask of the grid columns
-    (la, lo), a block of columns at a time, against `system`."""
+    (la, lo), a block of columns at a time, against `system`; with the
+    diagnostics, each block's ``||L^-1 C_cross||^2`` is ``_tri_colsq``'s
+    row-panelled product, its ceil(n / ``_TRI_PANEL_ROWS``) panels
+    counted in ``kriging.tri_panels``."""
     u, w, s, uy, Linv = system
     fields_only = Linv is None
     # u and w stacked into one (2, n) left operand: one pass over each tile
@@ -182,6 +215,9 @@ def _grid_columns(
 
     blocks = _blocks(m, n_blocks)
     count("kriging.column_blocks", len(blocks))
+    if not fields_only:
+        panel = _TRI_PANEL_ROWS
+        count("kriging.tri_panels", len(blocks) * -(-u.shape[0] // panel))
     with span("kriging.columns"):
         for start, stop in blocks:
             Cc = kernel_fn(la_o, lo_o, la[start:stop], lo[start:stop])
@@ -194,8 +230,7 @@ def _grid_columns(
                 field[start:stop] = R[1] + mean
             if fields_only:
                 continue
-            # squared in place: U is not needed afterwards
-            sv = torch.sum((Linv @ Cc).square_(), dim=0)
+            sv = _tri_colsq(Linv, Cc, panel)
             if method == "ordinary":
                 wc = sv - lam * t
                 uncert2[start:stop] = variance - (wc + lam) - lam

@@ -63,8 +63,9 @@ COUNTERS = (
     "k4.launches",
     # the dense kriging classes' solve (models/kriging._solve_sym)
     "kriging.solve.cholesky", "kriging.solve.lu",
-    # models/kernel_kriging's grid column blocks
-    "kriging.column_blocks",
+    # models/kernel_kriging's grid column blocks, and the row panels of
+    # L^-1 that the blocks with diagnostics multiply (_tri_colsq)
+    "kriging.column_blocks", "kriging.tri_panels",
     # ops/eigsh: operator applications and the columns they carry, the
     # widenings and the retained rank at each return of the adaptive solve
     "eigsh.applications", "eigsh.columns", "eigsh.widenings", "eigsh.kept",

@@ -200,6 +200,30 @@ def test_kriging_uses_the_kernel_only(monkeypatch):
                                    atol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tri_colsq_on_the_card(dtype):
+    """L^-1's row panels on cuBLAS (1,300 observations: panels of 512,
+    512 and 276 rows, strided views of L^-1 written in place) give the
+    dense product's column sums of squares in f64: to 1e-12 in f64, to
+    1e-5 in true f32 (TF32 would read ~1e-3)."""
+    n = 1300
+    assert tkk._TRI_PANEL_ROWS < n
+    g = torch.Generator().manual_seed(4)
+    A = torch.randn((n, n), generator=g, dtype=torch.float64)
+    L = torch.linalg.cholesky(A @ A.T / n + torch.eye(n, dtype=A.dtype))
+    Linv = torch.linalg.solve_triangular(L, torch.eye(n, dtype=A.dtype),
+                                         upper=False)
+    Cc = torch.randn((n, 640), generator=g, dtype=torch.float64)
+    want = torch.sum((Linv @ Cc) ** 2, 0)
+    got = tkk._tri_colsq(Linv.to("cuda", dtype), Cc.to("cuda", dtype),
+                         tkk._TRI_PANEL_ROWS)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_cuda
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.numpy(),
+                               rtol=rtol, atol=0)
+
+
 @pytest.mark.parametrize("nu", [1.0, 4.5])
 def test_other_orders_take_the_plain_tile(nu):
     """A Matern order K1 has no template for takes the plain tile on the

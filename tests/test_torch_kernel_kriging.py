@@ -92,14 +92,20 @@ def test_kriging_without_error_cov(rng):
         _close(o, r)
 
 
-def test_block_invariance(rng):
+def test_block_invariance(rng, monkeypatch):
     """Result independent of the block count (ragged last blocks
-    included); the block widths follow the tile kernel's column tile."""
+    included) and of the row panels of L^-1 (three of 8, 8 and 4 rows
+    for the 20 observations, against one); the block widths follow the
+    tile kernel's column tile."""
     glat, glon, idx, obs, err = _grid_problem(rng, n_lat=18, n_lon=36)
     _, tkern = _kernels(MODELS["matern15"])
     base = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, err,
                                    variance=1.2, n_blocks=1, device="cpu")
-    for n_blocks in (2, 3, 7, 16, 10_000):
+    assert tkk._TRI_PANEL_ROWS >= len(idx)
+    for n_blocks, panel in ((2, None), (3, None), (7, None), (16, None),
+                            (10_000, None), (1, 8), (3, 8)):
+        if panel is not None:
+            monkeypatch.setattr(tkk, "_TRI_PANEL_ROWS", panel)
         other = tkk.kriging_from_kernel(tkern, glat, glon, idx, obs, err,
                                         variance=1.2, n_blocks=n_blocks,
                                         device="cpu")
@@ -108,6 +114,27 @@ def test_block_invariance(rng):
                                        atol=1e-14)
     assert tkk._blocks(648, 3) == [(0, 256), (256, 512), (512, 648)]
     assert tkk._blocks(648, 10_000)[-1] == (640, 648)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 41])
+def test_tri_colsq_matches_dense_product(n, dtype):
+    """Row panels of 8 (n = 1, h - 1, h, h + 1, 3h + 17: one panel, a
+    whole and a ragged last one) give the dense product's column sums of
+    squares: to 1e-12 in f64, to f32 rounding (64 eps) in f32."""
+    g = torch.Generator().manual_seed(n)
+    A = torch.randn((n, n), generator=g, dtype=torch.float64)
+    L = torch.linalg.cholesky(A @ A.T / n + torch.eye(n, dtype=A.dtype))
+    Linv = torch.linalg.solve_triangular(L, torch.eye(n, dtype=A.dtype),
+                                         upper=False).to(dtype)
+    Cc = torch.randn((n, 37), generator=g, dtype=torch.float64).to(dtype)
+    want = torch.sum((Linv @ Cc) ** 2, 0)
+    rtol = 1e-12 if dtype == torch.float64 else 64 * torch.finfo(dtype).eps
+    for panel in (8, n):
+        got = tkk._tri_colsq(Linv, Cc, panel)
+        assert got.dtype == dtype and got.shape == (37,)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                                   atol=0)
 
 
 def test_months_scan_matches_reference(rng):

@@ -244,12 +244,38 @@ def test_column_blocks_are_counted():
     assert COUNTS["kriging.column_blocks"] - before == 2 * want
 
 
+def test_tri_panels_are_counted(monkeypatch):
+    """ceil(n / h) panels of L^-1 a column block with diagnostics: one at
+    the default height for 40 observations, three at 16 rows; none for
+    the ensemble or the fields-only months."""
+    lat, lon = _grid()
+    blocks = len(tkk._blocks(lat.size, N_BLOCKS))
+    idx, y, e = _month()
+    before = COUNTS["kriging.tri_panels"]
+    run_kriging()
+    assert COUNTS["kriging.tri_panels"] - before == blocks
+    monkeypatch.setattr(tkk, "_TRI_PANEL_ROWS", 16)
+    run_kriging()
+    assert COUNTS["kriging.tri_panels"] - before == blocks * (1 + 3)
+    before = COUNTS["kriging.tri_panels"]
+    run_ensemble()
+    tkk.months_scan_kriging(_kernel(), lat, lon, idx[None], y[None],
+                            e[None], variance=1.2, diagnostics=False,
+                            device="cpu")
+    assert COUNTS["kriging.tri_panels"] == before
+    tkk.months_scan_kriging(_kernel(), lat, lon, idx[None], y[None],
+                            e[None], variance=1.2, n_blocks=N_BLOCKS,
+                            device="cpu")
+    assert COUNTS["kriging.tri_panels"] - before == blocks * 3
+
+
 def test_counters_are_declared():
     assert set(COUNTS) <= set(profiling.COUNTERS)
     with pytest.raises(ValueError, match="undeclared counter"):
         profiling.count("k9.launches")
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
     assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS)
+    assert "kriging.tri_panels" in profiling.COUNTERS
 
 
 def test_device_trace_turns_spans_on_for_its_extent(tmp_path):

@@ -141,6 +141,11 @@ def test_init_logging_writes_to_a_file(tmp_path):
         tlog.init_logging(str(path), "loud")
     root = logging.getLogger()
     saved = root.handlers[:], root.level
+    # init_logging reloads the logging module: a new root and a new logger
+    # tree, which the loggers made before it (the package's modules') no
+    # longer reach, nor do later tests' caplog handlers. Its namespace is
+    # put back after the test.
+    namespace = dict(vars(logging))
     try:
         for h in root.handlers[:]:
             root.removeHandler(h)
@@ -153,10 +158,12 @@ def test_init_logging_writes_to_a_file(tmp_path):
         for h in logging.getLogger().handlers[:]:
             logging.getLogger().removeHandler(h)
             h.close()
+        logging.captureWarnings(False)
+        vars(logging).clear()
+        vars(logging).update(namespace)
         for h in saved[0]:
             logging.getLogger().addHandler(h)
         logging.getLogger().setLevel(saved[1])
-        logging.captureWarnings(False)
     text = path.read_text()
     assert "INFO at" in text and "ingest done" in text
     assert "hidden" not in text
