@@ -2038,9 +2038,11 @@ def spread(values):
 
 
 def subset_fitter(builder, model, lane, tol, slots=None, fit_kw=None):
-    """``EllipseBuilder._chunk_fitter`` (``compute_params`` calls it
-    too) with the fit's configuration (`fit_kw`, default phase 16's
-    FIT_KW), for fitting chosen lanes: its ``fit`` and ``build``, the
+    """``EllipseBuilder._chunk_fitter`` (``fit_cells`` and
+    ``compute_params`` call it too) with the fit's configuration
+    (`fit_kw`, default phase 16's FIT_KW), for fitting chosen lanes: its
+    ``fit`` (the optima, the objective there, the iterations, the
+    convergence and the lanes with data) and ``build``, the
     start point, the box and the bounds the QC codes are read against.
     With device `slots`, ``fit`` splits each chunk's lanes over them as
     ``compute_params(mesh=...)`` does (``EllipseBuilder._slot_fitter``)."""
@@ -2070,7 +2072,7 @@ def fit_lanes(fitter, chunks):
 
     raw, nit, success = [], [], []
     for sel in chunks:
-        x, n_it, ok, has_data = fitter["fit"](sel)
+        x, _, n_it, ok, has_data = fitter["fit"](sel)
         if not bool(has_data.all()):
             raise AssertionError("a subset lane has no training data")
         raw.append(x)

@@ -38,6 +38,7 @@ from .grid.grid import (
     map_to_grid,
 )
 from .models.ellipse import (
+    CellFits,
     EllipseBuilder,
     EllipseCovarianceBuilder,
     EllipseModel,
@@ -108,6 +109,7 @@ from .ops.variogram_fit import fit_variogram_mle, gp_negative_log_likelihood
 
 __all__ = [
     "RADIUS_OF_EARTH_KM",
+    "CellFits",
     "Coordinates",
     "CrossValResult",
     "DataArray",

@@ -7,10 +7,11 @@ from .covariance import (
     ellipse_covariance_block,
     ellipse_covariance_operator,
 )
-from .estimate import EllipseBuilder, init_parameter_set
+from .estimate import CellFits, EllipseBuilder, init_parameter_set
 from .model import EllipseModel, cov_ij_anisotropic, cov_ij_isotropic
 
 __all__ = [
+    "CellFits",
     "EllipseBuilder",
     "EllipseCovarianceBuilder",
     "EllipseModel",

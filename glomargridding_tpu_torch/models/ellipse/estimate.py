@@ -10,8 +10,10 @@ parameter fields):
 - per-gridpoint training-set selection is a *mask*, not a ragged gather:
   every point keeps a fixed-length (N,) row of displacements and
   correlations with 0/1 weights, so all fits of a chunk share one shape;
-- ``compute_params`` fits ALL unmasked grid points with the batched
-  optimisers of ``ops.optim``, a chunk of rows at a time to bound memory.
+- ``fit_cells`` fits a chosen set of cells in one call of the batched
+  optimisers of ``ops.optim``; ``compute_params`` fits ALL unmasked grid
+  points, a chunk of rows at a time to bound memory, each chunk as
+  ``fit_cells`` fits its cells.
 
 Everything runs eagerly: there is no compiled program to cache and no
 grouped dispatch (``dispatch_chunks`` is accepted and changes nothing).
@@ -23,7 +25,7 @@ import json
 import logging
 import math
 import os
-from typing import Any
+from typing import Any, NamedTuple
 from warnings import warn
 
 import numpy as np
@@ -40,6 +42,7 @@ from ...ops.optim import (
 from ...types import DeltaXMethod
 from ...utils.arrays import cov_2_cor, is_iter, uncompress_masked
 from ...utils.device import resolve_device
+from ...utils.profiling import count, span
 from .model import ARCTANH_THRESHOLD, EllipseModel
 
 logger = logging.getLogger(__name__)
@@ -63,6 +66,35 @@ _CPU_DENSE_COR_POINTS = 100_000
 # lanes per vmapped Hessian call of the standard-error pass: reverse over
 # forward mode keeps ~(1 + d) x the objective's intermediates per lane
 _SE_LANES = 512
+# the batched optimiser of each accepted opt_method
+_OPTIMISER_LANES = {"Nelder-Mead": "nm", "L-BFGS-B": "lbfgs",
+                    "L-BFGS": "lbfgs", "lbfgs": "lbfgs", "lm": "lm",
+                    "Levenberg-Marquardt": "lm"}
+
+
+def _padded(cells: np.ndarray, lanes: int) -> np.ndarray:
+    """`cells` and, up to `lanes`, copies of the first: a chunk's lanes."""
+    return np.concatenate([cells, np.full(lanes - cells.size, cells[0])])
+
+
+def _optimiser_lane(opt_method: str) -> str:
+    """"nm", "lm" or "lbfgs" for `opt_method`; raises on any other."""
+    if opt_method not in _OPTIMISER_LANES:
+        raise ValueError(
+            "opt_method must be 'Nelder-Mead', 'L-BFGS-B' or 'lm'"
+        )
+    return _OPTIMISER_LANES[opt_method]
+
+
+class CellFits(NamedTuple):
+    """``EllipseBuilder.fit_cells``' result, one row a given cell, on the
+    builder's device."""
+
+    x: torch.Tensor  # (B, d) raw optima, before canonicalisation
+    fun: torch.Tensor  # (B,) the objective at the optimum
+    nit: torch.Tensor  # (B,) the lane's iterations
+    success: torch.Tensor  # (B,) bool: converged within maxiter
+    has_data: torch.Tensor  # (B,) bool: the distance window held a point
 
 
 def _normalised_samples(x):
@@ -678,8 +710,8 @@ class EllipseBuilder:
         bounds,
         device=None,
     ):
-        """``fit(sel) -> (x, nit, success, has_data)`` for one chunk of
-        centre indices, and ``build(sel) -> (X, z_y, w)``: the training
+        """``fit(sel) -> (x, fun, nit, success, has_data)`` for one chunk
+        of centre indices, and ``build(sel) -> (X, z_y, w)``: the training
         data (Fisher-transformed observations) and the batched optimiser
         of `lane` ("nm", "lm" or "lbfgs") on it. Everything stays on
         `device` (default this object's), which holds its own copy of the
@@ -699,21 +731,24 @@ class EllipseBuilder:
             )
 
         def fit(sel):
-            X, y, w = build(sel)
+            with span("mle.build"):
+                X, y, w = build(sel)
+                has_data = torch.sum(w, dim=1) > 0
             x0 = x0_single[None, :].expand(len(sel), x0_single.shape[0])
-            if lane == "lm":
-                res = batched_levenberg_marquardt(
-                    matern_ellipse._residuals_fit_z, x0, (X, y, w), bounds,
-                    xtol=tol)
-            elif lane == "lbfgs":
-                res = batched_lbfgs(
-                    matern_ellipse._nll_fit_z, x0, (X, y, w), bounds,
-                    tol=tol)
-            else:
-                res = batched_nelder_mead(
-                    matern_ellipse._nll_fit_z, x0, (X, y, w), bounds,
-                    xatol=tol, fatol=tol)
-            return res.x, res.nit, res.success, torch.sum(w, dim=1) > 0
+            with span("mle.solve"):
+                if lane == "lm":
+                    res = batched_levenberg_marquardt(
+                        matern_ellipse._residuals_fit_z, x0, (X, y, w),
+                        bounds, xtol=tol)
+                elif lane == "lbfgs":
+                    res = batched_lbfgs(
+                        matern_ellipse._nll_fit_z, x0, (X, y, w), bounds,
+                        tol=tol)
+                else:
+                    res = batched_nelder_mead(
+                        matern_ellipse._nll_fit_z, x0, (X, y, w), bounds,
+                        xatol=tol, fatol=tol)
+            return res.x, res.fun, res.nit, res.success, has_data
 
         return fit, build
 
@@ -733,7 +768,7 @@ class EllipseBuilder:
         def fit(sel):
             outs = [f[0](run) for f, run in zip(fitters, runs(sel))]
             return tuple(torch.cat([o[i].to(self.device) for o in outs])
-                         for i in range(4))
+                         for i in range(5))
 
         def se(fun, sel, xs):
             width = len(sel) // len(slots)
@@ -745,6 +780,97 @@ class EllipseBuilder:
                                                     slots))])
 
         return fit, se
+
+    @staticmethod
+    def _geometry(matern_ellipse, min_distance, max_distance,
+                  delta_x_method, physical_distance_selection,
+                  max_train_cols) -> dict:
+        """The training-data selection's arguments of a fit."""
+        return dict(
+            min_distance=float(min_distance),
+            max_distance=float(max_distance),
+            anisotropic=matern_ellipse.anisotropic,
+            delta_x_method=delta_x_method,
+            physical_distance=matern_ellipse.physical_distance,
+            physical_distance_selection=bool(physical_distance_selection),
+            max_train_cols=max_train_cols,
+        )
+
+    def fit_cells(
+        self,
+        cells,
+        matern_ellipse: EllipseModel,
+        *,
+        max_distance: float = 6000,
+        min_distance: float = 0.3,
+        delta_x_method: DeltaXMethod | None = "Modified_Met_Office",
+        guesses=None,
+        bounds=None,
+        opt_method: str = "Nelder-Mead",
+        tol: float = 1e-4,
+        max_train_cols: int | None = None,
+        physical_distance_selection: bool = True,
+        chunk_size: int | None = None,
+    ) -> CellFits:
+        """Fit the ellipses of the given cells in one batched optimiser
+        call, on this object's device: the fit ``compute_params`` makes
+        of each of its chunks, for any selection of cells.
+
+        `cells` are indices into the unmasked points (``xy_masked``'s
+        rows: a flattened (lat, lon) index where the cube has no mask),
+        one lane each, in their order; the lanes are padded with the
+        first cell up to `chunk_size` (default: no padding), as
+        ``compute_params`` pads its last chunk, so that calls on
+        selections of different sizes share one shape. The keyword
+        arguments are ``compute_params``' fit arguments, under its names
+        and defaults.
+
+        Returns a ``CellFits`` of tensors on this object's device, one row
+        a given cell (the padding dropped): the raw optimum (before the
+        Lx >= Ly canonicalisation and the QC codes, which
+        ``compute_params`` applies on the host), the objective at it (for
+        Nelder-Mead and L-BFGS the Fisher-z negative log-likelihood in
+        float64, for Levenberg-Marquardt half its residuals' sum of
+        squares), the lane's iterations, whether it converged, and whether
+        its distance window held any point. Nothing is read on the host
+        but what the optimiser itself reads.
+
+        Spans ``mle.fit`` over the call, ``mle.build`` (the training data)
+        and ``mle.solve`` (the optimiser) in it; ``mle.lanes`` counts the
+        lanes handed to the optimiser, padding included.
+        """
+        lane = _optimiser_lane(opt_method)
+        cells = np.asarray(cells)
+        n_points = len(self.xi_masked)
+        if cells.ndim != 1 or cells.size == 0 or (
+                cells.dtype.kind not in "iu"):
+            raise ValueError("cells must be a non-empty 1-D array of "
+                             "integer indices")
+        if cells.min() < 0 or cells.max() >= n_points:
+            raise IndexError(f"cells must lie in [0, {n_points}), the "
+                             "unmasked points")
+        lanes = cells.size if chunk_size is None else int(chunk_size)
+        if lanes < cells.size:
+            raise ValueError(f"{cells.size} cells exceed chunk_size "
+                             f"{lanes}")
+        with span("mle.fit"):
+            x0, box, _ = matern_ellipse._fit_setup(
+                guesses, bounds, self._x_centered.dtype, self.device)
+            geometry = self._geometry(
+                matern_ellipse, min_distance, max_distance, delta_x_method,
+                physical_distance_selection, max_train_cols)
+            fit, _ = self._slot_fitter([self.device], matern_ellipse, lane,
+                                       float(tol), geometry, x0, box)
+            return self._fit_chunk(fit, cells, lanes)
+
+    @staticmethod
+    def _fit_chunk(fit, cells: np.ndarray, lanes: int) -> CellFits:
+        """One call of `fit` (``_slot_fitter``'s) on `cells` padded to
+        `lanes`, the padding dropped: the chunk logic ``fit_cells`` and
+        ``compute_params`` share."""
+        count("mle.lanes", lanes)
+        return CellFits(*(t[:cells.size] for t in fit(_padded(cells,
+                                                              lanes))))
 
     def compute_params(  # noqa: C901
         self,
@@ -773,9 +899,10 @@ class EllipseBuilder:
         object's device.
 
         `chunk_size` points are fitted at a time with the batched
-        optimiser. Returns a Dataset of parameter fields (qc_code
-        semantics: 0 ok / 1 lower bound / 2 upper bound / 3 multiple
-        bounds / 9 no convergence or no training data).
+        optimiser, each chunk as ``fit_cells`` fits it. Returns a Dataset
+        of parameter fields (qc_code semantics: 0 ok / 1 lower bound / 2
+        upper bound / 3 multiple bounds / 9 no convergence or no training
+        data).
 
         `estimate_SE="hessian"` adds Fisher-information standard-error
         fields (``Lx_se``/``Ly_se``/``theta_se``/``R_se``): each
@@ -842,19 +969,7 @@ class EllipseBuilder:
         warning, and a grid smaller than one chunk rounds its row length
         up to it. The standard errors follow the same split.
         """
-        if opt_method not in (
-            "Nelder-Mead",
-            "L-BFGS-B",
-            "L-BFGS",
-            "lbfgs",
-            "lm",
-            "Levenberg-Marquardt",
-        ):
-            raise ValueError(
-                "opt_method must be 'Nelder-Mead', 'L-BFGS-B' or 'lm'"
-            )
-        use_lbfgs = opt_method in ("L-BFGS-B", "L-BFGS", "lbfgs")
-        use_lm = opt_method in ("lm", "Levenberg-Marquardt")
+        lane = _optimiser_lane(opt_method)
         coords = Coordinates(
             {
                 "latitude": np.asarray(self.coords["latitude"]),
@@ -973,18 +1088,15 @@ class EllipseBuilder:
                     checkpoint, n_done, n_points,
                 )
 
-        pending: list[tuple] = []
+        pending: list[CellFits] = []
 
         def _flush(save: bool) -> None:
             nonlocal n_done
-            if pending:
-                for (xs, nits_, succ, hd, n_keep) in pending:
-                    host_parts["x"].append(_host(xs)[:n_keep])
-                    host_parts["nit"].append(_host(nits_)[:n_keep])
-                    host_parts["success"].append(_host(succ)[:n_keep])
-                    host_parts["has_data"].append(_host(hd)[:n_keep])
-                    n_done += n_keep
-                pending.clear()
+            for fits in pending:
+                for name, parts in host_parts.items():
+                    parts.append(_host(getattr(fits, name)))
+                n_done += len(fits.x)
+            pending.clear()
             if save and checkpoint is not None:
                 tmp = checkpoint + ".tmp.npz"
                 np.savez(
@@ -1006,34 +1118,17 @@ class EllipseBuilder:
         row_len = (chunk_size if n_points > chunk_size
                    else -(-n_points // n_dev) * n_dev)
 
-        def _sel_row(start):
-            """(row_len,) padded centre indices + kept count."""
-            stop = min(start + chunk_size, n_points)
-            sel = np.arange(start, stop)
-            if stop - start < row_len:
-                sel = np.concatenate(
-                    [sel, np.full(row_len - (stop - start), start)]
-                )
-            return sel, stop - start
-
-        lane = "lm" if use_lm else ("lbfgs" if use_lbfgs else "nm")
-        geo_cfg = dict(
-            min_distance=float(min_distance),
-            max_distance=float(max_distance),
-            anisotropic=matern_ellipse.anisotropic,
-            delta_x_method=delta_x_method,
-            physical_distance=matern_ellipse.physical_distance,
-            physical_distance_selection=bool(physical_distance_selection),
-            max_train_cols=max_train_cols,
-        )
         fit_chunk, chunk_se = self._slot_fitter(
-            slots, matern_ellipse, lane, float(tol), geo_cfg, x0_single,
-            (lo, hi))
+            slots, matern_ellipse, lane, float(tol),
+            self._geometry(matern_ellipse, min_distance, max_distance,
+                           delta_x_method, physical_distance_selection,
+                           max_train_cols),
+            x0_single, (lo, hi))
         for start in range(n_done, n_points, chunk_size):
-            sel, n_keep = _sel_row(start)
+            cells = np.arange(start, min(start + chunk_size, n_points))
             # results stay ON THE DEVICE until a flush: fetching here
             # would make this chunk's host work wait on its solve
-            pending.append((*fit_chunk(sel), n_keep))
+            pending.append(self._fit_chunk(fit_chunk, cells, row_len))
             if checkpoint is not None and len(pending) >= checkpoint_every:
                 _flush(save=True)
 
@@ -1073,11 +1168,12 @@ class EllipseBuilder:
                                          device=self.device)
             se_pending = []
             for start in range(0, n_points, chunk_size):
-                sel, n_keep = _sel_row(start)
+                cells = np.arange(start, min(start + chunk_size, n_points))
+                sel = _padded(cells, row_len)
                 se_pending.append((chunk_se(
                     matern_ellipse._nll_fit_z, sel,
                     fitted_dev[torch.as_tensor(sel, device=self.device)]),
-                    n_keep))
+                    cells.size))
             ses = np.concatenate(
                 [_host(s)[:k] for s, k in se_pending], axis=0
             ).astype(float)

@@ -26,6 +26,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 
 
 class NMResult(NamedTuple):
@@ -193,6 +194,13 @@ def batched_nelder_mead(
     the iteration that finds no lane active changes nothing and ends the
     loop.
 
+    Spans (``utils/profiling``): ``nm.evaluate`` around each objective
+    call (the initial simplex, each iteration's candidates, each shrink
+    pass), ``nm.read`` around the host read. Counters, host integers the
+    loop holds: ``nm.iterations`` its trips (the last finds no lane
+    active), ``nm.points`` the K of each (K, B, d) call, so (d + 1)(1 +
+    shrinks) + 4 trips, ``nm.shrinks`` the shrink passes.
+
     Runs on `device`; with none, where `x0` or an argument lives if one
     is a tensor, else on the card.
     """
@@ -208,7 +216,9 @@ def batched_nelder_mead(
     vfk = vmap(vf, in_dims=(0,) + (None,) * len(args))  # (K, B, d) -> (K, B)
 
     def evaluate(simplexes):  # (B, K, d) -> (B, K)
-        return vfk(simplexes.transpose(0, 1), *args).T
+        count("nm.points", simplexes.shape[1])
+        with span("nm.evaluate"):
+            return vfk(simplexes.transpose(0, 1), *args).T
 
     with torch.no_grad():
         step = torch.where(x0 == 0.0, _ZDELT, _NONZDELT * x0)  # (B, d)
@@ -224,6 +234,7 @@ def batched_nelder_mead(
             return (f_spread <= fatol) & (x_spread <= xatol)
 
         while True:
+            count("nm.iterations")
             active = ~converged(simplex, fvals) & (nit < maxiter)  # (B,)
             order = torch.argsort(fvals, dim=1, stable=True)
             sorted_simplex = torch.take_along_dim(simplex, order[:, :, None],
@@ -238,14 +249,17 @@ def batched_nelder_mead(
                 centroid + 0.5 * direction,
                 centroid - 0.5 * direction,
             ]), min=lo, max=hi)  # (4, B, d)
-            fr, fe, foc, fic = vfk(cands, *args)
+            count("nm.points", 4)
+            with span("nm.evaluate"):
+                fr, fe, foc, fic = vfk(cands, *args)
             xr, xe, xoc, xic = cands
             take_expand, take_reflect, take_oc, shrink = _decide(
                 fr, fe, foc, fic, sorted_fvals[:, 0], sorted_fvals[:, -2],
                 sorted_fvals[:, -1])
 
-            any_active, any_shrink = torch.stack(
-                [active.any(), (shrink & active).any()]).tolist()
+            with span("nm.read"):
+                any_active, any_shrink = torch.stack(
+                    [active.any(), (shrink & active).any()]).tolist()
             if not any_active:
                 break
 
@@ -267,8 +281,11 @@ def batched_nelder_mead(
                 best + 0.5 * (sorted_simplex - best), min=lo, max=hi)
             # d + 1 full objective passes, paid only where they can be
             # needed
-            shrunk_fvals = evaluate(shrunk_simplex) if any_shrink else (
-                torch.full_like(sorted_fvals, torch.inf))
+            if any_shrink:
+                count("nm.shrinks")
+                shrunk_fvals = evaluate(shrunk_simplex)
+            else:
+                shrunk_fvals = torch.full_like(sorted_fvals, torch.inf)
 
             new_simplex = torch.where(shrink[:, None, None], shrunk_simplex,
                                       replaced_simplex)

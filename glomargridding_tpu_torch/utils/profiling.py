@@ -16,7 +16,7 @@ things.
   it does not change what the device does. ``count(name, n)`` adds to
   ``COUNTS`` (names in ``COUNTERS``), always, at the cost of an integer
   add: kernel launches, solver branches, the eigensolver's applications
-  and retained rank.
+  and retained rank, the simplex's trips, points and shrinks.
 - An exporter: ``device_trace(log_dir)`` profiles its extent with spans
   on and writes a Chrome trace; ``span_device_seconds`` reads the device
   time each span launched from the profiler it yields.
@@ -53,6 +53,10 @@ SPANS = (
     "eigsh.lock",
     # models/ellipse/covariance.ellipse_covariance_operator
     "assembly.operator", "assembly.store",
+    # models/ellipse/estimate.EllipseBuilder.fit_cells: the training data
+    # and the batched optimiser; ops/optim.batched_nelder_mead's objective
+    # calls and its host read of an iteration's two flags
+    "mle.fit", "mle.build", "mle.solve", "nm.evaluate", "nm.read",
 )
 _SPAN_SET = frozenset(SPANS)
 
@@ -69,6 +73,10 @@ COUNTERS = (
     # ops/eigsh: operator applications and the columns they carry, the
     # widenings and the retained rank at each return of the adaptive solve
     "eigsh.applications", "eigsh.columns", "eigsh.widenings", "eigsh.kept",
+    # ops/optim.batched_nelder_mead: loop trips, the points of every
+    # (K, B, d) objective call (K each), the shrink passes; and the lanes
+    # EllipseBuilder.fit_cells hands the optimiser, padding included
+    "nm.iterations", "nm.points", "nm.shrinks", "mle.lanes",
 )
 _COUNTER_SET = frozenset(COUNTERS)
 

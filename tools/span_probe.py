@@ -16,11 +16,12 @@ with the reference. Each reading is computed from
 ``window`` span, with n the window's analyses and c its ``eigsh.clip``
 spans:
 
-- ``kriging.factor_ms``, ``kriging.columns_ms``: ``device_seconds_by_span``
-  of that span, x 1e3 / n;
-- ``kriging.host_idle_ms``, ``lowrank.host_idle_ms``: ``layer_total`` of
-  ``idle_by_span`` (the harness's spans the fallback) over the layer's
-  spans, x 1e3 / n;
+- ``kriging.factor_ms``, ``kriging.columns_ms``, and for the ellipse
+  fit ``mle.build_ms``, ``nm.evaluate_ms``, ``nm.read_ms``:
+  ``device_seconds_by_span`` of that span, x 1e3 / n;
+- ``kriging.host_idle_ms``, ``lowrank.host_idle_ms``, ``mle.host_idle_ms``,
+  ``nm.host_idle_ms``: ``layer_total`` of ``idle_by_span`` (the harness's
+  spans the fallback) over the layer's spans, x 1e3 / n;
 - ``host.syncs_per_analysis``: the calls of ``syncs_by_span`` inside some
   program span, / n;
 - ``eigsh.sweep_ms``, ``eigsh.cholqr_ms``, ``eigsh.ritz_ms``:
@@ -54,7 +55,9 @@ from bench_torch import harness, program_trace, tracing  # noqa: E402
 from glomargridding_tpu_torch.utils import profiling  # noqa: E402
 
 PER_ANALYSIS = {"kriging.factor_ms": "kriging.factor",
-                "kriging.columns_ms": "kriging.columns"}
+                "kriging.columns_ms": "kriging.columns",
+                "mle.build_ms": "mle.build", "nm.evaluate_ms": "nm.evaluate",
+                "nm.read_ms": "nm.read"}
 PER_CLIP = {"eigsh.sweep_ms": "eigsh.sweep", "eigsh.cholqr_ms": "eigsh.cholqr",
             "eigsh.ritz_ms": "eigsh.ritz"}
 HARNESS_METRICS = ("eigsh.clip_ms", "eigsh.sweeps_per_clip",
@@ -98,7 +101,7 @@ def program_metrics(program, device, idle, syncs, n, clips, counts):
     """The readings of the module's docstring, by name."""
     metrics = {k: ratio(device.get(v), n, 1e3)
                for k, v in PER_ANALYSIS.items()}
-    for layer in ("kriging", "lowrank"):
+    for layer in ("kriging", "lowrank", "mle", "nm"):
         metrics[f"{layer}.host_idle_ms"] = ratio(
             program_trace.layer_total(idle, layer), n, 1e3)
     inside = sum(v for k, v in syncs.items() if k is not None)
