@@ -78,7 +78,15 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
   (``examples/torch_nonstationary_65k_lowrank.py``: K2's bf16 store and
   its clip; ``examples/torch_large_ensemble_65k.py``: K1's tiles and the
   members; ``examples/torch_ellipse_1deg_covariance.py``: K4 at 40,000
-  points).
+  points);
+- phase 32, K5 (the ellipse fit's Fisher-z objective,
+  ``ops/cuda/ellipse_nll``) at the 1-degree fit's stacked call (4 points
+  x 2,048 lanes x 4,096 columns, f32) against its plain twin, timed
+  beside its bound with every lane live and with 3% of them, and the
+  twin's time. Every Nelder-Mead fit of phases 16, 24, 25, 28 and 29
+  that goes through ``EllipseBuilder._chunk_fitter`` runs on it: each of
+  those phases prints its own K5 launches, and the kernel list sums
+  them (phase 32's own launches left out).
 
 Usage, from the repository root, with no arguments:
 
@@ -653,6 +661,7 @@ def main():
                       (idx, y, err))]
     kernels += walled("8-12", nonstationary, dev, glat, glon, (idx, y, err))
     launches = later_phases(dev, glat, glon, (idx, y, err))
+    kernels.append(walled("32", phase32_fisher_z, dev))
     for k in kernels:
         k["launches"] += launches.get(k["name"], 0)
     print("phase walls " + " ".join(f"{k}={v:.1f}s" for k, v in PHASE_WALLS
@@ -681,40 +690,45 @@ def walled(label, fn, *args):
 def later_phases(dev, glat, glon, obs):
     """Phases 13-31; returns each kernel's launches on their paths."""
     launches = {"pairwise_tile": 0, "ellipse_sym": 0, "ellipse_matvec": 0,
-                "ellipse_tile": 0}
+                "ellipse_tile": 0, "ellipse_nll": 0}
 
     def add(**counts):
         for name, count in counts.items():
             launches[name] += count
 
     # phases 13-15 run K2 once more, for the repair's bf16 store, and
-    # phase 17 once, on the fitted fields
+    # phase 17 once, on the fitted fields; phase 16's simplex runs on K5
     psd, k2_repair = walled("13-15", repaired_pipeline, dev, glat, glon,
                             obs)
-    add(ellipse_sym=k2_repair + walled("16-18", estimation_path, dev, glat,
-                                       glon, psd))
+    k2_fitted, k5_subset = walled("16-18", estimation_path, dev, glat, glon,
+                                  psd)
+    add(ellipse_sym=k2_repair + k2_fitted, ellipse_nll=k5_subset)
     walled("19", phase19_thresholds, dev, psd)
-    # phase 22 launches K1 through kernel_matvec, phase 24 K2 once
-    k1_matvec, k2_pipeline = walled("20-24", sampling_and_fitting, dev, glat,
-                                    glon, obs)
-    add(pairwise_tile=k1_matvec, ellipse_sym=k2_pipeline)
-    # phases 25-27: K2 on the 5-degree workflow, K1 on the months scan and
-    # the raw-observation kriging
-    k1_host, k2_host = walled("25-27", host_side_paths, dev)
-    add(pairwise_tile=k1_host, ellipse_sym=k2_host)
+    # phase 22 launches K1 through kernel_matvec, phase 24 K2 once and
+    # K5 in its fit
+    k1_matvec, k2_pipeline, k5_pipeline = walled(
+        "20-24", sampling_and_fitting, dev, glat, glon, obs)
+    add(pairwise_tile=k1_matvec, ellipse_sym=k2_pipeline,
+        ellipse_nll=k5_pipeline)
+    # phases 25-27: K2 and K5 on the 5-degree workflow, K1 on the months
+    # scan and the raw-observation kriging
+    k1_host, k2_host, k5_host = walled("25-27", host_side_paths, dev)
+    add(pairwise_tile=k1_host, ellipse_sym=k2_host, ellipse_nll=k5_host)
     # phase 28: the sharded paths; K1 in the kriging, K4 in the row
-    # blocks, K3 and K4 in the stream and its clip
-    k1_shard, k3_shard, k4_shard = walled("28", sharded_paths, dev, glat,
-                                          glon, obs, psd)
+    # blocks, K3 and K4 in the stream and its clip, K5 in the lane split
+    k1_shard, k3_shard, k4_shard, k5_shard = walled(
+        "28", sharded_paths, dev, glat, glon, obs, psd)
     add(pairwise_tile=k1_shard, ellipse_matvec=k3_shard,
-        ellipse_tile=k4_shard)
+        ellipse_tile=k4_shard, ellipse_nll=k5_shard)
     del psd
-    # phase 29: the 0.5-degree twin, K3 and K4 in its stream and clip;
-    # phase 30: the 1-degree twins, K2's store, K1's tiles, K4's build
-    k3_quarter, k4_quarter = walled("29", phase29_quarter_degree, dev)
+    # phase 29: the 0.5-degree twin, K5 in its fit, K3 and K4 in its
+    # stream and clip; phase 30: the 1-degree twins, K2's store, K1's
+    # tiles, K4's build
+    k3_quarter, k4_quarter, k5_quarter = walled(
+        "29", phase29_quarter_degree, dev)
     k1_x, k2_x, k4_x = walled("30", phase30_examples, dev)
     add(pairwise_tile=k1_x, ellipse_sym=k2_x, ellipse_matvec=k3_quarter,
-        ellipse_tile=k4_quarter + k4_x)
+        ellipse_tile=k4_quarter + k4_x, ellipse_nll=k5_quarter)
     # phase 31: the 0.1-degree twin, K4 in its application and clip
     add(ellipse_tile=walled("31", phase31_tenth_degree, dev))
     return launches
@@ -735,7 +749,7 @@ def device_and_build(precision, allow_tf32):
           gpu=torch.cuda.get_device_name(0), matmul_precision=precision,
           allow_tf32=allow_tf32)
     t0 = time.perf_counter()
-    libraries = ("pairwise_tile", "ellipse_tile")
+    libraries = ("pairwise_tile", "ellipse_tile", "ellipse_nll")
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(build.load_library, libraries))
     phase(2, "build", seconds=f"{time.perf_counter() - t0:.1f}",
@@ -745,7 +759,8 @@ def device_and_build(precision, allow_tf32):
     ptxas = {**ptxas_summary("pairwise_tile", ["pairwise_tile_kernel"]),
              **ptxas_summary("ellipse_tile", [
                  "ellipse_sym_kernel", "ellipse_matvec_kernel",
-                 "ellipse_tile_kernel"])}
+                 "ellipse_tile_kernel"]),
+             **ptxas_summary("ellipse_nll", ["fisher_z_nll_kernel"])}
     print("ptxas " + " ".join(f"{k}=regs:{r},spill_bytes:{b}"
                               for k, (r, b) in ptxas.items()), flush=True)
     for name in ptxas:
@@ -2124,7 +2139,7 @@ def summed_in_f32_fit(fitter, sel):
     x0 = fitter["x0"][None, :].expand(len(sel), fitter["x0"].shape[0])
     res = optim.batched_nelder_mead(nll, x0, (X, z_y, w), fitter["box"],
                                     xatol=FIT_KW["tol"], fatol=FIT_KW["tol"])
-    return res.x, res.nit, res.success, torch.sum(w, dim=1) > 0
+    return res.x, res.fun, res.nit, res.success, torch.sum(w, dim=1) > 0
 
 
 def gather_times(builder, sel):
@@ -2433,6 +2448,8 @@ def phase16_subset(builder, model, cube, coords, chunks, f32, fitted_lm,
     chunk = FIT_KW["chunk_size"]
     # the subset: the same lanes through the chunk fitter
     lanes = np.concatenate(chunks)
+    # every simplex below runs on K5 but the f32-summed one
+    COUNTS["k5.launches"] = 0
     raw32, pm32, qc32, _ = fit_lanes(f32, chunks)
     polar = np.arange(POLAR_START, POLAR_START + chunk)
     qc_polar = np.full(n, -1)
@@ -2462,6 +2479,7 @@ def phase16_subset(builder, model, cube, coords, chunks, f32, fitted_lm,
         builder, EllipseModel(**{**FIT_MODEL, "v": 0.5}), "nm",
         FIT_KW["tol"])
     polar_lanes(builder64, model, qc_polar)
+    k5 = require_launches("K5 (phase 16's simplex)", COUNTS["k5.launches"])
     del builder64
     both = (qc32 == 0) & (qc64 == 0)
     lengths = ("Lx_rel", "Ly_rel")
@@ -2490,7 +2508,7 @@ def phase16_subset(builder, model, cube, coords, chunks, f32, fitted_lm,
     failed = {"lm_f64": int(np.sum((qc_lm == 9) & (qc64 != 9))),
               "lm_f32": int(np.sum((qc_lm32 == 9) & (qc64 != 9)))}
     phase(16, "ellipse_mle_subset", lanes=lanes.size,
-          qc0_in_both=int(both.sum()),
+          qc0_in_both=int(both.sum()), k5_launches=k5,
           simplex_qc1_lm_qc0=int(np.sum((qc32 == 1) & (qc_lm32 == 0))),
           nm_f64_s=f"{f64_s:.3f}", nm_f64_nit_median=f"{np.median(nit64):.0f}",
           lm_f64_s=f"{lm_s:.3f}", lm_f64_nit_median=f"{np.median(nit_lm):.0f}",
@@ -2537,7 +2555,7 @@ def phase16_subset(builder, model, cube, coords, chunks, f32, fitted_lm,
     if any(failed.values()):
         raise AssertionError(f"LM failed lanes that NM fitted: {failed}")
     return dict(chunks=chunks, f32=f32, f64=f64, raw32=raw32, raw64=raw64,
-                pm32=pm32, pm64=pm64, both=both)
+                pm32=pm32, pm64=pm64, both=both, k5_launches=k5)
 
 
 def phase17_fitted_covariance(dev, params, axes):
@@ -2655,13 +2673,15 @@ def phase18_hessian_se(subset):
 
 
 def estimation_path(dev, glat, glon, psd):
-    """Phases 16-18; returns the K2 launches of the fitted fields."""
+    """Phases 16-18; returns the K2 launches of the fitted fields and K5's
+    of phase 16's simplex."""
     params, builder, axes, subset = phase16_whole_grid_fit(
         dev, glat, glon, psd)
     k2_launches = phase17_fitted_covariance(dev, params, axes)
     phase18_hessian_se(subset)
+    k5_launches = subset["k5_launches"]
     del builder, subset
-    return k2_launches
+    return k2_launches, k5_launches
 
 
 def widening_flavours(mv, n, trace, dev):
@@ -3220,7 +3240,10 @@ def pipeline_stages(tp, dev, gen, stages):
     builder, stages["calc_cov"] = timed_s(lambda: tp.correlation(cube, lats,
                                                                  lons))
     del cube
+    COUNTS["k5.launches"] = 0
     params, stages["fit"] = timed_s(lambda: tp.fit_ellipses(builder))
+    k5_launches = require_launches("K5 (the pipeline's fit)",
+                                   COUNTS["k5.launches"])
     del builder
     left_out, good = tp.fit_mask(params, mask)
     reset_ellipse_counts()
@@ -3240,14 +3263,15 @@ def pipeline_stages(tp, dev, gen, stages):
     qc = np.asarray(params["qc_code"].values)
     return dict(psd=psd, true_rank=true_rank, trace_rel=trace_rel, obs=obs,
                 res=res, members=members, qc=qc, mask=mask, good=good,
-                n=n, k2_launches=k2_launches, n_ocean=n_ocean)
+                n=n, k2_launches=k2_launches, k5_launches=k5_launches,
+                n_ocean=n_ocean)
 
 
 def phase24_nonstationary_pipeline(dev):
     """examples/torch_nonstationary_1deg_pipeline.py at 1 degree, nothing
     cut, stage by stage through the twin: training cube -> calc_cov ->
     ellipse fit -> K2 -> clip -> kriging with 100 members. Returns K2's
-    launches."""
+    and K5's launches."""
     from glomargridding_tpu_torch import (
         LowRankPSD,
         lowrank_ensemble_step,
@@ -3290,7 +3314,7 @@ def phase24_nonstationary_pipeline(dev):
           T=tp.T_TRAIN, l_max=tp.L_MAX, fitted=int(out["good"].sum()), n=n,
           qc_counts="|".join(f"{c}:{k}" for c, k in zip(codes, counts)),
           qc0_share=f"{qc0_share:.4f}", qc0_bound=PIPE_QC0_SHARE,
-          k2_launches=out["k2_launches"],
+          k2_launches=out["k2_launches"], k5_launches=out["k5_launches"],
           rank=f"{out['true_rank']}->{psd.rank}",
           trace_rel=f"{out['trace_rel']:.3e}", trace_tol=TRACE_TOL,
           obs=n_obs, members=N_MEMBERS, tol=KRIGING_TOL,
@@ -3312,18 +3336,18 @@ def phase24_nonstationary_pipeline(dev):
     check("pipeline consistency, a truth drawn from the factors: largest "
           "over smallest of RMSE, mean uncertainty and member spread",
           max(triple.values()) / min(triple.values()), CONSISTENCY_RATIO)
-    return out["k2_launches"]
+    return out["k2_launches"], out["k5_launches"]
 
 
 def sampling_and_fitting(dev, glat, glon, obs):
     """Phases 20-24; returns K1's launches on ``kernel_matvec`` and K2's
-    on the pipeline."""
+    and K5's on the pipeline."""
     phase20_kv_general(dev, glat, glon, obs)
     phase21_sphere_sampler(dev)
     k1_matvec = phase22_chebyshev_mvn(dev)
     phase23_variogram_mle(dev, glat, glon, obs)
-    k2_pipeline = phase24_nonstationary_pipeline(dev)
-    return k1_matvec, k2_pipeline
+    k2_pipeline, k5_pipeline = phase24_nonstationary_pipeline(dev)
+    return k1_matvec, k2_pipeline, k5_pipeline
 
 
 # ---------------------------------------------------------------------------
@@ -3564,6 +3588,7 @@ def phase25_hadsst_workflow(dev):
 
     first_call_costs(wf, dev)
     reset_ellipse_counts()
+    COUNTS["k5.launches"] = 0  # the workflow's fits, the controls' below
     out32, wall = timed_s(lambda: run(f32))
     k2 = require_launches("K2 on the 5-degree workflow",
                           COUNTS["k2.launches"])
@@ -3576,6 +3601,7 @@ def phase25_hadsst_workflow(dev):
                            COUNTS["k2.launches"])
 
     fit = workflow_fit_shares(wf, load, dev, params)
+    k5 = require_launches("K5 in the workflow's fits", COUNTS["k5.launches"])
     fitted, fit64, lat, lon = fit["fitted"], fit["fit64"], fit["lat"], fit[
         "lon"]
     errs, errs_old, step_pairs, k2_err = workflow_vs_f64(
@@ -3610,14 +3636,14 @@ def phase25_hadsst_workflow(dev):
           run_2014_s=f"{wall:.3f}", run_1876_s=f"{old_wall:.3f}",
           fit_f64_s=f"{fit['fit64_s']:.3f}",
           fit_nu05_f32_s=f"{fit['wrong_s']:.3f}",
-          inputs="bundle")
+          k5_launches=k5, inputs="bundle")
     print("phase 25 stages_s " + " ".join(
         f"{k.replace(' ', '_')}={v:.4f}" for k, v in out32["times"].items()),
         flush=True)
     print("phase 25 stages_1876_s " + " ".join(
         f"{k.replace(' ', '_')}={v:.4f}" for k, v in old32["times"].items()),
         flush=True)
-    return k2
+    return k2, k5
 
 
 def scan_tiles_vs_plain(scan, load, dev):
@@ -3865,12 +3891,12 @@ def phase27_raw_observations(dev):
 
 
 def host_side_paths(dev):
-    """Phases 25-27; returns K2's launches on the workflow and K1's on the
-    months scan and the raw-observation kriging."""
-    k2 = phase25_hadsst_workflow(dev)
+    """Phases 25-27; returns K1's launches on the months scan and the
+    raw-observation kriging, and K2's and K5's on the workflow."""
+    k2, k5 = phase25_hadsst_workflow(dev)
     k1 = phase26_esa_months_scan(dev)
     k1 += phase27_raw_observations(dev)
-    return k1, k2
+    return k1, k2, k5
 
 
 # ---------------------------------------------------------------------------
@@ -4391,7 +4417,9 @@ def phase28h_fit(mesh, glat, glon, psd):
                 "longitude": lon_axis.astype(dtype)}), cor_mode="lazy")
 
     chunks = [np.arange(s, s + FIT_KW["chunk_size"]) for s in SUBSET_STARTS]
+    COUNTS["k5.launches"] = 0
     fits, walls = sharded_fits(builder, chunks, mesh.axis_devices("grid"))
+    k5 = require_launches("K5 (the sharded simplex)", COUNTS["k5.launches"])
     (_, pm_s, qc_s, _), (_, pm_1, qc_1, _) = (fits["f64_nm", k]
                                               for k in ("sharded", "single"))
     both = (qc_s == 0) & (qc_1 == 0)
@@ -4416,7 +4444,7 @@ def phase28h_fit(mesh, glat, glon, psd):
           **{f"lm_f32_{k}_max": f"{float(v.max()):.3e}"
              for k, v in dev32.items()},
           control_nu_0_5_share=f"{fault:.4f}",
-          control_f32_vs_f64_worst=f"{fault64:.3e}",
+          control_f32_vs_f64_worst=f"{fault64:.3e}", k5_launches=k5,
           **{k: f"{v:.3f}" for k, v in walls.items()})
     check("sharded f64 fit vs single", f64_worst, SHARD_FIT_F64_RTOL)
     if not share >= FIT_SHARE_LM:
@@ -4424,11 +4452,12 @@ def phase28h_fit(mesh, glat, glon, psd):
                              f"the bounds, under {FIT_SHARE_LM}")
     if not (fault < FIT_SHARE_LM and fault64 > SHARD_FIT_F64_RTOL):
         raise AssertionError("the fit bounds pass their controls")
+    return k5
 
 
 def sharded_paths(dev, glat, glon, obs, psd):
     """Phase 28, the sharded paths on four slots of the card; returns the
-    launches (K1, K3, K4) of the sharded path."""
+    launches (K1, K3, K4, K5) of the sharded path."""
     from glomargridding_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(n_grid=SHARD_SLOTS, n_ens=1, devices=[dev] * SHARD_SLOTS)
@@ -4442,9 +4471,9 @@ def sharded_paths(dev, glat, glon, obs, psd):
     phase28e_ensemble(mesh, psd, obs)
     phase28f_lowrank(mesh22, psd, obs)
     phase28g_linalg(mesh, psd, cells)
-    phase28h_fit(mesh, glat, glon, psd)
+    k5 = phase28h_fit(mesh, glat, glon, psd)
     phase(28, "sharded_paths", seconds=f"{time.perf_counter() - t0:.1f}")
-    return k1, k3_c + k3_d, k4 + k4_c + k4_d
+    return k1, k3_c + k3_d, k4 + k4_c + k4_d, k5
 
 
 # ---------------------------------------------------------------------------
@@ -4608,6 +4637,26 @@ def qd_chunk_times(tq, builder, model, lat_axis):
     return out, cap
 
 
+def fit_counts():
+    """The counters a fit's K5 launches are held to."""
+    return {k: COUNTS[k] for k in ("k5.launches", "nm.iterations",
+                                   "nm.shrinks")}
+
+
+def k5_on_every_call(label, before, solves):
+    """(K5's launches, the objective calls) since `before`
+    (``fit_counts()``) over `solves` Nelder-Mead solves, held equal: a
+    solve's objective calls are its start, one a trip and one a shrink
+    pass, and every one on the card runs on K5."""
+    delta = {k: COUNTS[k] - v for k, v in before.items()}
+    k5 = require_launches(f"K5 ({label})", delta["k5.launches"])
+    calls = solves + delta["nm.iterations"] + delta["nm.shrinks"]
+    if k5 != calls:
+        raise AssertionError(f"{label}: {k5} K5 launches for {calls} "
+                             "objective calls")
+    return k5, calls
+
+
 def qd_fit(tq, dev, builder, axes4):
     """Phase 29 c: the whole-grid fit through the twin, the held lanes,
     the checkpoint's resume."""
@@ -4636,10 +4685,12 @@ def qd_fit(tq, dev, builder, axes4):
     ckpt = f"{ckpt_dir}/quarter_degree_mle.npz"
     try:
         torch.cuda.reset_peak_memory_stats()
+        before = fit_counts()
         params, fit_s = timed_s(lambda: tq.fit_ellipses(builder,
                                                         checkpoint=ckpt))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         solved = watch["solve"].calls
+        k5, calls = k5_on_every_call("the 0.5-degree fit", before, solved)
         resumed, resume_s = timed_s(lambda: tq.fit_ellipses(
             builder, checkpoint=ckpt))
         resume_solves = watch["solve"].calls - solved
@@ -4678,7 +4729,7 @@ def qd_fit(tq, dev, builder, axes4):
           converged_bound=QD_CONVERGED_SHARE,
           fit_peak_gb=f"{peak_gb:.3f}", resume_s=f"{resume_s:.3f}",
           resume_bound_s=QD_RESUME_S, resume_chunks_solved=resume_solves,
-          resume_bitwise=same)
+          resume_bitwise=same, k5_launches=k5, objective_calls=calls)
     if solved != n_chunks:
         raise AssertionError(f"{solved} solves for {n_chunks} chunks")
     check_canonical(flat)
@@ -4690,7 +4741,7 @@ def qd_fit(tq, dev, builder, axes4):
             f"{resume_s:.3f} s")
 
     qd_held_lanes(tq, builder, model, axes4, flat)
-    return params
+    return params, k5
 
 
 def qd_held_lanes(tq, builder, model, axes4, flat):
@@ -4950,7 +5001,7 @@ def qd_ensemble_checks(tq, dev, psd):
 def phase29_quarter_degree(dev):
     """Phase 29: examples/torch_nonstationary_quarter_degree.py at 259,200
     cells with nothing cut, stage by stage through the twin; returns the
-    launches (K3, K4) of its stream and clip."""
+    launches (K3, K4) of its stream and clip and K5's of its fit."""
 
     tq = examples_module("torch_nonstationary_quarter_degree")
     torch.cuda.empty_cache()
@@ -4958,7 +5009,7 @@ def phase29_quarter_degree(dev):
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 28)
     cube, builder, axes4 = qd_cube_and_rows(tq, dev, gen)
-    params = qd_fit(tq, dev, builder, axes4)
+    params, k5 = qd_fit(tq, dev, builder, axes4)
     del builder, cube
     _, _, glat, glon = axes4
     fields, n_fit = tq.fitted_fields(params)
@@ -4982,7 +5033,7 @@ def phase29_quarter_degree(dev):
     phase(29, "quarter_degree", cells=n, fitted=n_fit, k3_launches=k3,
           k4_launches=k4, seconds=f"{time.perf_counter() - t0:.1f}",
           peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    return k3, k4
+    return k3, k4, k5
 
 
 def clip_stage(out):
@@ -5524,6 +5575,87 @@ def phase31_tenth_degree(dev):
           seconds=f"{time.perf_counter() - t0:.1f}",
           peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     return k4
+
+
+# K5 against its twin, max over the lanes of |K5 - twin| / |twin| at the
+# unit-sigma form in f32: the twin's terms bit for bit, summed in float64
+# in another order (tests/test_torch_cuda_k5)
+K5_RTOL = 1e-12
+
+
+def fisher_z_inputs(K, B, N, live, dev, fit_sigma=False, seed=SEED + 32):
+    """The fit's stacked call on the card (lengths 300-8,000 km, any
+    angle, sigma 0.05-0.5 where it is fitted, displacements within 4,000
+    km, 10% of the weights 0), its first `live` share of lanes (at least
+    one) in the mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    points = torch.cat([uniform(300.0, 8000.0, K, B, 2),
+                        uniform(-2 * np.pi, 2 * np.pi, K, B, 1)]
+                       + [uniform(0.05, 0.5, K, B, 1)] * fit_sigma, dim=-1)
+    mask = torch.zeros(B, dtype=torch.bool, device=dev)
+    mask[:max(1, round(live * B))] = True
+    return (points.contiguous(), uniform(-4000.0, 4000.0, B, N, 2),
+            torch.arctanh(uniform(-0.2, 0.99, B, N)),
+            (torch.rand((B, N), generator=g, device=dev) > 0.1).float(),
+            mask)
+
+
+def phase32_fisher_z(dev):
+    """Phase 32: K5 at the 1-degree fit's stacked call against its plain
+    twin, and its time with every lane live and with 3% of them, beside
+    its bound and the twin's time. Returns its kernel record, whose
+    launches the main paths' fits add (this phase's own are not)."""
+    from glomargridding_tpu_torch import EllipseModel
+    from glomargridding_tpu_torch.ops import optim
+    from glomargridding_tpu_torch.ops.cuda import ellipse_nll
+    from glomargridding_tpu_torch.utils.roofline import k5_bound
+
+    K, B, N = 4, 2048, 4096
+    model = EllipseModel(anisotropic=True, rotated=True,
+                         physical_distance=True, v=1.5, unit_sigma=True)
+    twin = optim.stacked_objective(model._nll_fit_z, 3)
+
+    def k5(args):
+        return ellipse_nll.fisher_z_nll(*args, v=1.5, fit_sigma=False)
+
+    full = fisher_z_inputs(K, B, N, 1.0, dev)
+    before = COUNTS["k5.launches"]
+    got, want = k5(full), twin(*full)
+    err = check("K5 against its twin (f32)", torch.max(
+        torch.abs(got - want) / torch.abs(want)).item(), K5_RTOL)
+    ms, plain_ms = cuda_time_ms(lambda: k5(full)), cuda_time_ms(
+        lambda: twin(*full))
+    few = fisher_z_inputs(K, B, N, 0.03, dev)
+    few_ms = cuda_time_ms(lambda: k5(few))
+    bound_ms, by = k5_bound(K, B, N)
+    few_bound_ms, _ = k5_bound(K, int(few[-1].sum()), N)
+    launched = require_launches("K5", COUNTS["k5.launches"] - before)
+    phase(32, "fisher_z_kernel", K=K, lanes=B, columns=N,
+          max_rel_err=f"{err:.3e}", tol=K5_RTOL, ms=f"{ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}", bound_by=by,
+          share_of_bound=f"{bound_ms / ms:.4f}",
+          live_3pct_ms=f"{few_ms:.4f}",
+          live_3pct_bound_ms=f"{few_bound_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", threads=ellipse_nll.THREADS,
+          launches=launched)
+    return {
+        "name": "ellipse_nll",
+        "route": "cuda",
+        "source": "glomargridding_tpu_torch/ops/cuda/csrc/ellipse_nll.cu",
+        "replaces": None,
+        "launches": 0,
+        "max_rel_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
 
 if __name__ == "__main__":
     sys.exit(main())

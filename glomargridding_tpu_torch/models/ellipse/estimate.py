@@ -21,6 +21,7 @@ The multi-device fit (``mesh=``) splits each chunk's lanes over the
 slots of a ``parallel`` mesh.
 """
 
+import functools
 import json
 import logging
 import math
@@ -33,11 +34,13 @@ import torch
 
 from ...constants import RADIUS_OF_EARTH_KM
 from ...core.labeled import Coordinates, DataArray, Dataset
+from ...ops.cuda import ellipse_nll
 from ...ops.distances import displacements, haversine_matrix
 from ...ops.optim import (
     batched_lbfgs,
     batched_levenberg_marquardt,
     batched_nelder_mead,
+    stacked_objective,
 )
 from ...types import DeltaXMethod
 from ...utils.arrays import cov_2_cor, is_iter, uncompress_masked
@@ -75,6 +78,18 @@ _OPTIMISER_LANES = {"Nelder-Mead": "nm", "L-BFGS-B": "lbfgs",
 def _padded(cells: np.ndarray, lanes: int) -> np.ndarray:
     """`cells` and, up to `lanes`, copies of the first: a chunk's lanes."""
     return np.concatenate([cells, np.full(lanes - cells.size, cells[0])])
+
+
+def _k5_takes(model: EllipseModel, lane: str, device: torch.device,
+              dtype: torch.dtype) -> bool:
+    """Whether a chunk's objective runs on K5 (``ops.cuda.ellipse_nll``):
+    for the Nelder-Mead lane on a CUDA device, at the forms, orders and
+    dtypes the kernel takes (the anisotropic forms, rotated or not, sigma
+    fitted or unit; half-integer nu up to 3.5; f32 or f64). Everything
+    else, and the gradient lanes, keep the vmapped ``_nll_fit_z``."""
+    return (lane == "nm" and device.type == "cuda" and model.anisotropic
+            and model.v in ellipse_nll.ORDERS
+            and dtype in (torch.float32, torch.float64))
 
 
 def _optimiser_lane(opt_method: str) -> str:
@@ -715,13 +730,21 @@ class EllipseBuilder:
         data (Fisher-transformed observations) and the batched optimiser
         of `lane` ("nm", "lm" or "lbfgs") on it. Everything stays on
         `device` (default this object's), which holds its own copy of the
-        coordinates and the correlation."""
+        coordinates and the correlation. Nelder-Mead's stacked objective
+        calls run on K5 where ``_k5_takes``, else on the vmapped
+        ``_nll_fit_z``."""
         device = self.device if device is None else torch.device(device)
         lats_all, lons_all = (t.to(device) for t in self._point_coords())
         lazy = isinstance(self.cor, _LazyCorrelation)
         cor = (self.cor.normalised_samples if lazy else self.cor).to(device)
         x0_single = x0_single.to(device)
         bounds = tuple(b.to(device) for b in bounds)
+        if _k5_takes(matern_ellipse, lane, device, cor.dtype):
+            stacked = functools.partial(
+                ellipse_nll.fisher_z_nll, v=matern_ellipse.v,
+                fit_sigma=not matern_ellipse.unit_sigma)
+        else:
+            stacked = stacked_objective(matern_ellipse._nll_fit_z, 3)
 
         def build(sel):
             return _chunk_train_data(
@@ -746,8 +769,8 @@ class EllipseBuilder:
                         tol=tol)
                 else:
                     res = batched_nelder_mead(
-                        matern_ellipse._nll_fit_z, x0, (X, y, w), bounds,
-                        xatol=tol, fatol=tol)
+                        None, x0, (X, y, w), bounds, xatol=tol, fatol=tol,
+                        stacked_fun=stacked)
             return res.x, res.fun, res.nit, res.success, has_data
 
         return fit, build

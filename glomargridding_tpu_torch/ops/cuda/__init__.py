@@ -9,6 +9,7 @@ from .ellipse import (
     ellipse_tile,
     pack_points,
 )
+from .ellipse_nll import fisher_z_nll
 from .pairwise import (
     DISTANCES,
     TILE_N,
@@ -24,6 +25,7 @@ __all__ = [
     "ellipse_matvec",
     "ellipse_sym",
     "ellipse_tile",
+    "fisher_z_nll",
     "matern_covariance_cuda",
     "pairwise_covariance",
     "pack_points",

@@ -158,6 +158,19 @@ def nelder_mead(
                     success)
 
 
+def stacked_objective(fun, n_args: int):
+    """``fun(x, *args_i)`` lifted to a stacked call: ``(points, *args,
+    mask) -> (K, B)`` for (K, B, d) points and `n_args` per-lane
+    arguments, by ``torch.func.vmap`` over the lanes and then the points.
+    Every lane is evaluated; `mask` is not read."""
+    vfk = vmap(vmap(fun), in_dims=(0,) + (None,) * n_args)
+
+    def evaluate(points, *args_and_mask):
+        return vfk(points, *args_and_mask[:-1])
+
+    return evaluate
+
+
 def batched_nelder_mead(
     fun,
     x0,
@@ -167,6 +180,7 @@ def batched_nelder_mead(
     fatol: float = 1e-4,
     maxiter: int | None = None,
     device=None,
+    stacked_fun=None,
 ) -> NMResult:
     """Natively batched Nelder-Mead over independent problems.
 
@@ -189,17 +203,29 @@ def batched_nelder_mead(
     A lane that has converged, or has spent `maxiter`, is frozen: it
     keeps its state, and `nit` counts only its active iterations.
 
-    The host reads one two-element tensor per iteration, (any lane
-    active, any active lane shrinks), after the candidates are evaluated:
-    the iteration that finds no lane active changes nothing and ends the
-    loop.
+    The host reads one two-element tensor per iteration, (the active
+    lanes, the active lanes that shrink), after the candidates are
+    evaluated: the iteration that finds no lane active changes nothing
+    and ends the loop.
+
+    Each objective call is one stacked call, ``stacked_fun(points, *args,
+    mask) -> (K, B)`` on (K, B, d) points, whose values the loop reads
+    only on the lanes of the (B,) bool `mask`: every lane for the initial
+    simplex, the active lanes for each iteration's candidates, the active
+    lanes that shrink for a shrink pass. So a stacked objective may skip
+    the other lanes and return anything there. Give the objective once:
+    `fun` (lifted by ``stacked_objective(fun, len(args))``, which
+    evaluates every lane) or, with `fun` None, `stacked_fun`.
 
     Spans (``utils/profiling``): ``nm.evaluate`` around each objective
     call (the initial simplex, each iteration's candidates, each shrink
     pass), ``nm.read`` around the host read. Counters, host integers the
     loop holds: ``nm.iterations`` its trips (the last finds no lane
     active), ``nm.points`` the K of each (K, B, d) call, so (d + 1)(1 +
-    shrinks) + 4 trips, ``nm.shrinks`` the shrink passes.
+    shrinks) + 4 trips, ``nm.shrinks`` the shrink passes,
+    ``nm.lanes_offered`` B a call and ``nm.lanes_evaluated`` the lanes of
+    its mask (their ratio is the share of lane evaluations a stacked
+    objective that skips may save).
 
     Runs on `device`; with none, where `x0` or an argument lives if one
     is a tensor, else on the card.
@@ -212,13 +238,19 @@ def batched_nelder_mead(
         maxiter = 200 * d
     lo, hi = _box(bounds, d, x0)
 
-    vf = vmap(fun)  # (B, d) + per-lane args -> (B,)
-    vfk = vmap(vf, in_dims=(0,) + (None,) * len(args))  # (K, B, d) -> (K, B)
+    if (fun is None) == (stacked_fun is None):
+        raise ValueError("give the objective once: fun or stacked_fun")
+    if stacked_fun is None:
+        stacked_fun = stacked_objective(fun, len(args))
 
-    def evaluate(simplexes):  # (B, K, d) -> (B, K)
-        count("nm.points", simplexes.shape[1])
+    def evaluate(points, mask):  # (K, B, d) -> (K, B)
+        count("nm.points", points.shape[0])
+        count("nm.lanes_offered", B)
         with span("nm.evaluate"):
-            return vfk(simplexes.transpose(0, 1), *args).T
+            return stacked_fun(points, *args, mask)
+
+    def evaluate_simplexes(simplexes, mask):  # (B, K, d) -> (B, K)
+        return evaluate(simplexes.transpose(0, 1).contiguous(), mask).T
 
     with torch.no_grad():
         step = torch.where(x0 == 0.0, _ZDELT, _NONZDELT * x0)  # (B, d)
@@ -226,7 +258,9 @@ def batched_nelder_mead(
             d, dtype=x0.dtype, device=device)[None] * step[:, None, :]
         simplex = torch.clamp(torch.cat([x0[:, None, :], pts], dim=1),
                               min=lo, max=hi)  # (B, d + 1, d)
-        fvals = evaluate(simplex)  # (B, d + 1)
+        fvals = evaluate_simplexes(
+            simplex, torch.ones((B,), dtype=torch.bool, device=device))
+        count("nm.lanes_evaluated", B)
         nit = torch.zeros((B,), dtype=torch.int32, device=device)
 
         def converged(simplex, fvals):
@@ -249,18 +283,18 @@ def batched_nelder_mead(
                 centroid + 0.5 * direction,
                 centroid - 0.5 * direction,
             ]), min=lo, max=hi)  # (4, B, d)
-            count("nm.points", 4)
-            with span("nm.evaluate"):
-                fr, fe, foc, fic = vfk(cands, *args)
+            fr, fe, foc, fic = evaluate(cands, active)
             xr, xe, xoc, xic = cands
             take_expand, take_reflect, take_oc, shrink = _decide(
                 fr, fe, foc, fic, sorted_fvals[:, 0], sorted_fvals[:, -2],
                 sorted_fvals[:, -1])
+            shrinking = shrink & active
 
             with span("nm.read"):
-                any_active, any_shrink = torch.stack(
-                    [active.any(), (shrink & active).any()]).tolist()
-            if not any_active:
+                n_active, n_shrink = torch.stack(
+                    [active.sum(), shrinking.sum()]).tolist()
+            count("nm.lanes_evaluated", n_active)
+            if not n_active:
                 break
 
             cand_x = torch.where(
@@ -279,11 +313,11 @@ def batched_nelder_mead(
             best = sorted_simplex[:, :1]
             shrunk_simplex = torch.clamp(
                 best + 0.5 * (sorted_simplex - best), min=lo, max=hi)
-            # d + 1 full objective passes, paid only where they can be
-            # needed
-            if any_shrink:
+            # d + 1 objective passes, paid only where they can be needed
+            if n_shrink:
                 count("nm.shrinks")
-                shrunk_fvals = evaluate(shrunk_simplex)
+                count("nm.lanes_evaluated", n_shrink)
+                shrunk_fvals = evaluate_simplexes(shrunk_simplex, shrinking)
             else:
                 shrunk_fvals = torch.full_like(sorted_fvals, torch.inf)
 

@@ -200,6 +200,18 @@ def kv_nan_guard(v: float, x) -> torch.Tensor:
     return torch.where(torch.isinf(out), math.nan, out)
 
 
+def half_integer_coeffs(v: float) -> list[float]:
+    """The Horner coefficients of ``xv_kv_half_integer`` for half-integer
+    `v` = n + 1/2, from x^n down: c_k = (n+k)! / (k! (n-k)! 2^k)."""
+    if not _is_half_integer(v):
+        raise ValueError(f"v={v} is not half-integer")
+    n = int(round(v - 0.5))
+    coeffs = [1.0]
+    for k in range(1, n + 1):
+        coeffs.append(coeffs[-1] * (n + k) * (n - k + 1) / (2.0 * k))
+    return coeffs
+
+
 def xv_kv_half_integer(v: float, x: torch.Tensor) -> torch.Tensor:
     r"""``x**v * K_v(x)`` for half-integer ``v`` as one exp times a
     Horner polynomial:
@@ -210,16 +222,10 @@ def xv_kv_half_integer(v: float, x: torch.Tensor) -> torch.Tensor:
 
     NaN at ``x <= 0``, matching the generic product's ``0 * inf``.
     """
-    if not _is_half_integer(v):
-        raise ValueError(f"v={v} is not half-integer")
+    coeffs = half_integer_coeffs(v)
     x = torch.as_tensor(x)
     positive = x > 0.0
     x_safe = torch.where(positive, x, torch.ones_like(x))
-    # c_k = (n+k)! / (k! (n-k)! 2^k), built iteratively; Horner from x^n
-    n = int(round(v - 0.5))
-    coeffs = [1.0]
-    for k in range(1, n + 1):
-        coeffs.append(coeffs[-1] * (n + k) * (n - k + 1) / (2.0 * k))
     total = torch.full_like(x_safe, coeffs[0])
     for c in coeffs[1:]:
         total = total * x_safe + c

@@ -16,7 +16,7 @@ things.
   it does not change what the device does. ``count(name, n)`` adds to
   ``COUNTS`` (names in ``COUNTERS``), always, at the cost of an integer
   add: kernel launches, solver branches, the eigensolver's applications
-  and retained rank, the simplex's trips, points and shrinks.
+  and retained rank, the simplex's trips, points, shrinks and lanes.
 - An exporter: ``device_trace(log_dir)`` profiles its extent with spans
   on and writes a Chrome trace; ``span_device_seconds`` reads the device
   time each span launched from the profiler it yields.
@@ -61,10 +61,10 @@ SPANS = (
 _SPAN_SET = frozenset(SPANS)
 
 COUNTERS = (
-    # launches of the kernels K1-K4 (ops/cuda), and K1's tiles on the
+    # launches of the kernels K1-K5 (ops/cuda), and K1's tiles on the
     # plain route (a Matern order without a kernel instantiation)
     "k1.launches", "k1.plain_tiles", "k2.launches", "k3.launches",
-    "k4.launches",
+    "k4.launches", "k5.launches",
     # the dense kriging classes' solve (models/kriging._solve_sym)
     "kriging.solve.cholesky", "kriging.solve.lu",
     # models/kernel_kriging's grid column blocks, and the row panels of
@@ -74,9 +74,12 @@ COUNTERS = (
     # widenings and the retained rank at each return of the adaptive solve
     "eigsh.applications", "eigsh.columns", "eigsh.widenings", "eigsh.kept",
     # ops/optim.batched_nelder_mead: loop trips, the points of every
-    # (K, B, d) objective call (K each), the shrink passes; and the lanes
-    # EllipseBuilder.fit_cells hands the optimiser, padding included
-    "nm.iterations", "nm.points", "nm.shrinks", "mle.lanes",
+    # (K, B, d) objective call (K each), the shrink passes, the lanes each
+    # call is offered (B) and those of its mask, whose values the loop
+    # reads; and the lanes EllipseBuilder.fit_cells hands the optimiser,
+    # padding included
+    "nm.iterations", "nm.points", "nm.shrinks", "nm.lanes_offered",
+    "nm.lanes_evaluated", "mle.lanes",
 )
 _COUNTER_SET = frozenset(COUNTERS)
 

@@ -27,6 +27,11 @@ TRANSCENDENTALS_S = 4.18e12  # NVIDIA H100 SXM
 K1_FLOPS, K1_TRANSCENDENTALS, K1_POINT_TRANSCENDENTALS = 43, 3, 5
 CUT_FLOPS, PAIR_FLOPS, PAIR_TRANSCENDENTALS = 11, 31, 3
 K3_CONTRACT_FLOPS = 32
+# K5 (the ellipse fit's Fisher-z objective), an (element, point): the
+# quadratic form and its argument (11 flops), the Matern (1 + x) e^-x (3),
+# the clip and atanh's ratio (5), the weighted square and its sum (4); a
+# sqrt, an exp and a log. Its bytes: each live lane's X, z and w once.
+K5_FLOPS, K5_TRANSCENDENTALS = 23, 3
 
 # The pair-evaluation ceiling (G pairs/s) of ``achieved_pairs``: none
 # until a measurement on the card installs one with ``set_pairs_peak``.
@@ -43,6 +48,15 @@ def bound(bytes_moved, flops, transcendentals):
                  transcendentals / TRANSCENDENTALS_S) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                              "operations")
+
+
+def k5_bound(points, lanes, columns, itemsize=4):
+    """K5's bound for `points` points on `lanes` live lanes of `columns`
+    columns: their data read once (4 values an element), every
+    (element, point) computed once."""
+    elements = float(lanes) * columns
+    return bound(4 * itemsize * elements, K5_FLOPS * points * elements,
+                 K5_TRANSCENDENTALS * points * elements)
 
 
 def ellipse_bound(bytes_moved, pairs, kept, extra_flops=0):

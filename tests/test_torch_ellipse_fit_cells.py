@@ -14,6 +14,7 @@ import torch
 
 from glomargridding_tpu_torch import CellFits, EllipseBuilder, EllipseModel
 from glomargridding_tpu_torch.models.ellipse import estimate
+from glomargridding_tpu_torch.ops import optim
 from glomargridding_tpu_torch.utils import profiling
 from glomargridding_tpu_torch.utils.profiling import COUNTS, spans_on
 
@@ -152,3 +153,34 @@ def test_the_counters_count_the_loop(builder):
     before = COUNTS["mle.lanes"]
     builder.compute_params([-1.0] * 6, model(), chunk_size=CHUNK, **FIT_KW)
     assert COUNTS["mle.lanes"] - before == 3 * CHUNK
+
+
+def test_the_nelder_mead_lane_hands_k5_every_call(builder, monkeypatch):
+    """Where K5 takes the fit (forced here, on the CPU), every objective
+    call of the simplex goes to its wrapper, with the model's order and
+    sigma flag and the call's lane mask; a stand-in that computes the
+    plain twin on the mask's lanes and NaN on the others gives the plain
+    fit's bits, so the fit reads no lane it skips."""
+    cells = np.arange(0, 80, 3)
+    want = fit(builder, cells, chunk_size=CHUNK)
+    twin = optim.stacked_objective(model()._nll_fit_z, 3)
+    calls = []
+
+    def stand_in(points, X, z_y, w, mask, *, v, fit_sigma):
+        calls.append((v, fit_sigma, int(mask.sum())))
+        return torch.where(mask, twin(points, X, z_y, w, mask), torch.nan)
+
+    monkeypatch.setattr(estimate, "_k5_takes", lambda *a: True)
+    monkeypatch.setattr(estimate.ellipse_nll, "fisher_z_nll", stand_in)
+    names = ("nm.iterations", "nm.shrinks", "nm.lanes_offered",
+             "nm.lanes_evaluated")
+    before = {k: COUNTS[k] for k in names}
+    got = fit(builder, cells, chunk_size=CHUNK)
+    delta = {k: COUNTS[k] - v for k, v in before.items()}
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert len(calls) == 1 + delta["nm.iterations"] + delta["nm.shrinks"]
+    assert {c[:2] for c in calls} == {(MODEL_KW["v"], False)}
+    assert delta["nm.lanes_offered"] == CHUNK * len(calls)
+    assert delta["nm.lanes_evaluated"] == sum(c[2] for c in calls)
+    assert delta["nm.lanes_evaluated"] < delta["nm.lanes_offered"]

@@ -12,10 +12,12 @@ the optimum only. Levenberg-Marquardt is a statement-for-statement port:
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from glomargridding_tpu.ops import optim as joptim
 from glomargridding_tpu_torch.ops import optim as toptim
+from glomargridding_tpu_torch.utils.profiling import COUNTS
 
 torch.set_num_threads(2)
 
@@ -133,6 +135,101 @@ def test_batched_shrink_path(rng):
         lambda x, c: jnp.max(jnp.abs(x - c)), jnp.zeros((8, 3)),
         (jnp.asarray(c),), tuple(map(jnp.asarray, bounds)), **kw)
     _assert_same_walk(ours, ref)
+
+
+def _masked_stacked(fun, n_args, masks):
+    """The default stacked objective with NaN on every lane outside each
+    call's mask, recording the masks: a stacked objective that skips."""
+    plain = toptim.stacked_objective(fun, n_args)
+
+    def stacked(points, *args_and_mask):
+        mask = args_and_mask[-1]
+        masks.append(mask.clone())
+        return torch.where(mask, plain(points, *args_and_mask), torch.nan)
+
+    return stacked
+
+
+def _skip_case(name, rng):
+    """(fun, x0, args, bounds, kw) of a batch whose lanes stop at
+    different trips: Rosenbrock lanes, max-norm lanes that shrink, and
+    lanes that run out of iterations."""
+    if name == "rosenbrock":
+        a, x0 = _rosen_batch(rng)
+        return (rosen_args, x0, (a,), (np.full(2, -5.0), np.full(2, 5.0)),
+                dict(xatol=1e-6, fatol=1e-6, maxiter=800))
+    c, bounds = _shrink_case(rng)
+    if name == "shrink":
+        return (lambda x, c: torch.max(torch.abs(x - c)), np.zeros((8, 3)),
+                (c,), bounds, dict(xatol=1e-5, fatol=1e-8, maxiter=1500))
+    x0 = c * np.repeat([1e-3, 10.0], 4)[:, None]
+    return (lambda x, t: torch.sum((x - t) ** 2), x0, (0.9 * x0,),
+            (np.full(3, -40.0), np.full(3, 40.0)),
+            dict(xatol=1e-4, fatol=1e-8, maxiter=40))
+
+
+@pytest.mark.parametrize("case", ["rosenbrock", "shrink", "maxiter"])
+def test_lanes_outside_the_mask_are_never_read(case, rng):
+    """A stacked objective that returns NaN on every lane outside its
+    call's mask gives the default's result bit for bit: the loop reads
+    values only on the lanes the mask names (all at the start, the active
+    lanes for the candidates, the active lanes that shrink), and the
+    masks do leave lanes out."""
+    fun, x0, args, bounds, kw = _skip_case(case, rng)
+    plain = toptim.batched_nelder_mead(fun, x0, args, bounds, device="cpu",
+                                       **kw)
+    masks = []
+    skipped = toptim.batched_nelder_mead(
+        None, x0, args, bounds, device="cpu",
+        stacked_fun=_masked_stacked(fun, len(args), masks), **kw)
+    for a, b in zip(plain, skipped):
+        assert torch.equal(a, b)
+    if case == "maxiter":
+        assert not bool(plain.success.all()) and bool(plain.success.any())
+    assert bool(masks[0].all())
+    assert any(not bool(m.all()) for m in masks)
+
+
+def test_lane_counters_count_the_calls(rng):
+    """``nm.lanes_offered`` is B a call and ``nm.lanes_evaluated`` the
+    lanes of each call's mask, all B on the first; the calls are the
+    start, one a trip and one a shrink pass. The default objective is
+    offered and counted the same."""
+    fun, x0, args, bounds, kw = _skip_case("shrink", rng)
+    names = ("nm.iterations", "nm.shrinks", "nm.lanes_offered",
+             "nm.lanes_evaluated")
+    deltas = []
+    for stacked in (True, False):
+        masks = []
+        before = {k: COUNTS[k] for k in names}
+        toptim.batched_nelder_mead(
+            None if stacked else fun, x0, args, bounds, device="cpu",
+            stacked_fun=(_masked_stacked(fun, len(args), masks)
+                         if stacked else None), **kw)
+        deltas.append({k: COUNTS[k] - v for k, v in before.items()})
+        if stacked:
+            delta = deltas[0]
+            calls = 1 + delta["nm.iterations"] + delta["nm.shrinks"]
+            assert len(masks) == calls
+            assert delta["nm.lanes_offered"] == x0.shape[0] * calls
+            assert delta["nm.lanes_evaluated"] == sum(int(m.sum())
+                                                      for m in masks)
+            assert int(masks[0].sum()) == x0.shape[0]
+            assert 0 < delta["nm.lanes_evaluated"] < delta["nm.lanes_offered"]
+    assert deltas[0] == deltas[1]
+
+
+@pytest.mark.parametrize("given", ["both", "neither"])
+def test_the_objective_is_given_once(given, rng):
+    """``fun`` or ``stacked_fun``: both, or neither, is refused before
+    any evaluation."""
+    fun, x0, args, bounds, kw = _skip_case("shrink", rng)
+    stacked = toptim.stacked_objective(fun, len(args))
+    with pytest.raises(ValueError, match="once"):
+        toptim.batched_nelder_mead(
+            fun if given == "both" else None, x0, args, bounds,
+            device="cpu", stacked_fun=stacked if given == "both" else None,
+            **kw)
 
 
 def test_batched_maxiter_reports_failure():

@@ -26,6 +26,15 @@ spans:
   program span, / n;
 - ``eigsh.sweep_ms``, ``eigsh.cholqr_ms``, ``eigsh.ritz_ms``:
   ``device_seconds_by_span`` of that span, x 1e3 / c;
+- for the ellipse fit's simplex, with t the window's ``nm.iterations``
+  (trips) and c its objective calls (``nm.lanes_offered`` over the lanes
+  a fit, ``mle.lanes`` / n): ``nm.skip_share``, 1 - ``nm.lanes_evaluated``
+  / ``nm.lanes_offered``; ``nm.calls_per_analysis``, c / n;
+  ``k5.launches_per_call``, ``k5.launches`` / c (1 where every call runs
+  on K5); ``nm.evaluate_us_per_call``, the ``nm.evaluate`` device time /
+  c; and the per-trip split, ``<span>.device_us_per_trip`` and
+  ``<span>.idle_us_per_trip`` of ``nm.evaluate``, ``nm.read`` and
+  ``mle.solve`` (its own, outside the other two), x 1e6 / t;
 - ``eigsh.columns_per_rank``: ``COUNTS`` ``eigsh.columns`` / ``eigsh.kept``;
 - ``eigsh.applications_per_clip``: ``eigsh.applications`` / c, beside the
   harness's ``eigsh.sweeps_per_clip``;
@@ -60,6 +69,7 @@ PER_ANALYSIS = {"kriging.factor_ms": "kriging.factor",
                 "nm.read_ms": "nm.read"}
 PER_CLIP = {"eigsh.sweep_ms": "eigsh.sweep", "eigsh.cholqr_ms": "eigsh.cholqr",
             "eigsh.ritz_ms": "eigsh.ritz"}
+PER_TRIP = ("nm.evaluate", "nm.read", "mle.solve")
 HARNESS_METRICS = ("eigsh.clip_ms", "eigsh.sweeps_per_clip",
                    "linalg.device_ms")
 
@@ -108,10 +118,31 @@ def program_metrics(program, device, idle, syncs, n, clips, counts):
     metrics["host.syncs_per_analysis"] = inside / n if program.spans else None
     metrics.update({k: ratio(device.get(v), clips, 1e3)
                     for k, v in PER_CLIP.items()})
+    metrics.update(simplex_metrics(device, idle, n, counts))
     metrics["eigsh.columns_per_rank"] = ratio(counts.get("eigsh.columns"),
                                               counts.get("eigsh.kept"))
     metrics["eigsh.applications_per_clip"] = ratio(
         counts.get("eigsh.applications"), clips)
+    return metrics
+
+
+def simplex_metrics(device, idle, n, counts):
+    """The ellipse fit's simplex readings of the module's docstring."""
+    offered = counts.get("nm.lanes_offered")
+    calls = ratio(offered, counts.get("mle.lanes"), n)
+    trips = counts.get("nm.iterations")
+    metrics = {
+        "nm.skip_share": None if not offered else
+        1.0 - counts.get("nm.lanes_evaluated", 0) / offered,
+        "nm.calls_per_analysis": ratio(calls, n),
+        "k5.launches_per_call": ratio(counts.get("k5.launches", 0), calls),
+        "nm.evaluate_us_per_call": ratio(device.get("nm.evaluate"), calls,
+                                         1e6)}
+    for name in PER_TRIP:
+        metrics[f"{name}.device_us_per_trip"] = ratio(device.get(name),
+                                                      trips, 1e6)
+        metrics[f"{name}.idle_us_per_trip"] = ratio(idle.get(name), trips,
+                                                    1e6)
     return metrics
 
 
