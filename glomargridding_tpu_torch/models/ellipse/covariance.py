@@ -14,15 +14,16 @@ Karspeck Eq. 17),
 with :math:`\tau` the Mahalanobis distance of the (Modified) Met Office
 displacement under :math:`\bar\Sigma`, and its matvec forms.
 
-Every tile comes from the ellipse kernels of ``ops/cuda/ellipse`` for
-nu in {0.5, 1.5, 2.5, 3.5}: K2 builds the whole matrix (``use_pallas``,
-the bf16 store), K4 the row blocks and the stream's wide applications,
-and K3 the stream's narrow (<= 8 column) applications. On the card they
-are the CUDA kernels, on the CPU their plain twins. Any other order goes,
-on every device, through ``ellipse_covariance_block``, the port of the
-reference's jnp tile, with the general-order K_nu of ``ops/special``: the
-reference routes such orders the same way
+At an order the kernels have (``ops.cuda.ellipse.kernel_order``), K2
+builds the whole matrix, K4 the stream's wide tiles and the sharded row
+blocks, and K3 the stream's narrow (<= 8 column) applications where it
+``matvec_takes`` the points; on the CPU their plain twins. Each refuses a
+dtype it does not take (``takes``). Any other order takes, on every
+device, the twin's pair function with the general-order K_nu, as the
+reference routes it
 (``glomargridding_tpu/models/ellipse/covariance.py:185-192,672-680``).
+No argument selects a route: the reference's ``use_pallas``, ``assemble``,
+``covariance_method`` and ``batch_size`` are only checked, as it does.
 """
 
 import logging
@@ -39,28 +40,31 @@ from ...ops.cuda.ellipse import (
     ellipse_matvec,
     ellipse_sym,
     ellipse_tile,
+    beyond_cutoff,
+    ellipse_tile_torch,
+    kernel_order,
+    matvec_takes,
     pack_points,
+    tile_pair_bytes,
 )
 from ...ops.distances import sigma_rot_flat
 from ...ops.sampling import Matvec, _mm_bf16_f32
-from ...ops.special import xv_kv
 from ...utils.device import resolve_device
 from ...utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
-TWO_PI = 2.0 * math.pi
-KERNEL_ORDERS = (0.5, 1.5, 2.5, 3.5)  # the orders the ellipse kernels take
-
-# Sizes for one H100 (80 GB). The stream and the bf16 row-block build
-# work one row block at a time against its column window, through one
-# reused f32 tile workspace: a row block against all n columns holds
-# about _BLOCK_BYTES. A (block x window) tile above _TILE_LIMIT_BYTES is
-# built and applied in column chunks of about _CHUNK_BYTES (at 64 rows
-# per block, windows past ~8M columns).
+# Sizes for one H100 (80 GB). The stream works one row block at a time
+# against its column window, through one reused tile workspace: a row
+# block against all n columns holds about _BLOCK_BYTES of f32. A tile's
+# build holds (``tile_pair_bytes`` a pair, ``_tile_rows``) at most
+# _TILE_LIMIT_BYTES in the stream, above which it goes in column chunks of
+# about _CHUNK_BYTES, and _BUILD_LIMIT_BYTES in a general-order build of
+# the whole matrix (2,048 rows at 1 degree in f32: a 41 GB peak).
 _BLOCK_BYTES = 1 << 30
 _TILE_LIMIT_BYTES = 2 << 30
 _CHUNK_BYTES = 1 << 30
+_BUILD_LIMIT_BYTES = 24 << 30
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}
@@ -74,82 +78,39 @@ def ellipse_covariance_block(
     max_dist: float = 0.0,
     use_max_dist: bool = False,
 ):
-    """One (B_i x B_j) tile, op for op as the reference's jnp tile.
+    """One (B_i x B_j) tile of the reference's jnp tile: the kernels' pair
+    function (``ellipse_tile_torch``) of the packed points, whose closed
+    form serves the orders the kernels take and the general-order K_nu
+    any other.
 
     lat/lon in radians; `sig_*` the (B, 3) Sigma rows (s00, s01, s11);
     `sqrt_det_*` = |Sigma|^(1/2). Entries at zero displacement and, with
-    `use_max_dist`, beyond `max_dist` (haversine km) are 0.
+    `use_max_dist`, beyond `max_dist` (haversine km) are 0, every pair at
+    a `max_dist` of 0, as in the reference's tile.
     """
-    dtype = sig_i.dtype
-    la_i = lat_i[:, None]
-    lo_i = lon_i[:, None]
-    la_j = lat_j[None, :]
-    lo_j = lon_j[None, :]
-
-    dy = la_i - la_j
-    dx = lo_i - lo_j
-    dx = torch.where(dx > math.pi, dx - TWO_PI, dx)
-    dx = torch.where(dx < -math.pi, dx + TWO_PI, dx)
-    if delta_x_method == "Modified_Met_Office":
-        dx = dx * (0.5 * (torch.cos(la_i) + torch.cos(la_j)))
-    elif delta_x_method != "Met_Office":
-        raise ValueError(f"Unknown 'delta_x_method' value: {delta_x_method}")
-    dy = RADIUS_OF_EARTH_KM * dy
-    dx = RADIUS_OF_EARTH_KM * dx
-
-    s00 = 0.5 * (sig_i[:, 0][:, None] + sig_j[:, 0][None, :])
-    s01 = 0.5 * (sig_i[:, 1][:, None] + sig_j[:, 1][None, :])
-    s11 = 0.5 * (sig_i[:, 2][:, None] + sig_j[:, 2][None, :])
-    det_bar = s00 * s11 - s01 * s01
-
-    r_det = torch.rsqrt(det_bar)
-    amp_i = stdev_i * torch.sqrt(sqrt_det_i)
-    amp_j = stdev_j * torch.sqrt(sqrt_det_j)
-    pref = (
-        (amp_i[:, None] * amp_j[None, :])
-        / (math.gamma(v) * (2.0 ** (v - 1.0)))
-    ) * r_det
-
-    quad = (
-        dx * (dx * s11 - dy * s01) + dy * (dy * s00 - dx * s01)
-    ) * (r_det * r_det)
-    tau = torch.sqrt(torch.clamp(quad, min=0.0))
-    inner = (2.0 * math.sqrt(v)) * tau
-    out = pref * xv_kv(v, inner)
-    out = torch.where(inner > 0.0, out, torch.zeros_like(out))
-    out = torch.nan_to_num(out, nan=0.0, posinf=0.0, neginf=0.0)
-
+    Pi = pack_points(lat_i, lon_i, sig_i, sqrt_det_i, stdev_i)
+    Pj = pack_points(lat_j, lon_j, sig_j, sqrt_det_j, stdev_j)
+    tile = ellipse_tile_torch(Pi, Pj, v, delta_x_method)
     if use_max_dist:
-        half = min(max_dist / (2.0 * RADIUS_OF_EARTH_KM), 0.5 * math.pi)
-        a_thresh = math.sin(half) ** 2
-        shla_i, chla_i = torch.sin(0.5 * la_i), torch.cos(0.5 * la_i)
-        shla_j, chla_j = torch.sin(0.5 * la_j), torch.cos(0.5 * la_j)
-        shlo_i, chlo_i = torch.sin(0.5 * lo_i), torch.cos(0.5 * lo_i)
-        shlo_j, chlo_j = torch.sin(0.5 * lo_j), torch.cos(0.5 * lo_j)
-        sdlat = shla_i * chla_j - chla_i * shla_j
-        sdlon = shlo_i * chlo_j - chlo_i * shlo_j
-        cli = 1.0 - 2.0 * shla_i * shla_i
-        clj = 1.0 - 2.0 * shla_j * shla_j
-        a = sdlat * sdlat + (cli * clj) * (sdlon * sdlon)
-        out = torch.where(a > a_thresh, torch.zeros_like(out), out)
-    return out.to(dtype)
+        tile.masked_fill_(beyond_cutoff(Pi, Pj, float(max_dist)), 0.0)
+    return tile
+
+
+def _tile_rows(n_cols: int, pair_bytes: int, limit: int) -> int:
+    """The one tile-height rule: the most rows, a multiple of TILE (at
+    least TILE), whose (rows x n_cols) tile's build, `pair_bytes` a pair
+    (``tile_pair_bytes``), fits `limit`."""
+    return max(TILE, limit // pair_bytes // max(n_cols, 1) // TILE * TILE)
 
 
 def _tile_into(rows, cols, v, delta_x_method, max_dist, out):
-    """C(rows, cols) of packed points into `out`: K4 for the kernel
-    orders, the jnp-tile port for any other."""
-    if float(v) in KERNEL_ORDERS:
+    """C(rows, cols) of packed points into `out`: K4 at a
+    ``kernel_order`` (which refuses a dtype it does not take), else its
+    twin's pair function (general-order K_nu)."""
+    if kernel_order(v):
         return ellipse_tile(rows, cols, v, delta_x_method, max_dist, out=out)
-
-    def unpack(P):
-        return P[:, 0], P[:, 1], P[:, 2:5], P[:, 5], P[:, 6]
-
-    return out.copy_(ellipse_covariance_block(
-        *unpack(rows), *unpack(cols), v=float(v),
-        delta_x_method=delta_x_method,
-        max_dist=0.0 if max_dist is None else float(max_dist),
-        use_max_dist=max_dist is not None,
-    ))
+    return out.copy_(ellipse_tile_torch(rows, cols, v, delta_x_method,
+                                        max_dist))
 
 
 def build_ellipse_covariance(
@@ -161,7 +122,6 @@ def build_ellipse_covariance(
     v: float,
     delta_x_method: str = "Modified_Met_Office",
     max_dist: float | None = None,
-    row_block: int = 2048,
     use_pallas: bool | str = "auto",
     device=None,
 ):
@@ -169,28 +129,36 @@ def build_ellipse_covariance(
     on `device`: by default that of a tensor input, else the card
     (``resolve_device``).
 
-    ``use_pallas`` (the reference's name; "auto" means: for the kernel
-    orders) builds it in one K2 launch, upper-triangle tiles only.
-    Otherwise row blocks of `row_block` rows are written by K4 (or the
-    jnp-tile port) straight into the preallocated matrix.
+    At a ``kernel_order`` it is one K2 launch, upper-triangle tiles only
+    (K2 refuses a dtype it does not take); any other order is built by
+    ``_rows_into``. ``use_pallas`` (the reference's name) selects nothing:
+    forced (True) at an order K2 does not take, K2 refuses it, as the
+    reference's Pallas build does.
     """
     device = resolve_device(device, sig_flat, lats_rad, lons_rad, sqrt_dets,
                             stdevs)
     P = pack_points(lats_rad, lons_rad, torch.as_tensor(sig_flat,
                                                         device=device),
                     sqrt_dets, stdevs)
-    if use_pallas == "auto":
-        use_pallas = float(v) in KERNEL_ORDERS
-    if use_pallas:
+    if kernel_order(v) or (use_pallas and use_pallas != "auto"):
         return ellipse_sym(P, v, delta_x_method, max_dist)
     n = P.shape[0]
-    cov = torch.empty((n, n), dtype=P.dtype, device=P.device)
-    for start in range(0, n, row_block):
-        stop = min(start + row_block, n)
-        _tile_into(P[start:stop], P, v, delta_x_method, max_dist,
-                   cov[start:stop])
+    cov = _rows_into(P, v, delta_x_method, max_dist, torch.empty(
+        (n, n), dtype=P.dtype, device=P.device))
     cov.diagonal().add_(P[:, 6] ** 2)
     return cov
+
+
+def _rows_into(P, v, delta_x_method, max_dist, out):
+    """C(P, P) without its diagonal into `out` ((n, n), in its dtype) at
+    an order no kernel has: the twin's pair function in row blocks
+    ``_tile_rows`` high under _BUILD_LIMIT_BYTES."""
+    n = P.shape[0]
+    block = _tile_rows(n, tile_pair_bytes(v, P.dtype), _BUILD_LIMIT_BYTES)
+    for r0 in range(0, n, block):
+        out[r0:r0 + block] = ellipse_tile_torch(P[r0:r0 + block], P, v,
+                                                delta_x_method, max_dist)
+    return out
 
 
 def _ellipse_inputs(Lx, Ly, theta, stdevs, lats_rad, lons_rad):
@@ -202,26 +170,15 @@ def _ellipse_inputs(Lx, Ly, theta, stdevs, lats_rad, lons_rad):
     return lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs
 
 
-def _assemble_covariance(
-    Lx, Ly, theta, stdevs, lats_rad, lons_rad,
-    *, v, delta_x_method, max_dist, row_block, use_pallas,
-):
-    """Sigma from (Lx, Ly, theta), then ``build_ellipse_covariance``."""
-    return build_ellipse_covariance(
-        *_ellipse_inputs(Lx, Ly, theta, stdevs, lats_rad, lons_rad), v=v,
-        delta_x_method=delta_x_method, max_dist=max_dist,
-        row_block=row_block, use_pallas=use_pallas,
-    )
-
-
 class EllipseCovarianceBuilder:
     """Covariance from ellipse parameter fields and positions.
 
     Valid (unmasked) points only enter the matrix; `max_dist` (haversine
     km) zeroes covariance beyond the radius; `precision` (a numpy float
-    dtype) defaults to float32. `covariance_method` ("array" / "batched"
-    / "low_memory") selects the row-block size of the K4 build (whole
-    matrix / `batch_size` rows / 512 rows) when ``use_pallas`` is off.
+    dtype) defaults to float32. The matrix is ``build_ellipse_covariance``'s:
+    `covariance_method` ("array" / "batched" / "low_memory"), `batch_size`
+    and `use_pallas` are the reference's names, checked as it checks them,
+    and select nothing.
 
     Sets `cov_ns`, a tensor on `device` (by default the card: the inputs
     are numpy); `calculate_cor` adds `cor_ns`;
@@ -306,24 +263,6 @@ class EllipseCovarianceBuilder:
             [self.x_mask.flatten(), self.y_mask.flatten()]
         )
 
-    def _row_block(self) -> int:
-        n = len(self.Lx_compressed)
-        match self.covariance_method:
-            case "array":
-                return max(n, 1)
-            case "batched":
-                if self.batch_size is None:
-                    raise ValueError(
-                        "batch_size must be set if using 'batched' method"
-                    )
-                return max(1, int(self.batch_size))
-            case "low_memory":
-                return 512
-            case _:
-                raise ValueError(
-                    f"Unknown covariance_method: {self.covariance_method}"
-                )
-
     @property
     def sigmas(self):
         """Per-point flattened 2x2 Sigma rows (numpy, computed lazily)."""
@@ -365,12 +304,14 @@ class EllipseCovarianceBuilder:
         self.sqrt_v_term = math.sqrt(self.v) * 2
         self._sigmas = None
         self._sqrt_dets = None
-        self.cov_ns = _assemble_covariance(
-            *self._device_inputs(),
-            v=self.v,
-            delta_x_method=self.delta_x_method,
-            max_dist=self.max_dist,
-            row_block=self._row_block(),
+        if self.covariance_method not in ("array", "batched", "low_memory"):
+            raise ValueError(
+                f"Unknown covariance_method: {self.covariance_method}")
+        if self.covariance_method == "batched" and self.batch_size is None:
+            raise ValueError("batch_size must be set if using 'batched' method")
+        self.cov_ns = build_ellipse_covariance(
+            *_ellipse_inputs(*self._device_inputs()), v=self.v,
+            delta_x_method=self.delta_x_method, max_dist=self.max_dist,
             use_pallas=self.use_pallas,
         )
         logger.info("Covariance assembled: %s", tuple(self.cov_ns.shape))
@@ -433,11 +374,13 @@ def ellipse_covariance_operator(
     store="bf16": the covariance without its diagonal is stored once in
     bf16 (half the f32 bytes); diag(stdev^2) is added in f32. Each
     application rounds x to bf16 and multiplies with f32 accumulation
-    and an f32 result. ``assemble`` picks the build: "auto" (K2 for the
-    kernel orders, else row blocks), "pallas" (force K2: the (n_pad,
-    n_pad) store, padded to the tile with exact zeros, so x is zero-padded
-    instead of the store ever being sliced) or "scan" (row blocks into
-    one preallocated (n, n) store).
+    and an f32 result. An order K2 takes is built by K2 from f32 points
+    into the (n_pad, n_pad) store, padded to the tile with exact zeros
+    (so x is zero-padded instead of the store ever being sliced); any
+    other by ``_rows_into`` into one (n, n) store.
+    ``assemble`` ("auto" / "pallas" / "scan", the reference's name)
+    selects nothing: "pallas" at an order K2 does not take is refused,
+    as the reference refuses it.
 
     store="stream": nothing n x n at all; every application rebuilds the
     tiles. With `max_dist` set it is banded: a latitude-gap certificate
@@ -473,7 +416,7 @@ def ellipse_covariance_operator(
             return _stream_matvec(P, diag, n_blocks, *kernel), n, trace
         if store != "bf16":
             raise ValueError(f"Unknown store: {store!r}")
-        return _bf16_matvec(P, diag, n_blocks, assemble, *kernel), n, trace
+        return _bf16_matvec(P, diag, assemble, *kernel), n, trace
 
 
 def stream_plan(lat_rows, lat_cols, block, max_dist):
@@ -502,16 +445,17 @@ def _stream_matvec(P, diag, n_blocks, v, delta_x_method, max_dist):
     windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
     if n_blocks is None and bw < n:
         # a banded block's tile spans its window, not the n columns that
-        # _block_rows sizes it against: the most rows whose tile against
-        # the window fits _TILE_LIMIT_BYTES (taller tiles are fewer
-        # launches and gathers, and run K4 and the GEMM faster)
-        wide = _TILE_LIMIT_BYTES // P.element_size() // bw // TILE * TILE
+        # _block_rows sizes it against: the tile-height rule against the
+        # window (taller tiles are fewer launches and gathers, and run K4
+        # and the GEMM faster)
+        wide = _tile_rows(bw, tile_pair_bytes(v, P.dtype),
+                          _TILE_LIMIT_BYTES)
         if wide > block:
             block = min(wide, -(-n // TILE) * TILE)
             windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
     chunks = (None if max_dist is None
               else _active_chunks(P, windows, bw, max_dist))
-    use_fused = float(v) in KERNEL_ORDERS and P.dtype == torch.float32
+    use_fused = matvec_takes(v, P.dtype)
     nb = hi.size
     stats = {
         "banded": bw < n,
@@ -544,29 +488,20 @@ def _stream_matvec(P, diag, n_blocks, v, delta_x_method, max_dist):
     return Matvec(stream, stats)
 
 
-def _bf16_matvec(P, diag, n_blocks, assemble, v, delta_x_method, max_dist):
+def _bf16_matvec(P, diag, assemble, v, delta_x_method, max_dist):
     """The bf16-store ``Matvec`` of ``ellipse_covariance_operator``."""
     n = P.shape[0]
-    kernel_order = float(v) in KERNEL_ORDERS
     if assemble not in ("auto", "pallas", "scan"):
         raise ValueError(f"Unknown assemble: {assemble!r}")
-    if assemble == "pallas" and not kernel_order:
-        raise ValueError("assemble='pallas' requires half-integer v <= 3.5")
     with span("assembly.store"):
-        if assemble == "pallas" or (assemble == "auto" and kernel_order):
+        if kernel_order(v) or assemble == "pallas":
+            # K2 refuses "pallas" at an order it does not take
             A = ellipse_sym(P.float(), v, delta_x_method, max_dist,
                             out_dtype=torch.bfloat16, add_diag=False,
                             keep_pad=True)
         else:
-            block = _block_rows(n, n_blocks)
-            A = torch.empty((n, n), dtype=torch.bfloat16, device=P.device)
-            ws = torch.empty(block * n, dtype=P.dtype, device=P.device)
-            for r0 in range(0, n, block):
-                r1 = min(r0 + block, n)
-                tile = ws[: (r1 - r0) * n].view(r1 - r0, n)
-                A[r0:r1] = _tile_into(P[r0:r1], P, v, delta_x_method,
-                                      max_dist, tile)
-            del ws
+            A = _rows_into(P, v, delta_x_method, max_dist, torch.empty(
+                (n, n), dtype=torch.bfloat16, device=P.device))
 
     def bf16(x):
         x2 = _as_2d(x, P).float()
@@ -602,15 +537,15 @@ def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None,
                 chunks=None):
     """y = C x (no diagonal) by row blocks: each block's tile against its
     window into one reused workspace, then a true-f32 GEMM. A window
-    whose tile would pass _TILE_LIMIT_BYTES goes in column chunks of about
-    _CHUNK_BYTES, accumulated in place. `cols` (default `P`) are the
+    whose tile's build would pass _TILE_LIMIT_BYTES goes in column chunks
+    of about _CHUNK_BYTES, accumulated in place. `cols` (default `P`) are the
     column points, which x2's rows follow: C = C(P, cols). With `chunks`
     (``_active_chunks``), each block builds its tile against its active
     column chunks alone, gathered with their rows of x2 (the chunks it
     skips hold only pairs beyond the cutoff: exact zeros)."""
     cols = P if cols is None else cols
     n = P.shape[0]
-    item = P.element_size()
+    item = tile_pair_bytes(v, P.dtype)
     block = max(r1 - r0 for r0, r1, _, _ in windows)
     width = max(c1 - c0 for _, _, c0, c1 in windows)
     ccw = width

@@ -83,13 +83,11 @@ def _padded(cells: np.ndarray, lanes: int) -> np.ndarray:
 def _k5_takes(model: EllipseModel, lane: str, device: torch.device,
               dtype: torch.dtype) -> bool:
     """Whether a chunk's objective runs on K5 (``ops.cuda.ellipse_nll``):
-    for the Nelder-Mead lane on a CUDA device, at the forms, orders and
-    dtypes the kernel takes (the anisotropic forms, rotated or not, sigma
-    fitted or unit; half-integer nu up to 3.5; f32 or f64). Everything
+    for the Nelder-Mead lane on a CUDA device, where the kernel takes the
+    model's order, form and dtype (``ellipse_nll.takes``). Everything
     else, and the gradient lanes, keep the vmapped ``_nll_fit_z``."""
-    return (lane == "nm" and device.type == "cuda" and model.anisotropic
-            and model.v in ellipse_nll.ORDERS
-            and dtype in (torch.float32, torch.float64))
+    return (lane == "nm" and device.type == "cuda"
+            and ellipse_nll.takes(model.v, model.n_params, dtype))
 
 
 def _optimiser_lane(opt_method: str) -> str:

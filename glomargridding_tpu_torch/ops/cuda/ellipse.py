@@ -21,9 +21,10 @@ reads (``PACKED``):
 Dispatch is by the tensors' device, decided before any launch: a CUDA
 tensor runs the kernel in ``csrc/ellipse_tile.cu`` (built at first use)
 and a failed build or launch raises; a CPU tensor runs the plain twin
-(``*_torch``), which follows ``_ellipse_tile_value`` op for op. The
-kernels take nu in {0.5, 1.5, 2.5, 3.5}; any other order raises the
-Pallas wrappers' ``ValueError`` on every device.
+(``*_torch``), which follows ``_ellipse_tile_value`` op for op. Callers
+route by ``kernel_order`` alone; what a kernel takes is stated once, by
+``takes`` (K2, K4) or ``matvec_takes`` (K3), and its wrapper refuses the
+rest on every device.
 """
 
 import ctypes
@@ -36,6 +37,7 @@ import torch
 from ...constants import RADIUS_OF_EARTH_KM
 from ...utils.device import resolve_device
 from ...utils.profiling import count
+from ..special import HALF_INTEGER_ORDERS, xv_kv
 from . import build
 
 TILE = 64  # the kernels' tile side (kTile in csrc/ellipse_tile.cu)
@@ -48,9 +50,11 @@ PACKED = ("lat", "lon", "s00", "s01", "s11", "sqrt_det", "stdev", "cos_lat",
           "amp", "sin_half_lat", "cos_half_lat", "sin_half_lon",
           "cos_half_lon", "cos_lat_from_half")
 _WIDTH = 16
-_NU_CODES = {0.5: 0, 1.5: 1, 2.5: 2, 3.5: 3}
+_NU_CODES = {v: code for code, v in enumerate(HALF_INTEGER_ORDERS)}
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _TWO_PI = 2.0 * math.pi
+# tile-sized values the general-order pair function holds (46 measured)
+_GENERAL_TILE_VALUES = 48
 
 
 def pack_points(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs):
@@ -76,22 +80,51 @@ def pack_points(lats_rad, lons_rad, sig_flat, sqrt_dets, stdevs):
     return P
 
 
-def kernel_args(v: float, delta_x_method: str, max_dist):
-    """(nu code, modified flag, cutoff km or 0.0) for the kernels.
+def kernel_order(v: float) -> bool:
+    """Whether the kernels have order `v` (its closed form): the route of
+    every build and application, which then refuses a dtype it does not
+    take (``takes``)."""
+    return float(v) in _NU_CODES
 
-    Raises the Pallas wrappers' ``ValueError`` for an order other than
-    0.5, 1.5, 2.5 or 3.5.
-    """
-    if float(v) not in _NU_CODES:
-        raise ValueError(
-            "the ellipse kernels support half-integer v in "
-            f"{sorted(_NU_CODES)} only, got v={v}"
-        )
+
+def takes(v: float, dtype: torch.dtype) -> bool:
+    """Whether K2 and K4 (and their plain twins) take order `v` on points
+    of `dtype`."""
+    return kernel_order(v) and dtype in _DTYPE_CODES
+
+
+def matvec_takes(v: float, dtype: torch.dtype) -> bool:
+    """Whether K3 (and its plain twin) takes order `v` on points and x of
+    `dtype`."""
+    return kernel_order(v) and dtype == torch.float32
+
+
+def tile_pair_bytes(v: float, dtype: torch.dtype) -> int:
+    """Device bytes a tile's build holds per pair: K4's one value at a
+    ``kernel_order``, else the general-order pair function's values."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return item if kernel_order(v) else item * _GENERAL_TILE_VALUES
+
+
+def _require(predicate, v: float, dtype: torch.dtype) -> None:
+    """Raise unless ``predicate(v, dtype)``: the Pallas wrappers'
+    ``ValueError`` for an order no kernel takes, else a ``TypeError``."""
+    if predicate(v, dtype):
+        return
+    if not kernel_order(v):
+        raise ValueError("the ellipse kernels support half-integer v in "
+                         f"{list(HALF_INTEGER_ORDERS)} only, got v={v}")
+    raise TypeError(f"{predicate.__name__}: not {dtype} points")
+
+
+def _kernel_args(v: float, delta_x_method: str, max_dist):
+    """(nu code, None at an order no kernel takes; modified flag; cutoff
+    km or 0.0)."""
     if delta_x_method not in DELTA_X_METHODS:
         raise ValueError(f"Unknown 'delta_x_method' value: {delta_x_method}")
     md = 0.0 if max_dist is None else float(max_dist)
     return (
-        _NU_CODES[float(v)],
+        _NU_CODES.get(float(v)),
         int(delta_x_method == "Modified_Met_Office"),
         max(md, 0.0),
     )
@@ -106,8 +139,6 @@ def _check_points(*points):
                 f"points must be (n, {_WIDTH}) (pack_points), got "
                 f"{tuple(P.shape)}"
             )
-        if P.dtype not in _DTYPE_CODES:
-            raise TypeError(f"dtype must be float32 or float64, got {P.dtype}")
         if not P.is_contiguous():
             raise ValueError("points must be contiguous")
     if any(P.dtype != points[0].dtype for P in points):
@@ -140,9 +171,12 @@ def ellipse_tile_torch(
     rows, cols, v: float, delta_x_method="Modified_Met_Office",
     max_dist=None, radius=RADIUS_OF_EARTH_KM,
 ):
-    """The plain (m, n) tile, op for op as ``_ellipse_tile_value``; the
-    per-point values come from the packed columns."""
-    _, modified, md = kernel_args(v, delta_x_method, max_dist)
+    """The plain (m, n) tile of any order from the packed columns: at an
+    order the kernels take, op for op as ``_ellipse_tile_value`` (the
+    closed form; a cutoff <= 0 km is none, as the kernels read it); at
+    any other, op for op as the reference's jnp tile (the general-order
+    K_nu; NaN and inf read as 0; any cutoff given applies)."""
+    nu_code, modified, md = _kernel_args(v, delta_x_method, max_dist)
     r = {name: rows[:, k : k + 1] for k, name in enumerate(PACKED)}
     c = {name: cols[:, k][None, :] for k, name in enumerate(PACKED)}
     dy = r["lat"] - c["lat"]
@@ -159,18 +193,24 @@ def ellipse_tile_torch(
     s11 = 0.5 * (r["s11"] + c["s11"])
     det_bar = s00 * s11 - s01 * s01
     r_det = torch.rsqrt(det_bar)
-    pref = (r["amp"] * c["amp"]) * r_det
+    amp = r["amp"] * c["amp"]
+    if nu_code is None:
+        amp = amp / (math.gamma(v) * (2.0 ** (v - 1.0)))
+    pref = amp * r_det
 
     quad = (
         dx * (dx * s11 - dy * s01) + dy * (dy * s00 - dx * s01)
     ) * (r_det * r_det)
     tau = torch.sqrt(torch.clamp(quad, min=0.0))
     inner = (2.0 * math.sqrt(v)) * tau
-    val = pref * _matern_halfint_corr(inner, float(v))
+    val = pref * (xv_kv(v, inner) if nu_code is None
+                  else _matern_halfint_corr(inner, float(v)))
     out = torch.where(inner > 0.0, val, torch.zeros_like(val))
+    if nu_code is None:
+        out = torch.nan_to_num(out, nan=0.0, posinf=0.0, neginf=0.0)
 
-    if md > 0.0:
-        out = torch.where(beyond_cutoff(rows, cols, md, radius),
+    if md > 0.0 or (nu_code is None and max_dist is not None):
+        out = torch.where(beyond_cutoff(rows, cols, float(max_dist), radius),
                           torch.zeros_like(out), out)
     return out
 
@@ -268,7 +308,8 @@ def ellipse_tile(
     that receives the tile (a reused workspace).
     """
     on_card = _check_points(rows, cols)
-    args = kernel_args(v, delta_x_method, max_dist)
+    _require(takes, v, rows.dtype)
+    args = _kernel_args(v, delta_x_method, max_dist)
     m, n = rows.shape[0], cols.shape[0]
     if out is None:
         out = torch.empty((m, n), dtype=rows.dtype, device=rows.device)
@@ -310,7 +351,8 @@ def ellipse_sym(
     padded rows and columns are exact zeros.
     """
     on_card = _check_points(P)
-    nu, modified, md = kernel_args(v, delta_x_method, max_dist)
+    _require(takes, v, P.dtype)
+    nu, modified, md = _kernel_args(v, delta_x_method, max_dist)
     out_dtype = out_dtype or P.dtype
     if out_dtype not in (P.dtype, torch.bfloat16) or (
         out_dtype == torch.bfloat16 and P.dtype != torch.float32
@@ -353,9 +395,10 @@ def ellipse_matvec(
     grid bounds the band depth at 65,535 * MV_DEPTH blocks.
     """
     on_card = _check_points(P)
-    nu, modified, md = kernel_args(v, delta_x_method, max_dist)
+    _require(matvec_takes, v, P.dtype)
+    nu, modified, md = _kernel_args(v, delta_x_method, max_dist)
     n = P.shape[0]
-    if P.dtype != torch.float32 or x.dtype != torch.float32:
+    if x.dtype != P.dtype:
         raise TypeError("the fused matvec is float32")
     if x.dim() != 2 or x.shape[0] != n or x.shape[1] > MV_W:
         raise ValueError(
@@ -443,6 +486,9 @@ __all__ = [
     "ellipse_sym_torch",
     "ellipse_tile",
     "ellipse_tile_torch",
-    "kernel_args",
+    "kernel_order",
+    "matvec_takes",
     "pack_points",
+    "takes",
+    "tile_pair_bytes",
 ]

@@ -10,12 +10,13 @@ are evaluated from registers; a lane outside `mask` reads +inf and
 nothing else. The result is (K, B) float64, the f32 terms summed in
 float64 as ``_weighted_nll`` sums them.
 
-The kernel takes the anisotropic forms, rotated (3 shape parameters) or
-not (2), with or without a fitted sigma (the last of d), at nu in
-``ORDERS`` and in f32 or f64. It replaces no TPU kernel; its plain twin
-is the vmapped ``_nll_fit_z`` itself, which the CPU and the gradient
-lanes run. A CUDA tensor launches or raises: there is no fallback, and
-everything the kernel does not take is refused before any launch.
+``takes`` states what the kernel takes: the anisotropic forms, rotated
+(3 shape parameters) or not (2), with or without a fitted sigma (the
+last of d), at nu in ``ops.special.HALF_INTEGER_ORDERS``, f32 or f64. It
+replaces no TPU kernel; its plain twin is the vmapped ``_nll_fit_z``
+itself, which the CPU and the gradient lanes run. A CUDA tensor launches
+or raises: there is no fallback, and everything the kernel does not take
+is refused before any launch.
 """
 
 import ctypes
@@ -26,11 +27,9 @@ from contextlib import nullcontext
 import torch
 
 from ...utils.profiling import count
-from ..special import half_integer_coeffs
+from ..special import HALF_INTEGER_ORDERS, half_integer_coeffs
 from . import build
 
-# nu = n + 1/2 for the kernel's Horner templates (kMaxCoeffs)
-ORDERS = (0.5, 1.5, 2.5, 3.5)
 MAX_POINTS = 5  # kMaxPoints: d + 1 for three shape parameters and sigma
 # threads a block (one block a lane), from tools/k5_sweep.py at the
 # 1-degree fit's shapes on an H100: 512 against 256 reads 0.138 against
@@ -42,6 +41,14 @@ THREADS = 512
 ARCTANH_THRESHOLD = 0.999999
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+_SHAPE_PARAMS = (2, 3)  # the anisotropic forms: unrotated, rotated
+
+
+def takes(v: float, n_shape: int, dtype: torch.dtype) -> bool:
+    """Whether K5 takes a fit of order `v` with `n_shape` shape parameters
+    (its model's ``n_params``) on data of `dtype`."""
+    return (float(v) in HALF_INTEGER_ORDERS and n_shape in _SHAPE_PARAMS
+            and dtype in _DTYPE_CODES)
 
 
 def _check(points, X, z_y, w, mask, v, fit_sigma):
@@ -50,10 +57,15 @@ def _check(points, X, z_y, w, mask, v, fit_sigma):
     tensors = (points, X, z_y, w, mask)
     if not all(isinstance(t, torch.Tensor) for t in tensors):
         raise TypeError("points, X, z_y, w and mask must be torch tensors")
-    if float(v) not in ORDERS:
-        raise ValueError(f"K5 takes nu in {ORDERS}, got {v}")
     shapes = _shapes(points, X, z_y, w, mask, fit_sigma)
-    if points.dtype not in _DTYPE_CODES:
+    n_shape = shapes[-1]
+    if not takes(v, n_shape, points.dtype):
+        if float(v) not in HALF_INTEGER_ORDERS:
+            raise ValueError(f"K5 takes nu in {HALF_INTEGER_ORDERS}, got {v}")
+        if n_shape not in _SHAPE_PARAMS:
+            raise ValueError(
+                f"K5 takes 2 or 3 shape parameters, got d={points.shape[2]}"
+                f" with fit_sigma={bool(fit_sigma)}")
         raise TypeError(f"dtype must be float32 or float64, got "
                         f"{points.dtype}")
     if any(t.dtype != points.dtype for t in (X, z_y, w)):
@@ -75,10 +87,6 @@ def _shapes(points, X, z_y, w, mask, fit_sigma):
         raise ValueError(f"points must be (K, B, d), got {tuple(points.shape)}")
     K, B, d = points.shape
     n_shape = d - int(bool(fit_sigma))
-    if n_shape not in (2, 3):
-        raise ValueError(
-            f"K5 takes 2 or 3 shape parameters, got d={d} with "
-            f"fit_sigma={bool(fit_sigma)}")
     if not 1 <= K <= MAX_POINTS:
         raise ValueError(f"K5 takes 1 to {MAX_POINTS} points a call, got {K}")
     if X.dim() != 3 or X.shape[0] != B or X.shape[2] != 2:
@@ -153,7 +161,8 @@ def _library() -> ctypes.CDLL:
            ctypes.c_void_p]
     )
     for name, want in (("fisher_z_nll_max_points", MAX_POINTS),
-                       ("fisher_z_nll_max_coeffs", len(ORDERS))):
+                       ("fisher_z_nll_max_coeffs",
+                        len(half_integer_coeffs(HALF_INTEGER_ORDERS[-1])))):
         getattr(lib, name).restype = ctypes.c_int
         if getattr(lib, name)() != want:
             raise RuntimeError(f"csrc/ellipse_nll.cu and the wrapper "
@@ -161,4 +170,4 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["MAX_POINTS", "ORDERS", "THREADS", "fisher_z_nll"]
+__all__ = ["MAX_POINTS", "THREADS", "fisher_z_nll", "takes"]

@@ -12,8 +12,9 @@ Dispatch is by the tensors' device and the variogram, decided before any
 launch (``tile_route``): a CUDA tensor goes to the hand-written kernel
 (``csrc/pairwise_tile.cu``), built at first use, and a CPU tensor to
 ``pairwise_covariance_torch``, the plain PyTorch version of the same
-function. The kernel has templates for the Matern orders 0.5, 1.5, 2.5
-and 3.5 and the other families; a Matern order outside them takes the
+function. The kernel has templates for the Matern orders of
+``ops.special.HALF_INTEGER_ORDERS`` and the other families; a Matern
+order outside them takes the
 plain tile on the card too (general-order K_nu, ``ops/special``), as the
 reference sends such orders to its jnp tile
 (``glomargridding_tpu/ops/pallas/pairwise.py:19``). That route is chosen
@@ -29,6 +30,7 @@ import torch
 from ...constants import RADIUS_OF_EARTH_KM
 from ..distances import asin_poly, degrees, radians
 from ...utils.profiling import count
+from ..special import HALF_INTEGER_ORDERS
 from ..variogram import MaternVariogram, Variogram, matern_left, matern_scale
 from . import build
 
@@ -37,7 +39,7 @@ TILE_N = 128  # the kernel's f32 column tile (kTileN in csrc/pairwise_tile.cu)
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _DISTANCE_CODES = {name: i for i, name in enumerate(DISTANCES)}
-_MATERN_ORDERS = {0.5: 0, 1.5: 1, 2.5: 2, 3.5: 3}
+_MATERN_ORDERS = {nu: code for code, nu in enumerate(HALF_INTEGER_ORDERS)}
 _FAMILY_CODES = {"exponential": 4, "gaussian": 5, "spherical": 6}
 
 
@@ -81,9 +83,9 @@ def launch_args(variogram: Variogram, distance: str, variance, radius):
     """
     if variogram.kind == "matern":
         nu = float(variogram.nu)
-        if nu not in _MATERN_ORDERS:
+        if tile_route(variogram) == "plain":
             raise NotImplementedError(
-                f"the CUDA tile covers Matern nu in {sorted(_MATERN_ORDERS)}"
+                f"the CUDA tile covers Matern nu in {list(HALF_INTEGER_ORDERS)}"
                 f", got nu={nu}"
             )
         family = _MATERN_ORDERS[nu]

@@ -35,6 +35,10 @@ import torch
 
 _EULER_GAMMA = 0.5772156649015328606
 
+# the half-integer orders whose closed forms (``half_integer_coeffs``) the
+# hand-written kernels are templated on; the one list of them
+HALF_INTEGER_ORDERS = (0.5, 1.5, 2.5, 3.5)
+
 # largest binary exponent of each float type (``numpy.finfo(...).maxexp``)
 _MAXEXP = {torch.float32: 128, torch.float64: 1024}
 

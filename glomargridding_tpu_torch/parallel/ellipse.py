@@ -5,9 +5,9 @@ Port of ``glomargridding_tpu/parallel/ellipse.py``. A 1-degree
 non-stationary covariance is ~17 GB in f32. Row blocks of the
 Paciorek-Schervish matrix are embarrassingly parallel: every slot holds
 the (small) packed point parameters and assembles ONLY its rows, so the
-matrix exists only as a row-sharded ``Sharded``. On the card each row
-block is K4 (``ops.cuda.ellipse_tile``) for the kernel orders, by the
-route of the single-card builder; another order takes the plain tile.
+matrix exists only as a row-sharded ``Sharded``. Each row block is K4
+(``ops.cuda.ellipse_tile``) at a ``kernel_order``, the plain tile
+otherwise (``models.ellipse.covariance._tile_into``).
 
 The stream operator shards everything by grid rows and applies
 ``cov @ X`` as a ring-SUMMA: at each of n_slots steps a slot multiplies
@@ -24,7 +24,6 @@ import torch
 
 from ..constants import RADIUS_OF_EARTH_KM
 from ..models.ellipse.covariance import (
-    KERNEL_ORDERS,
     _apply_wide,
     _as_2d,
     _block_rows,
@@ -34,7 +33,13 @@ from ..models.ellipse.covariance import (
     stream_plan,
 )
 from ..ops.covariance_tools import _normals
-from ..ops.cuda.ellipse import MV_W, TILE, ellipse_matvec, pack_points
+from ..ops.cuda.ellipse import (
+    MV_W,
+    TILE,
+    ellipse_matvec,
+    matvec_takes,
+    pack_points,
+)
 from ..ops.sampling import Matvec
 from .mesh import Sharded, move, ring_shift, shard_rows
 
@@ -265,7 +270,7 @@ def sharded_ellipse_stream_operator(
     P_parts = [move(P[s * shard:(s + 1) * shard], d)
                for s, d in enumerate(devices)]
     diag_parts = shard_rows(diag, devices)
-    use_fused = float(v) in KERNEL_ORDERS and P.dtype == torch.float32
+    use_fused = matvec_takes(v, P.dtype)
     lat = np.asarray(P[:, 0].cpu(), dtype=np.float64)
     plans, pair_stats = _stream_plans(
         [lat[s * shard:(s + 1) * shard] for s in range(n_dev)],

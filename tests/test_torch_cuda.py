@@ -700,7 +700,7 @@ def test_sharded_paths_launch_the_kernels(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the plain ellipse tile ran on the card")
 
-    monkeypatch.setattr(tcov, "ellipse_covariance_block", refuse)
+    monkeypatch.setattr(tcov, "ellipse_tile_torch", refuse)
     mesh = _card_mesh()
     rng = np.random.default_rng(3)
     lat = np.repeat(np.arange(-86.0, 90.0, 4.0), 90)  # 44 x 90 cells

@@ -32,9 +32,15 @@ from glomargridding_tpu.ops.pallas import (
 from glomargridding_tpu.ops.pallas.pairwise import TILE_P
 from glomargridding_tpu_torch.convert import ellipse_builder_from_inputs
 from glomargridding_tpu_torch.models.ellipse import covariance as tcov
+from glomargridding_tpu_torch.models.ellipse import estimate as testimate
+from glomargridding_tpu_torch.models.ellipse.model import EllipseModel
 from glomargridding_tpu_torch.ops import distances as tdist
+from glomargridding_tpu_torch.ops import variogram as tvario
 from glomargridding_tpu_torch.ops.cuda import build
 from glomargridding_tpu_torch.ops.cuda import ellipse as tell
+from glomargridding_tpu_torch.ops.cuda import ellipse_nll
+from glomargridding_tpu_torch.ops.cuda import pairwise as tpair
+from glomargridding_tpu_torch.ops.special import HALF_INTEGER_ORDERS
 from glomargridding_tpu_torch.utils.profiling import COUNTS
 
 torch.set_num_threads(2)
@@ -249,6 +255,98 @@ def test_wrappers_reject_bad_arguments():
             call()
 
 
+def _refused_unless(predicate, v, dtype, call):
+    """call() where ``predicate(v, dtype)``, else its refusal: the order's
+    ``ValueError`` or the dtype's ``TypeError``."""
+    if predicate(v, dtype):
+        return call()
+    with pytest.raises(TypeError if v in HALF_INTEGER_ORDERS else ValueError):
+        call()
+
+
+def _k5_refusal(v, dtype):
+    """(error, match) of K5 on CPU tensors: its predicate's refusal, else
+    the device's."""
+    if ellipse_nll.takes(v, 3, dtype):
+        return ValueError, "CUDA tensors"
+    if v in HALF_INTEGER_ORDERS:
+        return TypeError, "float32 or float64"
+    return ValueError, "nu in"
+
+
+def _check_k5(v, dtype):
+    """``_k5_takes`` on CUDA and CPU devices and lanes, and K5's refusal
+    of CPU tensors after its predicate's."""
+    model = EllipseModel(anisotropic=True, rotated=True,
+                         physical_distance=True, v=v, unit_sigma=True)
+    k5 = ellipse_nll.takes(v, model.n_params, dtype)
+    for lane, device, takes in (("nm", "cuda", k5), ("nm", "cpu", False),
+                                ("lm", "cuda", False)):
+        assert testimate._k5_takes(model, lane, torch.device(device),
+                                   dtype) is takes
+    stack = [torch.ones(s, dtype=dtype) for s in ((1, 2, 3), (2, 4, 2),
+                                                  (2, 4), (2, 4))]
+    error, match = _k5_refusal(v, dtype)
+    with pytest.raises(error, match=match):
+        ellipse_nll.fisher_z_nll(*stack, torch.ones(2, dtype=torch.bool),
+                                 v=v, fit_sigma=False)
+
+
+def _build_and_stream(targs, v):
+    """The whole matrix and a wide stream application of the points."""
+    tcov.build_ellipse_covariance(*targs, v=v)
+    mv, n, _ = tcov.ellipse_covariance_operator(*targs, v=v, store="stream")
+    mv(torch.ones(n, tell.MV_W + 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("v", [0.5, 1.5, 2.5, 3.5, 1.2, 2.0, 4.5])
+def test_dispatch_rule(monkeypatch, rng, v, dtype):
+    """Which (nu, dtype, device) each kernel module's predicate accepts,
+    and that each wrapper refuses exactly what its predicate rejects:
+    K2/K4 (``takes``) and K3 (``matvec_takes``) on CPU points, which run
+    their twins (the device does not enter: the card runs the kernels,
+    tests/test_torch_cuda.py), and so the build and the stream at a kernel
+    order, which never give its points to the plain pair function; K5
+    (``ellipse_nll.takes``), which the fit asks only for the Nelder-Mead
+    lane on a CUDA device and which refuses CPU tensors after its
+    predicate; K1 (``tile_route``) by nu alone."""
+    def no_library():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(ellipse_nll, "_library", no_library)
+    kernel_order = v in HALF_INTEGER_ORDERS
+    assert tell.kernel_order(v) is kernel_order
+    assert tell.takes(v, dtype) is (
+        kernel_order and dtype in (torch.float32, torch.float64))
+    assert tell.matvec_takes(v, dtype) is (
+        kernel_order and dtype == torch.float32)
+    assert ellipse_nll.takes(v, 3, dtype) is tell.takes(v, dtype)
+    assert not ellipse_nll.takes(v, 1, dtype)
+    P = tell.pack_points(*(torch.zeros(6),) * 2, torch.ones(6, 3),
+                         torch.ones(6), torch.ones(6)).to(dtype)
+    x = torch.zeros(6, 1, dtype=dtype)
+    for predicate, call in (
+        (tell.takes, lambda: tell.ellipse_tile(P, P, v)),
+        (tell.takes, lambda: tell.ellipse_sym(P, v)),
+        (tell.matvec_takes, lambda: tell.ellipse_matvec(P, x, None, v=v)),
+    ):
+        _refused_unless(predicate, v, dtype, call)
+    if kernel_order:
+        targs = [a.to(dtype) for a in _torch_args(_operator_case(rng, 10))]
+        _refused_unless(tell.takes, v, dtype,
+                        lambda: _build_and_stream(targs, v))
+    _check_k5(v, dtype)
+    vario = tvario.MaternVariogram(range=1.0, nu=v)
+    assert tpair.tile_route(vario) == ("kernel" if kernel_order else "plain")
+    if kernel_order:
+        tpair.launch_args(vario, "haversine", 1.0, 6371.0)
+    else:
+        with pytest.raises(NotImplementedError):
+            tpair.launch_args(vario, "haversine", 1.0, 6371.0)
+
+
 def test_cpu_tensors_never_build_or_launch(monkeypatch, rng):
     def no_build(name):
         raise AssertionError("a CPU tensor must not trigger a build")
@@ -303,11 +401,33 @@ def test_ellipse_covariance_block_f64(rng, nu, method, use_md):
     ours = _np(tcov.ellipse_covariance_block(*_torch_args(a),
                                              *_torch_args(b), **kw))
     np.testing.assert_allclose(ours, ref, **F64)
-    # the kernel twin evaluates the closed form of the same function
-    twin = _np(tell.ellipse_tile_torch(
-        tell.pack_points(*_torch_args(a)), tell.pack_points(*_torch_args(b)),
-        nu, method, 1500.0 if use_md else None))
-    np.testing.assert_allclose(twin, ref, **F64)
+
+
+@pytest.mark.parametrize("nu", [1.5, 1.2], ids=["kernel", "general"])
+def test_block_cutoff_at_zero(rng, nu):
+    """`use_max_dist` with `max_dist` 0 zeroes every pair, as the
+    reference's tile does, at a kernel order and at a general one; the
+    general-order builder, whose tiles the reference builds the same way
+    off the TPU, follows it (K2 reads 0 as no cutoff, as the reference's
+    Pallas kernel does)."""
+    jargs = _jax_args(_fields(rng, 11, dtype=np.float64))
+    a = _torch_args(jargs)
+    ours = _np(tcov.ellipse_covariance_block(
+        *a, *a, v=nu, max_dist=0.0, use_max_dist=True))
+    ref = np.asarray(jcov.ellipse_covariance_block(
+        *jargs, *jargs, v=nu, max_dist=0.0, use_max_dist=True))
+    np.testing.assert_allclose(ours, ref, **F64)
+    assert not ours.any()
+    if nu not in HALF_INTEGER_ORDERS:
+        inp = _builder_inputs(rng)
+        general = ellipse_builder_from_inputs(*inp.values(), v=nu,
+                                              max_dist=0.0,
+                                              precision=np.float64,
+                                              device="cpu").cov_ns
+        want = jcov.EllipseCovarianceBuilder(*inp.values(), v=nu,
+                                             max_dist=0.0,
+                                             precision=np.float64).cov_ns
+        np.testing.assert_allclose(_np(general), np.asarray(want), **F64)
 
 
 def test_block_general_order_not_ported(rng):
@@ -365,23 +485,36 @@ def test_builder_matches_reference_f64(rng, settings):
     np.testing.assert_allclose(_np(ours.cov_ns), ref.cov_ns, **F64)
 
 
-def test_builder_routes_agree_bitwise(rng):
-    """K2 (use_pallas) and K4 row blocks of any height give one matrix."""
+@pytest.mark.parametrize("v", [1.5, 1.2], ids=["kernel", "general"])
+def test_builder_routes_agree_bitwise(rng, monkeypatch, v):
+    """The builder's matrix is the same bits whatever the reference's
+    settings say (they select nothing: K2 at a kernel order, whose match
+    with K4's tiles the card tests hold, tests/test_torch_cuda.py), and at
+    a general order at two row-block heights (``_tile_rows`` under two
+    limits)."""
     inp = _builder_inputs(rng, dtype=np.float32)
-    covs = [
-        ellipse_builder_from_inputs(*inp.values(), v=1.5, max_dist=3000.0,
-                                    **kw, device="cpu").cov_ns
-        for kw in (
-            {},
-            {"use_pallas": False},
-            {"use_pallas": False, "covariance_method": "batched",
-             "batch_size": 13},
-        )
-    ]
-    assert covs[0].dtype == torch.float32
-    for c in covs[1:]:
-        assert torch.equal(c, covs[0])
-    assert torch.equal(covs[0], covs[0].T)
+
+    def build(**kw):
+        return ellipse_builder_from_inputs(*inp.values(), v=v,
+                                           max_dist=3000.0, **kw,
+                                           device="cpu")
+
+    ours = build()
+    cov = ours.cov_ns
+    assert cov.dtype == torch.float32 and torch.equal(cov, cov.T)
+    for kw in ({"use_pallas": False},
+               {"use_pallas": False, "covariance_method": "batched",
+                "batch_size": 13},
+               {"covariance_method": "low_memory"}):
+        assert torch.equal(build(**kw).cov_ns, cov), kw
+    if v in HALF_INTEGER_ORDERS:
+        return
+    n = ours.covar_size
+    pair_bytes = tell.tile_pair_bytes(v, torch.float32)
+    assert tcov._tile_rows(n, pair_bytes, tcov._BUILD_LIMIT_BYTES) >= n
+    monkeypatch.setattr(tcov, "_BUILD_LIMIT_BYTES", 0)
+    assert tcov._tile_rows(n, pair_bytes, 0) == tell.TILE < n  # TILE rows
+    assert torch.equal(build().cov_ns, cov)
 
 
 def test_builder_orders(rng):
@@ -495,22 +628,22 @@ def test_wide_stream_column_chunks(rng, monkeypatch):
     np.testing.assert_allclose(_np(mv(X)), want, rtol=2e-6, atol=2e-6)
 
 
-@pytest.mark.parametrize("assemble", ["auto", "pallas", "scan"])
-def test_bf16_operator(rng, assemble):
-    """bf16 store (K2's padded store or row blocks): 2e-2 of max |y|
-    against the dense product, and against the JAX bf16 operator."""
+@pytest.mark.parametrize("v", [0.5, 1.5, 1.2])
+def test_bf16_operator(rng, v):
+    """bf16 store (K2's padded store at a kernel order, row blocks at a
+    general one): 2e-2 of max |y| against the dense product, and against
+    the JAX bf16 operator."""
     n = 300
     jargs = _operator_case(rng, n)
     dense = np.asarray(jcov.build_ellipse_covariance(
-        *jargs, v=1.5, use_pallas=False), np.float64)
+        *jargs, v=v, use_pallas=False), np.float64)
     X = rng.normal(size=(n, 7)).astype(np.float32)
     want = dense @ X
     scale = np.abs(want).max()
     jmv, _, jtrace = jcov.ellipse_covariance_operator(
-        *jargs, v=1.5, store="bf16", n_blocks=7)
+        *jargs, v=v, store="bf16", n_blocks=7)
     mv, n_out, trace = tcov.ellipse_covariance_operator(
-        *_torch_args(jargs), v=1.5, store="bf16", assemble=assemble,
-        n_blocks=7)
+        *_torch_args(jargs), v=v, store="bf16", n_blocks=7)
     assert n_out == n and trace == pytest.approx(jtrace, rel=1e-6)
     got = _np(mv(torch.as_tensor(X)))
     assert got.dtype == np.float32

@@ -16,7 +16,10 @@ import torch
 from glomargridding_tpu_torch.models.ellipse import estimate, model
 from glomargridding_tpu_torch.models.ellipse.model import EllipseModel
 from glomargridding_tpu_torch.ops.cuda import ellipse_nll
-from glomargridding_tpu_torch.ops.special import half_integer_coeffs
+from glomargridding_tpu_torch.ops.special import (
+    HALF_INTEGER_ORDERS,
+    half_integer_coeffs,
+)
 
 CUDA = torch.device("cuda")
 CPU = torch.device("cpu")
@@ -45,7 +48,7 @@ def _model(anisotropic=True, rotated=True, v=1.5, unit_sigma=True):
 ])
 def test_which_fits_take_k5(form, lane, device, dtype, takes):
     """The Nelder-Mead lane on a CUDA device, for the anisotropic forms at
-    nu in ORDERS in f32 or f64; the gradient lanes, the CPU, the
+    nu in HALF_INTEGER_ORDERS in f32 or f64; the gradient lanes, the CPU, the
     isotropic form and other orders keep the vmapped objective."""
     assert estimate._k5_takes(_model(**form), lane, device, dtype) is takes
 
@@ -111,7 +114,7 @@ def test_refusals_come_before_any_launch(no_library, kw, error, match):
         ellipse_nll.fisher_z_nll(*args, **kw)
 
 
-@pytest.mark.parametrize("v", ellipse_nll.ORDERS)
+@pytest.mark.parametrize("v", HALF_INTEGER_ORDERS)
 def test_the_constants_are_the_models(v):
     """The kernel's constants are those of ``_nll_fit_z``'s formula:
     ``cov_ij_anisotropic``'s factor, ``xv_kv_half_integer``'s, the
@@ -122,6 +125,6 @@ def test_the_constants_are_the_models(v):
         1.0 / (math.gamma(v) * 2.0 ** (v - 1.0)), math.sqrt(math.pi / 2.0),
         math.sqrt(v), model.ARCTANH_THRESHOLD, model._LOG_SQRT_2PI,
         *half_integer_coeffs(v)]
-    assert n == len(half_integer_coeffs(v)) == ellipse_nll.ORDERS.index(v) + 1
+    assert n == len(half_integer_coeffs(v)) == HALF_INTEGER_ORDERS.index(v) + 1
     widest = _model(unit_sigma=False)
     assert ellipse_nll.MAX_POINTS == widest.n_params + 2
