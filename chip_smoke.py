@@ -84,9 +84,17 @@ they run from the sources in this checkout (``pairwise_tile.cu`` and
   x 2,048 lanes x 4,096 columns, f32) against its plain twin, timed
   beside its bound with every lane live and with 3% of them, and the
   twin's time. Every Nelder-Mead fit of phases 16, 24, 25, 28 and 29
-  that goes through ``EllipseBuilder._chunk_fitter`` runs on it: each of
-  those phases prints its own K5 launches, and the kernel list sums
-  them (phase 32's own launches left out).
+  that goes through ``EllipseBuilder._chunk_fitter`` runs on it, its
+  trips replayed as a CUDA graph (``ops/cuda/simplex``): each of those
+  phases prints its own K5 launches, and the kernel list sums them
+  (phase 32's own launches left out);
+- phase 33, that loop (kernels P and D of ``ops/cuda/csrc/simplex.cu``
+  around K5, replayed as a CUDA graph) against its eager twin
+  (``ops/optim._eager_trips``) on one solve at the 1-degree fit's shape
+  (2,048 lanes x 4,096 columns, f32, rotated, nu = 1.5, the fit's box
+  and tolerance): x, fun, nit, success and the ``nm.*`` counters equal
+  bit for bit; P's and D's launches as they count them on the card, and
+  their device times beside the eager trip's time.
 
 Usage, from the repository root, with no arguments:
 
@@ -662,6 +670,7 @@ def main():
     kernels += walled("8-12", nonstationary, dev, glat, glon, (idx, y, err))
     launches = later_phases(dev, glat, glon, (idx, y, err))
     kernels.append(walled("32", phase32_fisher_z, dev))
+    kernels += walled("33", phase33_simplex, dev)
     for k in kernels:
         k["launches"] += launches.get(k["name"], 0)
     print("phase walls " + " ".join(f"{k}={v:.1f}s" for k, v in PHASE_WALLS
@@ -749,7 +758,7 @@ def device_and_build(precision, allow_tf32):
           gpu=torch.cuda.get_device_name(0), matmul_precision=precision,
           allow_tf32=allow_tf32)
     t0 = time.perf_counter()
-    libraries = ("pairwise_tile", "ellipse_tile", "ellipse_nll")
+    libraries = ("pairwise_tile", "ellipse_tile", "ellipse_nll", "simplex")
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(build.load_library, libraries))
     phase(2, "build", seconds=f"{time.perf_counter() - t0:.1f}",
@@ -760,7 +769,9 @@ def device_and_build(precision, allow_tf32):
              **ptxas_summary("ellipse_tile", [
                  "ellipse_sym_kernel", "ellipse_matvec_kernel",
                  "ellipse_tile_kernel"]),
-             **ptxas_summary("ellipse_nll", ["fisher_z_nll_kernel"])}
+             **ptxas_summary("ellipse_nll", ["fisher_z_nll_kernel"]),
+             **ptxas_summary("simplex", ["nm_prepare_kernel",
+                                         "nm_decide_kernel"])}
     print("ptxas " + " ".join(f"{k}=regs:{r},spill_bytes:{b}"
                               for k, (r, b) in ptxas.items()), flush=True)
     for name in ptxas:
@@ -4640,17 +4651,22 @@ def qd_chunk_times(tq, builder, model, lat_axis):
 def fit_counts():
     """The counters a fit's K5 launches are held to."""
     return {k: COUNTS[k] for k in ("k5.launches", "nm.iterations",
-                                   "nm.shrinks")}
+                                   "nm.shrinks", "nm.spare_trips")}
 
 
 def k5_on_every_call(label, before, solves):
     """(K5's launches, the objective calls) since `before`
     (``fit_counts()``) over `solves` Nelder-Mead solves, held equal: a
     solve's objective calls are its start, one a trip and one a shrink
-    pass, and every one on the card runs on K5."""
+    pass, and the empty calls of the card's loop (``ops.cuda.simplex``:
+    the shrink slot of every other trip, both slots of a spare trip);
+    K5 counts its launches on the card there, and every call runs on
+    it."""
     delta = {k: COUNTS[k] - v for k, v in before.items()}
     k5 = require_launches(f"K5 ({label})", delta["k5.launches"])
-    calls = solves + delta["nm.iterations"] + delta["nm.shrinks"]
+    iterations, shrinks = delta["nm.iterations"], delta["nm.shrinks"]
+    empty = (iterations - shrinks) + 2 * delta["nm.spare_trips"]
+    calls = solves + iterations + shrinks + empty
     if k5 != calls:
         raise AssertionError(f"{label}: {k5} K5 launches for {calls} "
                              "objective calls")
@@ -5655,6 +5671,162 @@ def phase32_fisher_z(dev):
         "bound_by": by,
         "library_ms": None,
     }
+
+
+SIMPLEX_COUNTERS = ("nm.iterations", "nm.points", "nm.shrinks",
+                    "nm.lanes_offered", "nm.lanes_evaluated")
+
+
+def simplex_inputs(B, N, dev):
+    """(X, z_y, w) of the 1-degree fit's shape on the card: displacements
+    within 4,000 km, Fisher-z observations of an anisotropic exponential
+    correlation (lengths 800-3,000 km) plus noise of 0.1, 10% of the
+    weights 0 and the last three lanes without data."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    X = uniform(-4000.0, 4000.0, B, N, 2)
+    r = torch.sqrt(torch.sum((X / uniform(800.0, 3000.0, B, 1, 2)) ** 2, -1))
+    noise = torch.randn((B, N), generator=g, device=dev)
+    z = torch.arctanh(torch.clamp(torch.exp(-r) + 0.1 * noise, -0.2, 0.99))
+    w = (torch.rand((B, N), generator=g, device=dev) > 0.1).float()
+    w[-3:] = 0.0
+    return X, z, w
+
+
+def kernel_device_us(fn, names):
+    """{name: (launches, device us summed)} of the kernels whose names
+    hold each of `names`, over one call of `fn` under ``torch.profiler``
+    (None where the profiler saw none of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    out = {}
+    for name in names:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.key]
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0) for e in rows)
+        out[name] = (sum(e.count for e in rows), us) if rows else None
+    return out
+
+
+def simplex_same(want, gots, eager, card):
+    """Raises unless each of `gots` is the eager solve `want` bit for bit
+    (x, fun, nit, success) and the card's ``nm.*`` counters are the eager
+    loop's."""
+    for got in gots:
+        for name, a, b in zip(("x", "fun", "nit", "success"), want, got):
+            differ = int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+            if differ:
+                raise AssertionError(f"phase 33: {name} differs on {differ}"
+                                     f" of {a.shape[0]} lanes")
+    nm = {k: card[k] for k in SIMPLEX_COUNTERS}
+    if nm != {k: eager[k] for k in SIMPLEX_COUNTERS}:
+        raise AssertionError(f"phase 33: counters {nm} against "
+                             f"{ {k: eager[k] for k in SIMPLEX_COUNTERS} }")
+
+
+def simplex_launches(card, trips_a_replay):
+    """{P, D, K5: launches} of a solve on the card, as the kernels count
+    them there, held to its trips: P and D one a trip run, K5 the start,
+    one a trip and one a shrink trip, and the empty calls (the shrink
+    slot of the other trips, both slots of a spare trip)."""
+    trips, iterations = card["nm.graph_trips"], card["nm.iterations"]
+    shrinks, spare = card["nm.shrinks"], card["nm.spare_trips"]
+    empty = (iterations - shrinks) + 2 * spare
+    launches = {"P": card["p.launches"], "D": card["d.launches"],
+                "K5": card["k5.launches"]}
+    if (launches["P"] != trips or launches["D"] != trips
+            or launches["K5"] != 1 + iterations + shrinks + empty
+            or not 0 <= spare < trips_a_replay):
+        raise AssertionError(f"phase 33: launches {launches} for {trips} "
+                             f"trips, {iterations} iterations")
+    return launches
+
+
+def phase33_simplex(dev):
+    """Phase 33: the Nelder-Mead loop on the card (``ops/cuda/simplex``:
+    P, K5, D, K5 a trip, replayed as a CUDA graph) against its eager twin
+    (``optim._eager_trips``, the same solve with ``simplex.takes``
+    refusing it) on one solve at the 1-degree fit's shape: x, fun, nit,
+    success and the ``nm.*`` counters bit for bit; the launches P, D and
+    K5 count on the card held to the trips; P's, D's and K5's device
+    time a launch under the profiler, beside the eager trip's wall and
+    device time. Returns P's and D's kernel records."""
+    from unittest import mock
+
+    from glomargridding_tpu_torch.ops import optim
+    from glomargridding_tpu_torch.ops.cuda import ellipse_nll, simplex
+
+    B, N = 2048, 4096
+    args = simplex_inputs(B, N, dev)
+    x0 = torch.tensor(FIT_KW["guesses"], device=dev).expand(B, 3)
+    bounds = tuple(torch.tensor(b, device=dev)
+                   for b in zip(*FIT_KW["bounds"]))
+    tol = FIT_KW["tol"]
+    k5 = ellipse_nll.FisherZ(1.5, False)
+    counted = SIMPLEX_COUNTERS + ("nm.graph_trips", "nm.spare_trips",
+                                  "k5.launches", "p.launches", "d.launches")
+
+    def solve():
+        before = {k: COUNTS[k] for k in counted}
+        sync()
+        t0 = time.perf_counter()
+        res = optim.batched_nelder_mead(None, x0, args, bounds, xatol=tol,
+                                        fatol=tol, stacked_fun=k5)
+        sync()
+        wall = time.perf_counter() - t0
+        return res, {k: COUNTS[k] - v for k, v in before.items()}, wall
+
+    if not simplex.takes(dev, 3, k5):
+        raise AssertionError("phase 33: the solve does not run on the card")
+    got, card, _ = solve()  # builds P and D and captures the graph
+    with mock.patch.object(simplex, "takes", lambda *a: False):
+        want, eager, eager_s = solve()
+        eager_busy_s, _ = device_busy_s(solve)
+    again, card, card_s = solve()
+    simplex_same(want, (got, again), eager, card)
+    launches = simplex_launches(card, simplex.TRIPS)
+    trips, iterations = card["nm.graph_trips"], card["nm.iterations"]
+    dev_us = kernel_device_us(solve, ("nm_prepare_kernel",
+                                      "nm_decide_kernel",
+                                      "fisher_z_nll_kernel"))
+
+    def per_launch_us(name):
+        seen = dev_us[name]
+        return None if seen is None else seen[1] / seen[0]
+
+    p_us, d_us = per_launch_us("nm_prepare_kernel"), per_launch_us(
+        "nm_decide_kernel")
+    eager_trip_ms = 1e3 * eager_s / eager["nm.iterations"]
+    phase(33, "simplex_on_the_card", lanes=B, columns=N, trips=trips,
+          iterations=iterations, spare=card["nm.spare_trips"],
+          shrinks=card["nm.shrinks"], max_nit=int(got.nit.max()),
+          launches_p=launches["P"], launches_d=launches["D"],
+          launches_k5=launches["K5"],
+          p_us=p_us, d_us=d_us, k5_us=per_launch_us("fisher_z_nll_kernel"),
+          profiled="|".join(f"{k}:{v}" for k, v in dev_us.items()),
+          card_ms=f"{1e3 * card_s:.2f}", eager_ms=f"{1e3 * eager_s:.2f}",
+          card_trip_us=f"{1e6 * card_s / trips:.1f}",
+          eager_trip_ms=f"{eager_trip_ms:.4f}",
+          eager_busy_ms=(None if eager_busy_s is None
+                         else f"{1e3 * eager_busy_s:.2f}"))
+    source = "glomargridding_tpu_torch/ops/cuda/csrc/simplex.cu"
+    return [{"name": name, "route": "cuda", "source": source,
+             "replaces": None, "launches": launches[key],
+             "max_rel_err": 0.0,
+             "ms": None if us is None else us / 1e3,
+             "plain_ms": eager_trip_ms, "bound_ms": None,
+             "bound_by": "launch latency", "library_ms": None}
+            for name, key, us in (("nm_prepare", "P", p_us),
+                                  ("nm_decide", "D", d_us))]
 
 
 if __name__ == "__main__":

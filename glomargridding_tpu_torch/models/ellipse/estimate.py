@@ -21,7 +21,6 @@ The multi-device fit (``mesh=``) splits each chunk's lanes over the
 slots of a ``parallel`` mesh.
 """
 
-import functools
 import json
 import logging
 import math
@@ -738,9 +737,8 @@ class EllipseBuilder:
         x0_single = x0_single.to(device)
         bounds = tuple(b.to(device) for b in bounds)
         if _k5_takes(matern_ellipse, lane, device, cor.dtype):
-            stacked = functools.partial(
-                ellipse_nll.fisher_z_nll, v=matern_ellipse.v,
-                fit_sigma=not matern_ellipse.unit_sigma)
+            stacked = ellipse_nll.FisherZ(
+                float(matern_ellipse.v), not matern_ellipse.unit_sigma)
         else:
             stacked = stacked_objective(matern_ellipse._nll_fit_z, 3)
 

@@ -165,8 +165,10 @@ fisher_z_nll_kernel(const T* __restrict__ points,  // (K, B, d)
                     const T* __restrict__ w,       // (B, N)
                     const uint8_t* __restrict__ mask,  // (B,)
                     int64_t B, int64_t N, int d, int n_shape, int fit_sigma,
-                    int vec, Consts<T> c, double* __restrict__ out) {
+                    int vec, Consts<T> c, double* __restrict__ out,
+                    unsigned long long* launches) {  // or null
   const int64_t b = blockIdx.x;
+  if (launches != nullptr && b == 0 && threadIdx.x == 0) *launches += 1;
   if (!mask[b]) {
     if (threadIdx.x < K) out[threadIdx.x * B + b] = INFINITY;
     return;
@@ -246,14 +248,15 @@ template <typename T, int K>
 cudaError_t launch_nc(int nc, const void* points, const void* X,
                       const void* z, const void* w, const uint8_t* mask,
                       int64_t B, int64_t N, int d, int n_shape, int fit_sigma,
-                      int vec, const Consts<T>& c, double* out, int threads,
+                      int vec, const Consts<T>& c, double* out,
+                      unsigned long long* launches, int threads,
                       cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(B));
 #define K5_LAUNCH(NC)                                                       \
   fisher_z_nll_kernel<T, K, NC><<<grid, threads, 0, s>>>(                   \
       static_cast<const T*>(points), static_cast<const T*>(X),              \
       static_cast<const T*>(z), static_cast<const T*>(w), mask, B, N, d,    \
-      n_shape, fit_sigma, vec, c, out)
+      n_shape, fit_sigma, vec, c, out, launches)
   switch (nc) {
     case 1: K5_LAUNCH(1); break;
     case 2: K5_LAUNCH(2); break;
@@ -269,7 +272,8 @@ template <typename T>
 cudaError_t dispatch(int k, int nc, const void* points, const void* X,
                      const void* z, const void* w, const uint8_t* mask,
                      int64_t B, int64_t N, int d, int n_shape, int fit_sigma,
-                     int vec, const double* consts, double* out, int threads,
+                     int vec, const double* consts, double* out,
+                     unsigned long long* launches, int threads,
                      cudaStream_t s) {
   Consts<T> c;
   c.first = T(consts[0]);
@@ -279,11 +283,11 @@ cudaError_t dispatch(int k, int nc, const void* points, const void* X,
   c.log_sqrt_2pi = consts[4];
   for (int j = 0; j < kMaxCoeffs; ++j) c.coeffs[j] = j < nc ? T(consts[5 + j]) : T(0);
   switch (k) {
-    case 1: return launch_nc<T, 1>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, threads, s);
-    case 2: return launch_nc<T, 2>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, threads, s);
-    case 3: return launch_nc<T, 3>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, threads, s);
-    case 4: return launch_nc<T, 4>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, threads, s);
-    case 5: return launch_nc<T, 5>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, threads, s);
+    case 1: return launch_nc<T, 1>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, launches, threads, s);
+    case 2: return launch_nc<T, 2>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, launches, threads, s);
+    case 3: return launch_nc<T, 3>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, launches, threads, s);
+    case 4: return launch_nc<T, 4>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, launches, threads, s);
+    case 5: return launch_nc<T, 5>(nc, points, X, z, w, mask, B, N, d, n_shape, fit_sigma, vec, c, out, launches, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -293,14 +297,16 @@ cudaError_t dispatch(int k, int nc, const void* points, const void* X,
 // C entry point for ctypes. dtype: 0 = float32, 1 = float64. consts:
 // first, sqrt(pi / 2), sqrt(nu), the clip, log sqrt(2 pi), then the nc
 // Horner coefficients. vec: 1 when N is a multiple of the 16-byte vector's
-// length and every row is 16-byte aligned. Returns the cudaError_t of the
-// launch (0 on success); the caller raises otherwise.
+// length and every row is 16-byte aligned. launches: null, or a uint64 on
+// the device that the launch adds 1 to (a caller that replays launches
+// captured in a CUDA graph counts them there). Returns the cudaError_t of
+// the launch (0 on success); the caller raises otherwise.
 extern "C" int fisher_z_nll_launch(int dtype, int k, int nc, const void* points,
                                    const void* X, const void* z, const void* w,
                                    const void* mask, int64_t B, int64_t N,
                                    int d, int n_shape, int fit_sigma, int vec,
                                    const double* consts, void* out,
-                                   int threads, void* stream) {
+                                   void* launches, int threads, void* stream) {
   if (B <= 0 || N <= 0 || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || k > kMaxPoints || d < n_shape + fit_sigma) {
     return cudaErrorInvalidValue;
@@ -308,13 +314,14 @@ extern "C" int fisher_z_nll_launch(int dtype, int k, int nc, const void* points,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   double* o = static_cast<double*>(out);
+  unsigned long long* n = static_cast<unsigned long long*>(launches);
   if (dtype == 0) {
     return dispatch<float>(k, nc, points, X, z, w, m, B, N, d, n_shape,
-                           fit_sigma, vec, consts, o, threads, s);
+                           fit_sigma, vec, consts, o, n, threads, s);
   }
   if (dtype == 1) {
     return dispatch<double>(k, nc, points, X, z, w, m, B, N, d, n_shape,
-                            fit_sigma, vec, consts, o, threads, s);
+                            fit_sigma, vec, consts, o, n, threads, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -20,6 +20,7 @@ is refused before any launch.
 """
 
 import ctypes
+import dataclasses
 import functools
 import math
 from contextlib import nullcontext
@@ -103,18 +104,23 @@ def _shapes(points, X, z_y, w, mask, fit_sigma):
     return K, B, N, d, n_shape
 
 
-def fisher_z_nll(points, X, z_y, w, mask, *, v: float, fit_sigma: bool):
+def fisher_z_nll(points, X, z_y, w, mask, *, v: float, fit_sigma: bool,
+                 out=None, launches=None):
     """(K, B) float64 objective of the stacked `points` (K, B, d) on each
     lane's training data (X (B, N, 2), z_y and w (B, N)); +inf outside the
-    (B,) bool `mask`. Launches K5 on the tensors' device and its current
-    stream; raises on anything it does not take (``_check``) and if the
-    launch fails."""
+    (B,) bool `mask`, written into `out` where one is given (a contiguous
+    (K, B) float64 tensor on the same device). Launches K5 on the
+    tensors' device and its current stream; raises on anything it does
+    not take (``_check``) and if the launch fails. The launch is counted
+    in ``k5.launches``, or, where `launches` is given (an int64 element
+    on the same device), on the card in it, for its caller to read: a
+    launch captured into a CUDA graph runs at each replay."""
     K, B, N, d, n_shape = _check(points, X, z_y, w, mask, v, fit_sigma)
     n_coeffs, consts = _consts(float(v))
     width = 16 // points.element_size()
     vec = N % width == 0 and all(t.data_ptr() % 16 == 0 for t in (X, z_y, w))
     device = points.device
-    out = torch.empty((K, B), dtype=torch.float64, device=device)
+    out = _outputs(out, launches, K, B, device)
     lib = _library()
     # at few live lanes a call costs what the host spends on it (48 us
     # with a device switch and a Stream object, against 12 us for an
@@ -126,14 +132,48 @@ def fisher_z_nll(points, X, z_y, w, mask, *, v: float, fit_sigma: bool):
             _DTYPE_CODES[points.dtype], K, n_coeffs, points.data_ptr(),
             X.data_ptr(), z_y.data_ptr(), w.data_ptr(), mask.data_ptr(), B, N,
             d, n_shape, int(bool(fit_sigma)), int(vec), consts,
-            out.data_ptr(), THREADS,
+            out.data_ptr(), 0 if launches is None else launches.data_ptr(),
+            THREADS,
             torch._C._cuda_getCurrentRawStream(device.index))
     if status != 0:
         raise RuntimeError(
             f"fisher_z_nll_launch failed with cudaError {status} (K={K}, "
             f"B={B}, N={N}, d={d}, dtype={points.dtype})")
-    count("k5.launches")
+    if launches is None:
+        count("k5.launches")
     return out
+
+
+def _outputs(out, launches, K, B, device):
+    """`out`, or a new (K, B) float64 tensor where it is None; raises on
+    an `out` or `launches` the call cannot write."""
+    if launches is not None and (launches.dtype != torch.int64
+                                 or launches.numel() != 1
+                                 or launches.device != device):
+        raise ValueError(f"launches must be one int64 element on {device}")
+    if out is None:
+        return torch.empty((K, B), dtype=torch.float64, device=device)
+    if (tuple(out.shape) != (K, B) or out.dtype != torch.float64
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({K}, {B}) float64 "
+                         f"tensor on {device}")
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FisherZ:
+    """K5 bound to a model's order `v` and sigma flag: the stacked
+    objective ``(points, X, z_y, w, mask, **kw) -> (K, B)`` of a
+    Nelder-Mead fit (``fisher_z_nll``'s `out` and `launches` pass
+    through). ``ops.cuda.simplex`` runs the trips of a solve whose
+    objective is one of these on the card."""
+
+    v: float
+    fit_sigma: bool
+
+    def __call__(self, points, X, z_y, w, mask, **kw):
+        return fisher_z_nll(points, X, z_y, w, mask, v=self.v,
+                            fit_sigma=self.fit_sigma, **kw)
 
 
 @functools.cache
@@ -157,8 +197,8 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_void_p] * 5
         + [ctypes.c_int64] * 2
         + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p, ctypes.c_int,
-           ctypes.c_void_p]
+        + [ctypes.POINTER(ctypes.c_double), ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_int, ctypes.c_void_p]
     )
     for name, want in (("fisher_z_nll_max_points", MAX_POINTS),
                        ("fisher_z_nll_max_coeffs",
@@ -170,4 +210,4 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["MAX_POINTS", "THREADS", "fisher_z_nll", "takes"]
+__all__ = ["MAX_POINTS", "THREADS", "FisherZ", "fisher_z_nll", "takes"]

@@ -27,6 +27,7 @@ from torch.func import jacfwd, vmap
 
 from ..utils.device import resolve_device
 from ..utils.profiling import count, span
+from .cuda import simplex as card_simplex
 
 
 class NMResult(NamedTuple):
@@ -217,6 +218,12 @@ def batched_nelder_mead(
     `fun` (lifted by ``stacked_objective(fun, len(args))``, which
     evaluates every lane) or, with `fun` None, `stacked_fun`.
 
+    Where ``ops.cuda.simplex.takes`` the solve (a CUDA device, d + 1 <= 5
+    and K5 as the stacked objective), its trips after the initial
+    simplex run there: a captured CUDA graph of trips, replayed with one
+    host read a replay, to the same bits as the host's loop
+    (``_eager_trips``), its twin.
+
     Spans (``utils/profiling``): ``nm.evaluate`` around each objective
     call (the initial simplex, each iteration's candidates, each shrink
     pass), ``nm.read`` around the host read. Counters, host integers the
@@ -225,7 +232,8 @@ def batched_nelder_mead(
     shrinks) + 4 trips, ``nm.shrinks`` the shrink passes,
     ``nm.lanes_offered`` B a call and ``nm.lanes_evaluated`` the lanes of
     its mask (their ratio is the share of lane evaluations a stacked
-    objective that skips may save).
+    objective that skips may save). The card's path keeps their meaning
+    and adds its own (``ops.cuda.simplex``).
 
     Runs on `device`; with none, where `x0` or an argument lives if one
     is a tensor, else on the card.
@@ -261,81 +269,98 @@ def batched_nelder_mead(
         fvals = evaluate_simplexes(
             simplex, torch.ones((B,), dtype=torch.bool, device=device))
         count("nm.lanes_evaluated", B)
-        nit = torch.zeros((B,), dtype=torch.int32, device=device)
-
-        def converged(simplex, fvals):
-            f_spread, x_spread = _spreads(simplex, fvals)
-            return (f_spread <= fatol) & (x_spread <= xatol)
-
-        while True:
-            count("nm.iterations")
-            active = ~converged(simplex, fvals) & (nit < maxiter)  # (B,)
-            order = torch.argsort(fvals, dim=1, stable=True)
-            sorted_simplex = torch.take_along_dim(simplex, order[:, :, None],
-                                                  dim=1)
-            sorted_fvals = torch.take_along_dim(fvals, order, dim=1)
-
-            centroid = torch.mean(sorted_simplex[:, :-1], dim=1)  # (B, d)
-            direction = centroid - sorted_simplex[:, -1]
-            cands = torch.clamp(torch.stack([
-                centroid + direction,
-                centroid + 2.0 * direction,
-                centroid + 0.5 * direction,
-                centroid - 0.5 * direction,
-            ]), min=lo, max=hi)  # (4, B, d)
-            fr, fe, foc, fic = evaluate(cands, active)
-            xr, xe, xoc, xic = cands
-            take_expand, take_reflect, take_oc, shrink = _decide(
-                fr, fe, foc, fic, sorted_fvals[:, 0], sorted_fvals[:, -2],
-                sorted_fvals[:, -1])
-            shrinking = shrink & active
-
-            with span("nm.read"):
-                n_active, n_shrink = torch.stack(
-                    [active.sum(), shrinking.sum()]).tolist()
-            count("nm.lanes_evaluated", n_active)
-            if not n_active:
-                break
-
-            cand_x = torch.where(
-                take_expand[:, None], xe,
-                torch.where(take_reflect[:, None], xr,
-                            torch.where(take_oc[:, None], xoc, xic)))
-            cand_f = torch.where(
-                take_expand, fe,
-                torch.where(take_reflect, fr,
-                            torch.where(take_oc, foc, fic)))
-            replaced_simplex = torch.cat(
-                [sorted_simplex[:, :-1], cand_x[:, None, :]], dim=1)
-            replaced_fvals = torch.cat(
-                [sorted_fvals[:, :-1], cand_f[:, None]], dim=1)
-
-            best = sorted_simplex[:, :1]
-            shrunk_simplex = torch.clamp(
-                best + 0.5 * (sorted_simplex - best), min=lo, max=hi)
-            # d + 1 objective passes, paid only where they can be needed
-            if n_shrink:
-                count("nm.shrinks")
-                count("nm.lanes_evaluated", n_shrink)
-                shrunk_fvals = evaluate_simplexes(shrunk_simplex, shrinking)
-            else:
-                shrunk_fvals = torch.full_like(sorted_fvals, torch.inf)
-
-            new_simplex = torch.where(shrink[:, None, None], shrunk_simplex,
-                                      replaced_simplex)
-            new_fvals = torch.where(shrink[:, None], shrunk_fvals,
-                                    replaced_fvals)
-            # frozen lanes keep their state
-            simplex = torch.where(active[:, None, None], new_simplex, simplex)
-            fvals = torch.where(active[:, None], new_fvals, fvals)
-            nit = nit + active.to(nit.dtype)
-
+        if card_simplex.takes(device, d, stacked_fun):
+            simplex, fvals, nit = card_simplex.trips(
+                simplex, fvals, args, lo, hi, xatol=xatol, fatol=fatol,
+                maxiter=maxiter, stacked_fun=stacked_fun)
+        else:
+            simplex, fvals, nit = _eager_trips(
+                simplex, fvals, evaluate, evaluate_simplexes, lo, hi,
+                xatol=xatol, fatol=fatol, maxiter=maxiter)
         best = torch.argmin(fvals, dim=1)
         x_best = torch.take_along_dim(simplex, best[:, None, None],
                                       dim=1)[:, 0]
         f_best = torch.take_along_dim(fvals, best[:, None], dim=1)[:, 0]
-        success = converged(simplex, fvals)
+        success = _converged(simplex, fvals, xatol, fatol)
     return NMResult(x_best, f_best, nit, success)
+
+
+def _converged(simplex, fvals, xatol, fatol):
+    f_spread, x_spread = _spreads(simplex, fvals)
+    return (f_spread <= fatol) & (x_spread <= xatol)
+
+
+def _eager_trips(simplex, fvals, evaluate, evaluate_simplexes, lo, hi, *,
+                 xatol, fatol, maxiter):
+    """``batched_nelder_mead``'s trips from its initial simplex, each
+    decided on the host: (simplex, values, nit) once no lane is active.
+    `evaluate` and `evaluate_simplexes` are its objective calls."""
+    B = simplex.shape[0]
+    nit = torch.zeros((B,), dtype=torch.int32, device=simplex.device)
+    while True:
+        count("nm.iterations")
+        active = (~_converged(simplex, fvals, xatol, fatol)
+                  & (nit < maxiter))  # (B,)
+        order = torch.argsort(fvals, dim=1, stable=True)
+        sorted_simplex = torch.take_along_dim(simplex, order[:, :, None],
+                                              dim=1)
+        sorted_fvals = torch.take_along_dim(fvals, order, dim=1)
+
+        centroid = torch.mean(sorted_simplex[:, :-1], dim=1)  # (B, d)
+        direction = centroid - sorted_simplex[:, -1]
+        cands = torch.clamp(torch.stack([
+            centroid + direction,
+            centroid + 2.0 * direction,
+            centroid + 0.5 * direction,
+            centroid - 0.5 * direction,
+        ]), min=lo, max=hi)  # (4, B, d)
+        fr, fe, foc, fic = evaluate(cands, active)
+        xr, xe, xoc, xic = cands
+        take_expand, take_reflect, take_oc, shrink = _decide(
+            fr, fe, foc, fic, sorted_fvals[:, 0], sorted_fvals[:, -2],
+            sorted_fvals[:, -1])
+        shrinking = shrink & active
+
+        with span("nm.read"):
+            n_active, n_shrink = torch.stack(
+                [active.sum(), shrinking.sum()]).tolist()
+        count("nm.lanes_evaluated", n_active)
+        if not n_active:
+            break
+
+        cand_x = torch.where(
+            take_expand[:, None], xe,
+            torch.where(take_reflect[:, None], xr,
+                        torch.where(take_oc[:, None], xoc, xic)))
+        cand_f = torch.where(
+            take_expand, fe,
+            torch.where(take_reflect, fr,
+                        torch.where(take_oc, foc, fic)))
+        replaced_simplex = torch.cat(
+            [sorted_simplex[:, :-1], cand_x[:, None, :]], dim=1)
+        replaced_fvals = torch.cat(
+            [sorted_fvals[:, :-1], cand_f[:, None]], dim=1)
+
+        best = sorted_simplex[:, :1]
+        shrunk_simplex = torch.clamp(
+            best + 0.5 * (sorted_simplex - best), min=lo, max=hi)
+        # d + 1 objective passes, paid only where they can be needed
+        if n_shrink:
+            count("nm.shrinks")
+            count("nm.lanes_evaluated", n_shrink)
+            shrunk_fvals = evaluate_simplexes(shrunk_simplex, shrinking)
+        else:
+            shrunk_fvals = torch.full_like(sorted_fvals, torch.inf)
+
+        new_simplex = torch.where(shrink[:, None, None], shrunk_simplex,
+                                  replaced_simplex)
+        new_fvals = torch.where(shrink[:, None], shrunk_fvals,
+                                replaced_fvals)
+        # frozen lanes keep their state
+        simplex = torch.where(active[:, None, None], new_simplex, simplex)
+        fvals = torch.where(active[:, None], new_fvals, fvals)
+        nit = nit + active.to(nit.dtype)
+    return simplex, fvals, nit
 
 
 # ===========================================================================

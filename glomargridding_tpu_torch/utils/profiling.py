@@ -55,16 +55,20 @@ SPANS = (
     "assembly.operator", "assembly.store",
     # models/ellipse/estimate.EllipseBuilder.fit_cells: the training data
     # and the batched optimiser; ops/optim.batched_nelder_mead's objective
-    # calls and its host read of an iteration's two flags
+    # calls and its host read of an iteration's two flags, or, on the
+    # card (ops/cuda/simplex), each replay of the captured trips and its
+    # read of the tallies
     "mle.fit", "mle.build", "mle.solve", "nm.evaluate", "nm.read",
+    "nm.replay",
 )
 _SPAN_SET = frozenset(SPANS)
 
 COUNTERS = (
     # launches of the kernels K1-K5 (ops/cuda), and K1's tiles on the
-    # plain route (a Matern order without a kernel instantiation)
+    # plain route (a Matern order without a kernel instantiation); those
+    # of the simplex's P and D (ops/cuda/simplex), counted on the card
     "k1.launches", "k1.plain_tiles", "k2.launches", "k3.launches",
-    "k4.launches", "k5.launches",
+    "k4.launches", "k5.launches", "p.launches", "d.launches",
     # the dense kriging classes' solve (models/kriging._solve_sym)
     "kriging.solve.cholesky", "kriging.solve.lu",
     # models/kernel_kriging's grid column blocks, and the row panels of
@@ -76,10 +80,11 @@ COUNTERS = (
     # ops/optim.batched_nelder_mead: loop trips, the points of every
     # (K, B, d) objective call (K each), the shrink passes, the lanes each
     # call is offered (B) and those of its mask, whose values the loop
-    # reads; and the lanes EllipseBuilder.fit_cells hands the optimiser,
-    # padding included
+    # reads; the trips ops/cuda/simplex runs on the card, and those of
+    # them after the loop's last; and the lanes EllipseBuilder.fit_cells
+    # hands the optimiser, padding included
     "nm.iterations", "nm.points", "nm.shrinks", "nm.lanes_offered",
-    "nm.lanes_evaluated", "mle.lanes",
+    "nm.lanes_evaluated", "nm.graph_trips", "nm.spare_trips", "mle.lanes",
 )
 _COUNTER_SET = frozenset(COUNTERS)
 

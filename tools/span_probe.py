@@ -17,7 +17,7 @@ with the reference. Each reading is computed from
 spans:
 
 - ``kriging.factor_ms``, ``kriging.columns_ms``, and for the ellipse
-  fit ``mle.build_ms``, ``nm.evaluate_ms``, ``nm.read_ms``:
+  fit ``mle.build_ms``, ``nm.evaluate_ms``, ``nm.read_ms``, ``nm.replay_ms``:
   ``device_seconds_by_span`` of that span, x 1e3 / n;
 - ``kriging.host_idle_ms``, ``lowrank.host_idle_ms``, ``mle.host_idle_ms``,
   ``nm.host_idle_ms``: ``layer_total`` of ``idle_by_span`` (the harness's
@@ -27,14 +27,25 @@ spans:
 - ``eigsh.sweep_ms``, ``eigsh.cholqr_ms``, ``eigsh.ritz_ms``:
   ``device_seconds_by_span`` of that span, x 1e3 / c;
 - for the ellipse fit's simplex, with t the window's ``nm.iterations``
-  (trips) and c its objective calls (``nm.lanes_offered`` over the lanes
-  a fit, ``mle.lanes`` / n): ``nm.skip_share``, 1 - ``nm.lanes_evaluated``
-  / ``nm.lanes_offered``; ``nm.calls_per_analysis``, c / n;
-  ``k5.launches_per_call``, ``k5.launches`` / c (1 where every call runs
-  on K5); ``nm.evaluate_us_per_call``, the ``nm.evaluate`` device time /
-  c; and the per-trip split, ``<span>.device_us_per_trip`` and
-  ``<span>.idle_us_per_trip`` of ``nm.evaluate``, ``nm.read`` and
-  ``mle.solve`` (its own, outside the other two), x 1e6 / t;
+  (the eager loop's trips, whichever loop ran them), g its
+  ``nm.graph_trips`` (the trips the card's loop ran, as P counts them
+  on the card) and c its
+  objective calls (``nm.lanes_offered`` over the lanes a fit,
+  ``mle.lanes`` / n): ``nm.skip_share``, 1 - ``nm.lanes_evaluated`` /
+  ``nm.lanes_offered``; ``nm.calls_per_analysis``, c / n;
+  ``k5.launches_per_call``, ``k5.launches`` / c (1 where the eager loop
+  runs every call on K5; the card's loop launches K5 at the start and
+  twice a replayed trip, spare trips and empty shrink passes included,
+  and K5 counts those launches on the card, so (n + 2 g) / c there);
+  ``nm.evaluate_us_per_call``, the
+  ``nm.evaluate`` device time / c; ``nm.graph_trips_per_trip``, g / t
+  (0 on the eager loop, 1 + the spare share on the card's);
+  ``nm.spare_trips_per_fit``, ``nm.spare_trips`` / n; and the per-trip
+  split, ``<span>.device_us_per_trip`` and ``<span>.idle_us_per_trip``
+  of ``nm.evaluate``, ``nm.replay`` (the replayed trips' kernels),
+  ``nm.read`` (the eager loop's read a trip, or the card's loop's read
+  of its tallies a replay) and ``mle.solve`` (its own, outside the
+  others), x 1e6 / t;
 - ``eigsh.columns_per_rank``: ``COUNTS`` ``eigsh.columns`` / ``eigsh.kept``;
 - ``eigsh.applications_per_clip``: ``eigsh.applications`` / c, beside the
   harness's ``eigsh.sweeps_per_clip``;
@@ -66,10 +77,10 @@ from glomargridding_tpu_torch.utils import profiling  # noqa: E402
 PER_ANALYSIS = {"kriging.factor_ms": "kriging.factor",
                 "kriging.columns_ms": "kriging.columns",
                 "mle.build_ms": "mle.build", "nm.evaluate_ms": "nm.evaluate",
-                "nm.read_ms": "nm.read"}
+                "nm.read_ms": "nm.read", "nm.replay_ms": "nm.replay"}
 PER_CLIP = {"eigsh.sweep_ms": "eigsh.sweep", "eigsh.cholqr_ms": "eigsh.cholqr",
             "eigsh.ritz_ms": "eigsh.ritz"}
-PER_TRIP = ("nm.evaluate", "nm.read", "mle.solve")
+PER_TRIP = ("nm.evaluate", "nm.replay", "nm.read", "mle.solve")
 HARNESS_METRICS = ("eigsh.clip_ms", "eigsh.sweeps_per_clip",
                    "linalg.device_ms")
 
@@ -137,7 +148,10 @@ def simplex_metrics(device, idle, n, counts):
         "nm.calls_per_analysis": ratio(calls, n),
         "k5.launches_per_call": ratio(counts.get("k5.launches", 0), calls),
         "nm.evaluate_us_per_call": ratio(device.get("nm.evaluate"), calls,
-                                         1e6)}
+                                         1e6),
+        "nm.graph_trips_per_trip": ratio(counts.get("nm.graph_trips", 0),
+                                         trips),
+        "nm.spare_trips_per_fit": ratio(counts.get("nm.spare_trips", 0), n)}
     for name in PER_TRIP:
         metrics[f"{name}.device_us_per_trip"] = ratio(device.get(name),
                                                       trips, 1e6)
