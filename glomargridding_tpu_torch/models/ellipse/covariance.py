@@ -50,7 +50,7 @@ from ...ops.cuda.ellipse import (
 from ...ops.distances import sigma_rot_flat
 from ...ops.sampling import Matvec, _mm_bf16_f32
 from ...utils.device import resolve_device
-from ...utils.profiling import span
+from ...utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -409,7 +409,8 @@ def ellipse_covariance_operator(
         P = pack_points(lats_rad, lons_rad, torch.as_tensor(
             sig_flat, device=device), sqrt_dets, stdevs)
         n = P.shape[0]
-        diag = P[:, 6].float() ** 2
+        # the diagonal in the stream's dtype, in f32 beside the bf16 store
+        diag = (P[:, 6] if store == "stream" else P[:, 6].float()) ** 2
         trace = float(torch.sum(diag))
         kernel = (v, delta_x_method, max_dist)
         if store == "stream":
@@ -439,22 +440,23 @@ def stream_plan(lat_rows, lat_cols, block, max_dist):
 
 def _stream_matvec(P, diag, n_blocks, v, delta_x_method, max_dist):
     """The zero-storage ``Matvec`` of ``ellipse_covariance_operator``."""
-    n = P.shape[0]
-    block = _block_rows(n, n_blocks)
-    lat_np = np.asarray(P[:, 0].cpu(), dtype=np.float64)
-    windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
-    if n_blocks is None and bw < n:
-        # a banded block's tile spans its window, not the n columns that
-        # _block_rows sizes it against: the tile-height rule against the
-        # window (taller tiles are fewer launches and gathers, and run K4
-        # and the GEMM faster)
-        wide = _tile_rows(bw, tile_pair_bytes(v, P.dtype),
-                          _TILE_LIMIT_BYTES)
-        if wide > block:
-            block = min(wide, -(-n // TILE) * TILE)
-            windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
-    chunks = (None if max_dist is None
-              else _active_chunks(P, windows, bw, max_dist))
+    with span("stream.plan"):
+        n = P.shape[0]
+        block = _block_rows(n, n_blocks)
+        lat_np = np.asarray(P[:, 0].cpu(), dtype=np.float64)
+        windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
+        if n_blocks is None and bw < n:
+            # a banded block's tile spans its window, not the n columns
+            # that _block_rows sizes it against: the tile-height rule
+            # against the window (taller tiles are fewer launches and
+            # gathers, and run K4 and the GEMM faster)
+            wide = _tile_rows(bw, tile_pair_bytes(v, P.dtype),
+                              _TILE_LIMIT_BYTES)
+            if wide > block:
+                block = min(wide, -(-n // TILE) * TILE)
+                windows, hi, bw = stream_plan(lat_np, lat_np, block, max_dist)
+        chunks = (None if max_dist is None
+                  else _active_chunks(P, windows, bw, max_dist))
     use_fused = matvec_takes(v, P.dtype)
     nb = hi.size
     stats = {
@@ -476,14 +478,19 @@ def _stream_matvec(P, diag, n_blocks, v, delta_x_method, max_dist):
     k3_hi = hi if max_dist is not None else None
 
     def stream(x):
-        x2 = _as_2d(x, P)
-        if use_fused and x2.shape[1] <= MV_W:
-            y = ellipse_matvec(P, x2.contiguous(), k3_hi, v,
-                               delta_x_method, max_dist)
-        else:
-            y = _apply_wide(P, x2, windows, v, delta_x_method, max_dist,
-                            chunks=chunks)
-        return _finish(y + diag[:, None] * x2, x)
+        with span("stream.apply"):
+            x2 = _as_2d(x, P)
+            count("stream.applications")
+            count("stream.columns", x2.shape[1])
+            if use_fused and x2.shape[1] <= MV_W:
+                with span("stream.fused"):
+                    y = ellipse_matvec(P, x2.contiguous(), k3_hi, v,
+                                       delta_x_method, max_dist)
+            else:
+                count("stream.built_pairs", stats["kept_pairs"])
+                y = _apply_wide(P, x2, windows, v, delta_x_method, max_dist,
+                                chunks=chunks)
+            return _finish(y + diag[:, None] * x2, x)
 
     return Matvec(stream, stats)
 
@@ -558,20 +565,24 @@ def _apply_wide(P, x2, windows, v, delta_x_method, max_dist, cols=None,
     y = torch.zeros((n, x2.shape[1]), dtype=P.dtype, device=P.device)
     if chunks is not None:
         ptr, ids = chunks
-        by_chunk = _by_chunk(cols, x2)
+        with span("stream.gather"):
+            by_chunk = _by_chunk(cols, x2)
     for b, (r0, r1, c0, c1) in enumerate(windows):
         if chunks is not None:
             cid = ids[ptr[b]:ptr[b + 1]]
             step = ccw // TILE
-            pieces = [_gathered(by_chunk, cid[k0:k0 + step])
-                      for k0 in range(0, cid.numel(), step)]
+            with span("stream.gather"):
+                pieces = [_gathered(by_chunk, cid[k0:k0 + step])
+                          for k0 in range(0, cid.numel(), step)]
         else:
             pieces = [(cols[k0:min(k0 + ccw, c1)], x2[k0:min(k0 + ccw, c1)])
                       for k0 in range(c0, c1, ccw)]
         for cp, xp in pieces:
             tile = ws[: (r1 - r0) * cp.shape[0]].view(r1 - r0, cp.shape[0])
-            _tile_into(P[r0:r1], cp, v, delta_x_method, max_dist, tile)
-            y[r0:r1].addmm_(tile, xp)
+            with span("stream.tile"):
+                _tile_into(P[r0:r1], cp, v, delta_x_method, max_dist, tile)
+            with span("stream.gemm"):
+                y[r0:r1].addmm_(tile, xp)
     return y
 
 

@@ -16,7 +16,8 @@ things.
   it does not change what the device does. ``count(name, n)`` adds to
   ``COUNTS`` (names in ``COUNTERS``), always, at the cost of an integer
   add: kernel launches, solver branches, the eigensolver's applications
-  and retained rank, the simplex's trips, points, shrinks and lanes.
+  and retained rank, the simplex's trips, points, shrinks and lanes, the
+  stream's applications, columns and built pairs.
 - An exporter: ``device_trace(log_dir)`` profiles its extent with spans
   on and writes a Chrome trace; ``span_device_seconds`` reads the device
   time each span launched from the profiler it yields.
@@ -51,8 +52,13 @@ SPANS = (
     # ops/covariance_tools' low-rank clips -> ops/eigsh
     "eigsh.clip", "eigsh.sweep", "eigsh.cholqr", "eigsh.ritz", "eigsh.gate",
     "eigsh.lock",
-    # models/ellipse/covariance.ellipse_covariance_operator
-    "assembly.operator", "assembly.store",
+    # models/ellipse/covariance.ellipse_covariance_operator; its
+    # zero-storage stream: the build's plan (band, block rule, longitude
+    # certificate) and each application, whose wide path gathers the
+    # active column chunks, builds tiles (K4) and multiplies them (GEMM),
+    # and whose narrow path is K3
+    "assembly.operator", "assembly.store", "stream.plan", "stream.apply",
+    "stream.gather", "stream.tile", "stream.gemm", "stream.fused",
     # models/ellipse/estimate.EllipseBuilder.fit_cells: the training data
     # and the batched optimiser; ops/optim.batched_nelder_mead's objective
     # calls and its host read of an iteration's two flags, or, on the
@@ -85,6 +91,10 @@ COUNTERS = (
     # hands the optimiser, padding included
     "nm.iterations", "nm.points", "nm.shrinks", "nm.lanes_offered",
     "nm.lanes_evaluated", "nm.graph_trips", "nm.spare_trips", "mle.lanes",
+    # the zero-storage stream's applications, the columns they carry and
+    # the pairs each wide application builds (band_stats' kept pairs, or
+    # every window's pairs without a certificate)
+    "stream.applications", "stream.columns", "stream.built_pairs",
 )
 _COUNTER_SET = frozenset(COUNTERS)
 

@@ -187,10 +187,10 @@ def test_fields_band_plan_and_demonstration(script, twin):
 
 def test_w64_application_in_f64(script, twin):
     """The twin's operator built in f64 on the script's fields, against
-    the reference's jnp tile in f64 over every column plus its operators'
-    f32 diagonal term, on three slabs of 512 rows. (The reference's
-    stream operator keeps its tiles in f32: 2.9e-8 of max |y| from that
-    tile in f64.)"""
+    the reference's jnp tile in f64 over every column plus the f64
+    diagonal term (the stream's diagonal is in its own dtype), on three
+    slabs of 512 rows. (The reference's stream operator keeps its tiles
+    and its diagonal in f32: 2.9e-8 of max |y| from that tile in f64.)"""
     out, _ = twin
     with pytest.MonkeyPatch.context() as mp:
         for name, value in SMALL.items():
@@ -202,7 +202,7 @@ def test_w64_application_in_f64(script, twin):
         glat, glon, out["fields"], torch.float64, "cpu")]
     _, jn, jtrace = script["operator"]
     X = out["demo"][0].double().numpy()
-    diag = np.asarray(inputs[4], np.float32) ** 2
+    diag = np.asarray(inputs[4], np.float64) ** 2
     got = mv(torch.from_numpy(X)).numpy()
     # rows at the south pole, the equator (a row block starting at
     # -179 degrees) and the north pole, over every column
@@ -213,7 +213,7 @@ def test_w64_application_in_f64(script, twin):
                 *rows, *inputs, v=1.5, max_dist=tte.MAX_DIST_KM,
                 use_max_dist=True)) @ X
         assert _rel(got[r0:r0 + 512], want) <= F64_TOL
-    # the trace is an f32 sum of the f32 diagonal in both packages
+    # the trace is the sum of the diagonal: f64 here, f32 in the reference
     assert n == jn and trace == pytest.approx(float(jtrace), rel=1e-6)
 
 
@@ -293,17 +293,17 @@ def test_longitude_certificate(centre):
                                    tte.MAX_DIST_KM)[0]
         whole = tcov._apply_wide(P, x, windows, 1.5, "Modified_Met_Office",
                                  tte.MAX_DIST_KM)
-        # the operators' diagonal is the f32 variance
-        out[dtype] = (mv.band_stats, mv(x), whole + (
-            P[:, 6].float() ** 2).to(dtype)[:, None] * x, inputs)
+        # the stream's diagonal is the variance in its own dtype
+        out[dtype] = (mv.band_stats, mv(x),
+                      whole + (P[:, 6] ** 2)[:, None] * x, inputs)
     stats, y64, whole64, inputs = out[torch.float64]
     assert stats["block"] == 64
     assert stats["kept_pairs"] < stats["wide_pairs"] / (
         3 if centre == 0.0 else 1)
-    # the reference's tile in f64 over every column, plus the operators'
-    # f32 diagonal term
+    # the reference's tile in f64 over every column, plus the f64
+    # diagonal term
     jin = [jnp.asarray(a.numpy()) for a in inputs]
-    want = np.asarray(inputs[4], np.float32)[:, None] ** 2 * X + np.asarray(
+    want = np.asarray(inputs[4], np.float64)[:, None] ** 2 * X + np.asarray(
         jcov.ellipse_covariance_block(*jin, *jin, v=1.5,
                                       max_dist=tte.MAX_DIST_KM,
                                       use_max_dist=True)) @ X

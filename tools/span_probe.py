@@ -46,6 +46,18 @@ spans:
   ``nm.read`` (the eager loop's read a trip, or the card's loop's read
   of its tallies a replay) and ``mle.solve`` (its own, outside the
   others), x 1e6 / t;
+- for the zero-storage stream, with a its ``stream.apply`` spans and p its
+  ``stream.plan`` spans in the window: ``stream.apply_ms``, the
+  application's device time with its children (``layer_total`` of the
+  ``stream`` spans less ``stream.plan``), x 1e3 / a;
+  ``stream.gather_ms``, ``stream.tile_ms``, ``stream.gemm_ms`` and
+  ``stream.fused_ms``, ``device_seconds_by_span`` of that span, x 1e3 /
+  a; ``stream.plan_ms``, that of ``stream.plan``, x 1e3 / p;
+  ``stream.share_of_sweep``, the application's device time over itself
+  plus ``eigsh.sweep``'s own (the share of the eigensolver's sweeps that
+  the stream's spans hold); and the harness's ``stream.built_per_needed``
+  (``stream.built_pairs`` over the needed pairs of every wide
+  application), ``stream.ms_per_column`` and ``k4_roofline``;
 - ``eigsh.columns_per_rank``: ``COUNTS`` ``eigsh.columns`` / ``eigsh.kept``;
 - ``eigsh.applications_per_clip``: ``eigsh.applications`` / c, beside the
   harness's ``eigsh.sweeps_per_clip``;
@@ -81,8 +93,11 @@ PER_ANALYSIS = {"kriging.factor_ms": "kriging.factor",
 PER_CLIP = {"eigsh.sweep_ms": "eigsh.sweep", "eigsh.cholqr_ms": "eigsh.cholqr",
             "eigsh.ritz_ms": "eigsh.ritz"}
 PER_TRIP = ("nm.evaluate", "nm.replay", "nm.read", "mle.solve")
+STREAM_PHASES = ("stream.gather", "stream.tile", "stream.gemm",
+                 "stream.fused")
 HARNESS_METRICS = ("eigsh.clip_ms", "eigsh.sweeps_per_clip",
-                   "linalg.device_ms")
+                   "linalg.device_ms", "stream.built_per_needed",
+                   "stream.ms_per_column", "k4_roofline")
 
 
 def ratio(a, b, scale=1.0):
@@ -130,6 +145,7 @@ def program_metrics(program, device, idle, syncs, n, clips, counts):
     metrics.update({k: ratio(device.get(v), clips, 1e3)
                     for k, v in PER_CLIP.items()})
     metrics.update(simplex_metrics(device, idle, n, counts))
+    metrics.update(stream_metrics(program, device))
     metrics["eigsh.columns_per_rank"] = ratio(counts.get("eigsh.columns"),
                                               counts.get("eigsh.kept"))
     metrics["eigsh.applications_per_clip"] = ratio(
@@ -157,6 +173,22 @@ def simplex_metrics(device, idle, n, counts):
                                                       trips, 1e6)
         metrics[f"{name}.idle_us_per_trip"] = ratio(idle.get(name), trips,
                                                     1e6)
+    return metrics
+
+
+def stream_metrics(program, device):
+    """The zero-storage stream's readings of the module's docstring."""
+    applications = sum(s.name == "stream.apply" for s in program.spans)
+    plans = sum(s.name == "stream.plan" for s in program.spans)
+    stream = program_trace.layer_total(device, "stream")
+    apply_s = None if stream is None else stream - device.get(
+        "stream.plan", 0.0)
+    metrics = {"stream.apply_ms": ratio(apply_s, applications, 1e3),
+               "stream.plan_ms": ratio(device.get("stream.plan"), plans, 1e3),
+               "stream.share_of_sweep": ratio(
+                   apply_s, (apply_s or 0.0) + device.get("eigsh.sweep", 0.0))}
+    for name in STREAM_PHASES:
+        metrics[f"{name}_ms"] = ratio(device.get(name), applications, 1e3)
     return metrics
 
 
